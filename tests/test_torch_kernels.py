@@ -1,0 +1,164 @@
+"""The port's blocked matmul on the CPU against the JAX package's kernel.
+
+The same numpy arrays go to JAX's Pallas ``blocked_matmul`` (interpret mode,
+as ``tests/test_kernels.py`` runs it) and reference, and to the port's
+wrapper, which on a CPU tensor runs its plain version ``ref_matmul``.
+Tolerances are ``tests/test_kernels.py``'s: rel error (max abs diff over
+max |want|) < 1e-5 in fp32, < 2e-2 in bf16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.kernels.blocked_matmul import blocked_matmul as jax_blocked_matmul
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.blocked_matmul import blocked_matmul
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _rel_err(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    denom = np.maximum(np.max(np.abs(want)), 1e-6)
+    return float(np.max(np.abs(got - want))) / denom
+
+
+def _np(x):
+    """A JAX or torch array as fp32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _pair(x, dtype):
+    """The same fp32 numpy values as a JAX and a torch array of ``dtype``
+    (both round fp32 -> bf16 to nearest even, so the inputs are equal)."""
+    return (jnp.asarray(x).astype(JNP[dtype]),
+            torch.from_numpy(x).to(TORCH[dtype]))
+
+
+def _normal(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", [(512, 512, 512), (1024, 512, 512),
+                                 (512, 1024, 1536)])
+def test_shapes_dtypes_match_pallas_and_reference(dtype, mkn):
+    M, K, N = mkn
+    rng = np.random.default_rng(M + K + N)
+    ja, ta = _pair(_normal(rng, (M, K)), dtype)
+    jb, tb = _pair(_normal(rng, (K, N)), dtype)
+    got = blocked_matmul(ta, tb)
+    assert got.dtype == TORCH[dtype] and got.shape == (M, N)
+    assert _rel_err(_np(got), _np(jax_blocked_matmul(ja, jb, interpret=True))) \
+        < TOL[dtype]
+    assert _rel_err(_np(got), _np(jax_ref.ref_matmul(ja, jb))) < TOL[dtype]
+
+
+@pytest.mark.parametrize("act", [None, "relu", "relu2", "silu", "gelu"])
+def test_fused_epilogue_matches_pallas(act):
+    rng = np.random.default_rng(3)
+    a, b, bias = (_normal(rng, (512, 512)), _normal(rng, (512, 512)),
+                  _normal(rng, (512,)))
+    want = jax_blocked_matmul(jnp.asarray(a), jnp.asarray(b),
+                              bias=jnp.asarray(bias), act=act, interpret=True)
+    got = blocked_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                         bias=torch.from_numpy(bias), act=act)
+    assert _rel_err(_np(got), _np(want)) < 1e-5
+
+
+def test_bf16_bias_without_activation_matches_reference():
+    rng = np.random.default_rng(4)
+    (ja, ta), (jb, tb), (jbias, tbias) = (
+        _pair(_normal(rng, s), "bfloat16") for s in ((256, 384), (384, 128),
+                                                     (128,)))
+    got = blocked_matmul(ta, tb, bias=tbias)
+    want = jax_ref.ref_matmul(ja, jb, bias=jbias)
+    assert _rel_err(_np(got), _np(want)) < TOL["bfloat16"]
+
+
+def test_gelu_is_the_tanh_form():
+    # pre-activations of |y| ~ 1-3, where tanh and erf gelu differ by ~1e-3
+    rng = np.random.default_rng(5)
+    a = _normal(rng, (64, 64), 0.25)
+    b = _normal(rng, (64, 128))
+    bias = _normal(rng, (128,))
+    want = _np(jax_blocked_matmul(jnp.asarray(a), jnp.asarray(b),
+                                  bias=jnp.asarray(bias), act="gelu",
+                                  interpret=True))
+    ta, tb, tbias = map(torch.from_numpy, (a, b, bias))
+    got = blocked_matmul(ta, tb, bias=tbias, act="gelu")
+    assert _rel_err(_np(got), want) < 1e-5
+    erf = F.gelu(ta @ tb + tbias)                  # torch's default form
+    assert _rel_err(_np(erf), want) > 1e-5
+
+
+def test_ops_pads_nothing_on_odd_shapes():
+    rng = np.random.default_rng(6)
+    a, b = _normal(rng, (300, 700)), _normal(rng, (700, 520))
+    want = jax_ops.matmul(jnp.asarray(a), jnp.asarray(b), act="gelu")
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b), act="gelu")
+    assert got.shape == (300, 520)
+    assert _rel_err(_np(got), _np(want)) < 1e-5
+
+
+def test_ops_leading_dims():
+    rng = np.random.default_rng(7)
+    a, b = _normal(rng, (4, 128, 512)), _normal(rng, (512, 512))
+    bias = _normal(rng, (512,))
+    want = jax_ops.matmul(jnp.asarray(a), jnp.asarray(b),
+                          bias=jnp.asarray(bias), act="relu")
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b),
+                     bias=torch.from_numpy(bias), act="relu")
+    assert got.shape == (4, 128, 512)
+    assert _rel_err(_np(got), _np(want)) < 1e-5
+
+
+def test_cpu_calls_take_the_plain_version_and_count_no_launch():
+    rng = np.random.default_rng(8)
+    a, b = (torch.from_numpy(_normal(rng, s)) for s in ((33, 17), (17, 9)))
+    before = blocked_matmul.launches
+    got = ops.matmul(a, b, act="silu")
+    assert torch.equal(got, ref.ref_matmul(a, b, act="silu"))
+    assert blocked_matmul.launches == before
+
+
+@pytest.mark.parametrize("case", [
+    "act", "rank", "inner", "dtype_mix", "dtype_f16", "strided", "bias_shape",
+    "bias_dtype", "empty"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    a, b = torch.ones((4, 8)), torch.ones((8, 6))
+    bias, act = None, "relu"
+    if case == "act":
+        act = "tanh"
+    elif case == "rank":
+        a = torch.ones((2, 4, 8))
+    elif case == "inner":
+        b = torch.ones((7, 6))
+    elif case == "dtype_mix":
+        b = b.to(torch.bfloat16)
+    elif case == "dtype_f16":
+        a, b = a.half(), b.half()
+    elif case == "strided":
+        b = torch.ones((6, 8)).t()
+    elif case == "bias_shape":
+        bias = torch.ones((5,))
+    elif case == "bias_dtype":
+        bias = torch.ones((6,), dtype=torch.float64)
+    elif case == "empty":
+        a, b = torch.ones((0, 8)), torch.ones((8, 6))
+    with pytest.raises((ValueError, TypeError)):
+        blocked_matmul(a, b, bias=bias, act=act)
+
+
+def test_ref_rejects_unknown_activation():
+    with pytest.raises(ValueError, match="unsupported activation"):
+        ref.ref_matmul(torch.ones((2, 2)), torch.ones((2, 2)), act="tanh")
