@@ -4,12 +4,24 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Builds every CUDA kernel from the sources in the checkout, holds each one
-against its plain PyTorch version on the card, drives the port's main path
-(the full 8 x 4096 DLRM MLP tower scoring batches of 256, 1024 and 4096
-requests through the fused GEMM + bias + ReLU kernel), times it, places it
-on the Ridgeline plane of the H100 datasheet spec, and runs the
-microbenchmarks.  Any failed check exits nonzero.  The last two lines are
-a JSON summary of each kernel and the device line
+against its plain PyTorch version on the card, and drives the port's two
+main paths, each with the launch counts set to 0 just before it and read
+just after:
+
+  mlp_serve   the full 8 x 4096 DLRM MLP tower scoring batches of 256, 1024
+              and 4096 requests through the fused GEMM + bias + ReLU kernel;
+  lm_prefill  the full smollm-135m (30 layers, width 576, random weights)
+              prefilling token batches (8, 2048), (1, 2048) and (4, 1000)
+              with every layer's attention in the flash-attention kernel,
+              and (8, 2048) once more with the FFN products in the blocked
+              matmul kernel too.
+
+It times both, places them on the Ridgeline plane of the H100 datasheet
+spec, and runs the microbenchmarks.  Any failed check exits nonzero
+(``chip_mutants.py`` shows that the flash and logits checks fail a kernel
+that is wrong in its late kv tiles only).  The
+last two lines are a JSON summary of each kernel (its times are totals over
+its own launches on the main paths) and the device line
 ``{"ok": true, "device": {...}}``.  Every number printed names the card and
 its power limit, as ``nvidia-smi`` reports them.
 """
@@ -38,6 +50,33 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 #: kernel-path vs plain-path logits: the plain path rounds each product to
 #: bf16 before the bias add, the kernel once after it, over 8 layers
 LOGIT_TOL = 2e-2
+#: flash attention vs ``ref_flash_attention``, by ``row_rel_err``: each
+#: output row (one query, one head) is held to its own norm.  An early row
+#: averages a few keys and is large, a late one averages ~1000 and is small,
+#: so a max over all rows would let the early rows set the limit for all.
+#: fp32: FMAs in another order, TF32 off; bf16: p is rounded before P.V and
+#: the output once, each by up to 2^-9 (the bounds of tests/test_kernels.py).
+#: On an H100 bf16 reads up to 5.1e-3, and the planted faults of
+#: chip_mutants.py 0.99-5.4 at the prefill shape.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+#: (B, S, H, K, dh, causal, window): tests/test_kernels.py's four, a ragged
+#: S, S = 1, and the smollm-135m prefill launch
+FLASH_SHAPES = ((2, 512, 4, 2, 64, True, 0), (1, 512, 4, 4, 128, True, 0),
+                (1, 1024, 8, 2, 64, True, 256), (2, 512, 6, 3, 64, False, 0),
+                (2, 300, 9, 3, 64, True, 0), (2, 1, 9, 3, 128, True, 0),
+                (8, 2048, 9, 3, 64, True, 0))
+#: the prefill's token batches (B, S); the first is timed (2048 is
+#: SmolLM-135M's trained context), the last is ragged
+PREFILL = ((8, 2048), (1, 2048), (4, 1000))
+#: flash-path vs plain-path logits by ``row_rel_err`` (each token's row of
+#: 49152 logits to its own norm), bf16, 30 layers.  The attention paths
+#: round at different places (the plain path scales scores by sqrt(dh) in
+#: bf16 and normalises p before its bf16 cast, the kernel scales in fp32
+#: and casts the unnormalised p), and each layer's residual carries the
+#: difference on.  On an H100 the three batches read 2.7-3.0e-2, and
+#: planted faults in the kernel's late kv tiles read 0.58-0.80
+#: (chip_mutants.py; PERF.md): 6e-2 is twice the worst reading.
+LM_TOL = 6e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -59,8 +98,62 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item() / denom
 
 
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows (the last dim) of |got_row - want_row| / |want_row|."""
+    got, want = got.float(), want.float()
+    num = torch.linalg.vector_norm(got - want, dim=-1)
+    den = torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-6)
+    return (num / den).max().item()
+
+
 def max_abs(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item()
+
+
+def attn_work(B: int, S: int, H: int, K: int, dh: int, causal: bool,
+              elem: int):
+    """(FLOP, bytes) one flash launch needs: the Q.K^T and P.V products over
+    the (q, k) pairs that are visible (causal: S(S+1)/2 per head), and q, k,
+    v read once and o written once."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4.0 * B * H * dh * pairs, float(elem) * (2 * B * S * H * dh
+                                                    + 2 * B * S * K * dh)
+
+
+def smollm_tree(cfg, rng: np.random.Generator) -> dict:
+    """Random smollm-135m weights in the JAX package's scanned layout (every
+    block leaf stacked on a leading layer axis): ``dense_init`` and
+    ``embed_init`` scales, norm scales moved away from 1."""
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+
+    def dense(*shape):
+        return rng.standard_normal(shape, np.float32) \
+            * np.float32(1.0 / np.sqrt(shape[-2]))
+
+    def scale(*shape):
+        return np.float32(1.0) + np.float32(0.1) \
+            * rng.standard_normal(shape, np.float32)
+
+    return {
+        "embed": rng.standard_normal((cfg.vocab_size, d), np.float32)
+        * np.float32(0.02),
+        "blocks": {
+            "attn_norm": {"scale": scale(L, d)},
+            "attn": {"wq": dense(L, d, cfg.q_dim), "wk": dense(L, d, cfg.kv_dim),
+                     "wv": dense(L, d, cfg.kv_dim), "wo": dense(L, cfg.q_dim, d)},
+            "ffn_norm": {"scale": scale(L, d)},
+            "ffn": {"w_gate": dense(L, d, f), "w_up": dense(L, d, f),
+                    "w_down": dense(L, f, d)},
+        },
+        "final_norm": {"scale": scale(d)},
+    }
+
+
+def bound_of(flops: float, nbytes: float, hw) -> tuple:
+    """(least ms, "operations" or "bytes") for the work on ``hw``."""
+    t_ops, t_bytes = flops / hw.peak_flops, nbytes / hw.hbm_bw
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> int:
@@ -74,7 +167,8 @@ def main() -> int:
     from repro_torch.core.ridgeline import WorkUnit, analyze
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.blocked_matmul import blocked_matmul
-    from repro_torch.kernels.ref import ref_matmul
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ref import ref_flash_attention, ref_matmul
     from repro_torch.measure import microbench
     from repro_torch.measure.timers import cuda_event_ms, time_callable
 
@@ -142,7 +236,42 @@ def main() -> int:
     say("worst rel_err: " + ", ".join(
         f"{str(k)[6:]} {v:.3e}" for k, v in worst.items()))
 
-    # ---- 4. mlp_serve: the main path -------------------------------------------
+    # ---- 4. flash attention parity ----------------------------------------------
+    phase("flash_parity")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, K, dh, causal, window in FLASH_SHAPES:
+            q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=dev)
+                       .to(dtype) for n in (H, K, K))
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref_flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = row_rel_err(got, want)
+            name = (f"{str(dtype)[6:]} B{B} S{S} H{H} K{K} dh{dh} "
+                    f"causal={causal} window={window}")
+            say(f"  {name}: row_rel_err {err:.3e} (tol {FLASH_TOL[dtype]:g})")
+            check(got.shape == q.shape and got.is_contiguous()
+                  and torch.isfinite(got).all().item(),
+                  f"flash output malformed: {name}")
+            check(err < FLASH_TOL[dtype], f"flash kernel disagrees: {name}: {err}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        # the (B, H, S, dh) entry point, keys at or past seq_len masked
+        q, k, v = (torch.randn((2, n, 384, 64), generator=gen, device=dev)
+                   .to(dtype) for n in (6, 2, 2))
+        k[:, :, 300:] = 1e4
+        got = flash_attention_bhsd(q, k, v, causal=True, seq_len=300)
+        want = ref_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True,
+                                   seq_len=300).transpose(1, 2)
+        err = row_rel_err(got, want)
+        say(f"  flash_attention_bhsd {str(dtype)[6:]} (2,6,384,64) seq_len=300: "
+            f"row_rel_err {err:.3e}")
+        check(err < FLASH_TOL[dtype], f"flash seq_len masking {dtype}: {err}")
+        worst[dtype] = max(worst[dtype], err)
+    say("worst row_rel_err: " + ", ".join(
+        f"{str(k)[6:]} {v:.3e}" for k, v in worst.items()))
+
+    # ---- 5. mlp_serve: the first main path ----------------------------------------
     phase("mlp_serve")
     from repro_torch.configs import get_config
     from repro_torch.convert import mlp_params_from_numpy
@@ -200,7 +329,7 @@ def main() -> int:
             lyr["b"].to(dt)
 
     cast_ms = cuda_event_ms(casts, iters=10)
-    per_batch, work_totals = [], []
+    per_batch = []
     for B in BATCHES:
         h = feats[B].to(dt)
         # rotate through the 8 layers' weights, as the forward does, so no
@@ -230,11 +359,12 @@ def main() -> int:
         whole = analyze(WorkUnit(f"forward_b{B}", fwd_flops, fwd_bytes, 0.0),
                         H100_SXM)
         per_batch.append({
-            "shape": [B, W, W], "kernel_ms": k_ms, "plain_ms": p_ms,
+            "path": "mlp_serve", "shape": [B, W, W], "act": "relu",
+            "launches": L, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": layer.runtime * 1e3,
             "bound_by": "bytes" if layer.bottleneck.value == "memory"
-            else "operations", "max_abs_err": err_abs})
-        work_totals.append((layer_flops, layer_bytes))
+            else "operations", "max_abs_err": err_abs,
+            "flops": layer_flops, "bytes": layer_bytes})
         say(f"  B={B} per layer: kernel {k_ms:.4f} ms "
             f"({layer_flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
             f"library addmm+relu {lib_ms:.4f} ms; bound "
@@ -254,7 +384,197 @@ def main() -> int:
         f"{cast_ms:.4f} ms per forward (bound "
         f"{L * 6.0 * (W * W + W) / H100_SXM.hbm_bw * 1e3:.4f} ms)")
 
-    # ---- 5. microbench ----------------------------------------------------------
+    # ---- 6. lm_prefill: the second main path ----------------------------------------
+    phase("lm_prefill")
+    import torch.nn.functional as F
+
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+
+    lm_cfg = get_config("smollm-135m").replace(use_flash=True)
+    lm_plain = lm_cfg.replace(use_flash=False)
+    lm_kmm = lm_cfg.replace(use_kernel_matmul=True)
+    NL, d, V = lm_cfg.n_layers, lm_cfg.d_model, lm_cfg.vocab_size
+    H, K, dh, f = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.dh, lm_cfg.d_ff
+    bf16 = lm_cfg.compute_dtype
+    t0 = time.perf_counter()
+    lm_params = lm_params_from_numpy(
+        smollm_tree(lm_cfg, np.random.default_rng(0)), device=dev)
+    n_params = count_params(lm_params)
+    tok_rng = np.random.default_rng(1)
+    tokens = {bs: torch.from_numpy(tok_rng.integers(0, V, bs)).to(dev)
+              for bs in PREFILL}
+    say(f"smollm-135m: {NL} layers, d {d}, {H} query / {K} kv heads, dh {dh}, "
+        f"d_ff {f}, vocab {V}, tied embeddings; {n_params} fp32 params from "
+        f"numpy seed 0 in {time.perf_counter() - t0:.2f}s; compute "
+        f"{str(bf16)[6:]}; batches {PREFILL}")
+
+    # the main path: each batch prefilled once with use_flash, and the timed
+    # batch once more with the FFN products in the blocked-matmul kernel too
+    runs = [(bs, lm_cfg) for bs in PREFILL] + [(PREFILL[0], lm_kmm)]
+    flash_attention_bhsd.launches = 0
+    blocked_matmul.launches = 0
+    lm_logits, per_fwd = [], []
+    for bs, c in runs:
+        f0, m0 = flash_attention_bhsd.launches, blocked_matmul.launches
+        lm_logits.append(transformer.forward(lm_params, tokens[bs], c)[0])
+        per_fwd.append((flash_attention_bhsd.launches - f0,
+                        blocked_matmul.launches - m0))
+    torch.cuda.synchronize()
+    lm_launches = {"flash_attention_bhsd": flash_attention_bhsd.launches,
+                   "blocked_matmul": blocked_matmul.launches}
+    say(f"(flash, blocked_matmul) launches per forward {per_fwd}; main path "
+        f"totals {lm_launches}")
+    check(per_fwd == [(NL, 0)] * len(PREFILL) + [(NL, 3 * NL)],
+          f"expected {NL} flash launches per forward and {3 * NL} blocked "
+          f"matmul launches with use_kernel_matmul, got {per_fwd}")
+
+    for (bs, c), got in zip(runs, lm_logits):
+        B, S = bs
+        label = f"B={B} S={S}" + (" use_kernel_matmul" if c.use_kernel_matmul
+                                  else "")
+        check(got.shape == (B, S, V) and torch.isfinite(got).all().item(),
+              f"prefill logits malformed at {label}")
+        want = transformer.forward(lm_params, tokens[bs], lm_plain)[0]
+        err = row_rel_err(got, want)
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        say(f"  {label}: logits kernel path vs plain path row_rel_err "
+            f"{err:.3e} (tol {LM_TOL:g}), max|logit| "
+            f"{want.abs().max().item():.4g}, argmax agrees on "
+            f"{100 * agree:.2f}% of rows")
+        check(err < LM_TOL, f"prefill logits disagree at {label}: {err}")
+        del want
+    del lm_logits, got          # 1.6 GB each at (8, 2048): not in the peak below
+
+    # the timed batch: host clock (each sample ends in a synchronize) and
+    # card clock; analytic F and B_M placed on the h100_sxm plane
+    B0, S0 = PREFILL[0]
+    T = B0 * S0
+    toks = tokens[PREFILL[0]]
+    torch.cuda.reset_peak_memory_stats(dev)
+    transformer.forward(lm_params, toks, lm_cfg)
+    torch.cuda.synchronize()
+    lm_peak = torch.cuda.max_memory_allocated(dev)
+    lm_fwd = time_callable(transformer.forward, lm_params, toks, lm_cfg,
+                           device=dev, repeats=30, warmup=3)
+    lm_p90 = float(np.percentile(lm_fwd.samples, 90))
+    lm_ev = cuda_event_ms(lambda i: transformer.forward(lm_params, toks, lm_cfg),
+                          iters=10)
+    kmm_ev = cuda_event_ms(lambda i: transformer.forward(lm_params, toks, lm_kmm),
+                           iters=10)
+    plain_ev = cuda_event_ms(
+        lambda i: transformer.forward(lm_params, toks, lm_plain), iters=5)
+    attn_flops, _ = attn_work(B0, S0, H, K, dh, True, 2)
+    layer_flops = (2.0 * T * d * (2 * lm_cfg.q_dim + 2 * lm_cfg.kv_dim)
+                   + 3 * 2.0 * T * d * f + attn_flops)
+    lm_flops = NL * layer_flops + 2.0 * T * d * V        # + tied head
+    # least bytes: fp32 params read once, bf16 logits written, tokens read
+    lm_bytes = 4.0 * n_params + 2.0 * T * V + 8.0 * T
+    lm_bound = analyze(WorkUnit(f"smollm_prefill_b{B0}_s{S0}", lm_flops,
+                                lm_bytes, 0.0), H100_SXM)
+    say(f"  B={B0} S={S0} forward (use_flash): host median "
+        f"{lm_fwd.median * 1e3:.4f} ms, p90 {lm_p90 * 1e3:.4f} ms "
+        f"(n={len(lm_fwd.samples)}), {T / lm_fwd.median:.0f} tokens/s; card "
+        f"{lm_ev:.4f} ms; {lm_flops / lm_fwd.median / 1e12:.1f} TFLOP/s; "
+        f"{lm_bound.summary()}; at "
+        f"{100 * lm_bound.runtime / lm_fwd.median:.1f}% of bound; peak memory "
+        f"allocated {lm_peak / 1e9:.3f} GB")
+    say(f"  B={B0} S={S0} forward card time: use_flash {lm_ev:.4f} ms, "
+        f"use_flash + use_kernel_matmul {kmm_ev:.4f} ms, plain path "
+        f"{plain_ev:.4f} ms")
+
+    # where the card's time goes in one forward: every kernel the profiler
+    # saw, by name, summed; their total against the unprofiled card time
+    # (a row of a CPU op also counts its kernels' time as its own, so only
+    # the device's rows are summed)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        transformer.forward(lm_params, toks, lm_cfg)
+        torch.cuda.synchronize()
+    kern = [(r.key, r.count, r.self_device_time_total / 1e3)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    kern_ms = sum(ms for _, _, ms in kern)
+    check(kern_ms > 0, "the profiler saw no kernel time on the card")
+    say(f"  B={B0} S={S0} profile of one forward (use_flash): {len(kern)} "
+        f"kernel names, {sum(n for _, n, _ in kern)} launches, "
+        f"{kern_ms:.4f} ms of kernels = {100 * kern_ms / lm_ev:.1f}% of the "
+        f"unprofiled card time {lm_ev:.4f} ms; by name, most first:")
+    for name, n, ms in sorted(kern, key=lambda x: -x[2])[:20]:
+        say(f"    {ms:9.4f} ms {100 * ms / kern_ms:5.1f}% x{n:<4d} {name[:110]}")
+
+    # per launch, at each main-path shape: the kernel, its plain version and
+    # the library's one call (SDPA, timed as a yardstick only: the port never
+    # calls it); q, k, v of (8, 2048) are 31 MB, so they sit in L2, as they
+    # do in the forward, which has just written them
+    flash_rows = []
+    for B, S in PREFILL:
+        n_launch = NL * sum(1 for bs, _ in runs if bs == (B, S))
+        q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=dev).to(bf16)
+                   for n in (H, K, K))
+        k_ms = cuda_event_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
+        p_ms = cuda_event_ms(lambda i: ref_flash_attention(q, k, v), iters=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = cuda_event_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+        got, want = ops.flash_attention(q, k, v), ref_flash_attention(q, k, v)
+        err_abs, err = max_abs(got, want), row_rel_err(got, want)
+        check(err < FLASH_TOL[bf16],
+              f"flash kernel disagrees at the prefill's ({B},{S}): {err}")
+        flops, nbytes = attn_work(B, S, H, K, dh, True, 2)
+        b_ms, b_by = bound_of(flops, nbytes, H100_SXM)
+        flash_rows.append({
+            "path": "lm_prefill", "shape": [B, S, H, K, dh], "causal": True,
+            "launches": n_launch, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes})
+        say(f"  flash B={B} S={S} H={H} K={K} dh={dh} per launch: kernel "
+            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{p_ms:.4f} ms, library SDPA {lib_ms:.4f} ms "
+            f"({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}), kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of bound; {n_launch} main-path "
+            f"launches; max_abs_err {err_abs:.3e}, row_rel_err {err:.3e} "
+            f"(tol {FLASH_TOL[bf16]:g})")
+    attn_ms = NL * flash_rows[0]["kernel_ms"]
+    say(f"  B={B0} S={S0}: {NL} flash launches take {attn_ms:.4f} ms = "
+        f"{100 * attn_ms / lm_ev:.1f}% of the forward's card time")
+
+    # the FFN products of the use_kernel_matmul forward, per launch
+    ffn = {n: lm_params["blocks"][0]["ffn"][n].to(bf16)
+           for n in ("w_gate", "w_up", "w_down")}
+    x_in = torch.randn((T, d), generator=gen, device=dev).to(bf16)
+    x_mid = torch.randn((T, f), generator=gen, device=dev).to(bf16)
+    ffn_rows = []
+    for a_, b_, act in ((x_in, ffn["w_gate"], "silu"), (x_in, ffn["w_up"], None),
+                        (x_mid, ffn["w_down"], None)):
+        M, Kd = a_.shape
+        N = b_.shape[1]
+        k_ms = cuda_event_ms(lambda i: blocked_matmul(a_, b_, act=act), iters=20)
+        p_ms = cuda_event_ms(lambda i: ref_matmul(a_, b_, act=act), iters=20)
+        lib_ms = cuda_event_ms(
+            (lambda i: F.silu(torch.mm(a_, b_))) if act
+            else (lambda i: torch.mm(a_, b_)), iters=20)
+        got, want = blocked_matmul(a_, b_, act=act), ref_matmul(a_, b_, act=act)
+        err_abs, err = max_abs(got, want), rel_err(got, want)
+        check(err < TOL[bf16],
+              f"blocked matmul disagrees at the FFN's ({M},{Kd},{N}): {err}")
+        flops, nbytes = 2.0 * M * Kd * N, 2.0 * (M * Kd + Kd * N + M * N)
+        b_ms, b_by = bound_of(flops, nbytes, H100_SXM)
+        ffn_rows.append({
+            "path": "lm_prefill", "shape": [M, Kd, N], "act": act,
+            "launches": NL, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes})
+        say(f"  blocked_matmul ({M},{Kd},{N}) act={act} per launch: kernel "
+            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{p_ms:.4f} ms, library mm{'+silu' if act else ''} "
+            f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms "
+            f"({b_by}); max_abs_err {err_abs:.3e}, rel_err {err:.3e} "
+            f"(tol {TOL[bf16]:g})")
+    del got, want
+
+    # ---- 7. microbench ----------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
     # ctypes call), enqueue only, beside one torch.mm at the same tiny shape
@@ -283,26 +603,39 @@ def main() -> int:
                           "share_of_bound": a.runtime / m.seconds}))
 
     # ---- summary ------------------------------------------------------------------
-    n = L  # launches per batch on the main path
-    tot_flops = sum(n * flops for flops, _ in work_totals)
-    tot_bytes = sum(n * nbytes for _, nbytes in work_totals)
-    t_ops, t_bytes = tot_flops / H100_SXM.peak_flops, tot_bytes / H100_SXM.hbm_bw
-    summary = {"kernels": [{
-        "name": "blocked_matmul",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/blocked_matmul.cu",
-        "replaces": "src/repro/kernels/blocked_matmul.py:57",
-        "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in per_batch),
-        # times are totals over the main path's launches (8 per batch)
-        "ms": sum(n * r["kernel_ms"] for r in per_batch),
-        "plain_ms": sum(n * r["plain_ms"] for r in per_batch),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": sum(n * r["library_ms"] for r in per_batch),
-        "card": card,
-        "per_launch": per_batch,
-    }]}
+    def entry(name: str, source: str, replaces: str, launches: int,
+              rows: list) -> dict:
+        """Times are totals over the kernel's own main-path launches: each
+        per-launch time times the launches at that shape."""
+        check(sum(r["launches"] for r in rows) == launches,
+              f"{name}: timed rows cover {sum(r['launches'] for r in rows)} "
+              f"launches, the main paths made {launches}")
+        b_ms, b_by = bound_of(sum(r["launches"] * r["flops"] for r in rows),
+                              sum(r["launches"] * r["bytes"] for r in rows),
+                              H100_SXM)
+        return {
+            "name": name, "route": "cuda",
+            "source": source, "replaces": replaces, "launches": launches,
+            "times": "ms, plain_ms, library_ms and bound_ms are totals over "
+                     "the kernel's own launches on the main paths",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["launches"] * r["kernel_ms"] for r in rows),
+            "plain_ms": sum(r["launches"] * r["plain_ms"] for r in rows),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": sum(r["launches"] * r["library_ms"] for r in rows),
+            "card": card, "per_launch": rows}
+
+    summary = {"kernels": [
+        entry("blocked_matmul",
+              "src/repro_torch/kernels/csrc/blocked_matmul.cu",
+              "src/repro/kernels/blocked_matmul.py:57",
+              main_launches + lm_launches["blocked_matmul"],
+              per_batch + ffn_rows),
+        entry("flash_attention_bhsd",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:75",
+              lm_launches["flash_attention_bhsd"], flash_rows),
+    ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -4,7 +4,8 @@ Subpackages mirror ``repro``'s names so each module has a visible
 counterpart:
 
   configs   the architecture registry (data only)
-  models    ``ModelConfig`` and the DLRM MLP tower
+  models    ``ModelConfig``, the DLRM MLP tower and the dense decoder's
+            train / prefill forward
   kernels   hand-written CUDA kernels, their plain PyTorch versions, and
             the dispatch layer (``ops``)
   core      ``HardwareSpec`` (H100 datasheet presets) and the Ridgeline model

@@ -1,1 +1,2 @@
-"""Model families of the port (the DLRM MLP tower so far)."""
+"""Model families of the port: the DLRM MLP tower and the dense decoder
+(``common``, ``attention``, ``ffn``, ``transformer``)."""

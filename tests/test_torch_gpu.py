@@ -11,8 +11,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.blocked_matmul import blocked_matmul
-from repro_torch.kernels.ref import ref_matmul
-from repro_torch.models import mlp_dlrm
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.ref import ref_flash_attention, ref_matmul
+from repro_torch.models import mlp_dlrm, transformer
 
 pytestmark = pytest.mark.gpu
 
@@ -79,3 +80,65 @@ def test_mlp_forward_launches_one_kernel_per_layer(cuda):
 def test_kernel_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match="on"):
         blocked_matmul(torch.ones((2, 2), device=cuda), torch.ones((2, 2)))
+
+
+#: flash attention, rel error vs ``ref_flash_attention``: fp32 FMAs in
+#: another order (no TF32); bf16 p rounded before P.V (tests/test_kernels.py)
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("case", [
+    (2, 512, 4, 2, 64, True, 0), (1, 512, 4, 4, 128, True, 0),
+    (1, 1024, 8, 2, 64, True, 256), (2, 512, 6, 3, 64, False, 0),
+    (2, 300, 9, 3, 64, True, 0), (3, 1, 4, 2, 128, True, 0),
+    (1, 200, 6, 2, 128, False, 50)],
+    ids=lambda c: "B{}S{}H{}K{}d{}c{:d}w{}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain_version(cuda, dtype, case):
+    B, S, H, K, dh, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=cuda).to(dtype)
+               for n in (H, K, K))
+    before = flash_attention_bhsd.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    want = ref_flash_attention(q, k, v, causal=causal, window=window)
+    assert _rel_err(got, want) < FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_masks_keys_past_seq_len(cuda, causal):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, n, 384, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16) for n in (6, 2, 2))
+    k[:, :, 300:] = 1e4                      # junk the mask must hide
+    got = flash_attention_bhsd(q, k, v, causal=causal, seq_len=300)
+    want = ref_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               seq_len=300).transpose(1, 2)
+    assert _rel_err(got, want) < FLASH_TOL[torch.bfloat16]
+
+
+def test_flash_kernel_rejects_unsupported_head_dim(cuda):
+    q, k, v = (torch.ones((1, 64, n, 32), device=cuda) for n in (4, 2, 2))
+    before = flash_attention_bhsd.launches
+    with pytest.raises(ValueError, match="dh"):
+        ops.flash_attention(q, k, v)
+    assert flash_attention_bhsd.launches == before
+
+
+def test_lm_forward_launches_one_flash_kernel_per_layer(cuda):
+    cfg = get_config("smollm-135m").replace(n_layers=2, vocab_size=512,
+                                            use_flash=True)
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, 512, (2, 200), device=cuda)
+    before = flash_attention_bhsd.launches
+    got, _ = transformer.forward(params, tokens, cfg)
+    assert flash_attention_bhsd.launches == before + 2
+    want, _ = transformer.forward(params, tokens, cfg.replace(use_flash=False))
+    assert got.shape == (2, 200, 512) and torch.isfinite(got).all()
+    # bf16: the kernel rounds unnormalised p, the plain path scores in bf16
+    assert _rel_err(got, want) < 5e-2

@@ -10,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_mutants.py"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
@@ -25,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, chip_mutants
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 print(json.dumps({"n": len(names), "bad": bad}))
