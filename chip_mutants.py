@@ -1,26 +1,50 @@
 #!/usr/bin/env python3
-"""Planted faults in the flash-attention kernel, held to chip_smoke.py's checks.
+"""Planted faults in both CUDA kernels, held to chip_smoke.py's checks.
 
     python3 chip_mutants.py        # from the repository root; needs one card
 
 A check that passes the real kernel shows little unless it fails a wrong
-one.  Each mutant is ``src/repro_torch/kernels/csrc/flash_attention.cu``
-with one edit that makes the bf16 kernel wrong in its late kv tiles only,
-where an output row averages ~1000 keys and is small:
+one.  Each mutant is a kernel source with one planted fault:
 
-  skip_tile_16    kv tile 16 (keys 1024-1087) is skipped when a later tile
-                  follows it
-  stale_alpha_16  from kv tile 16 on, acc is not rescaled by alpha when a
-                  tile raises the row's running max
+  flash_attention.cu (the bf16 kernel is wrong in its late kv tiles only,
+  where an output row averages ~1000 keys and is small)
+    skip_tile_16    kv tile 16 (keys 1024-1087) is skipped when a later tile
+                    follows it
+    stale_alpha_16  from kv tile 16 on, acc is not rescaled by alpha when a
+                    tile raises the row's running max
+  blocked_matmul.cu (the sm90 kernel)
+    release_early   each ring stage is released one k-step early: right
+                    after the wgmma that reads it is issued, not once it has
+                    retired, so the producer's next TMA load may overwrite
+                    it while it is read
+    skip_last_k     the last k-step's wgmma is skipped (its stage is still
+                    waited for and released)
 
 Each mutant is compiled from an edited copy of the source written under
 ``build/mutants/`` (the checkout's sources stay as they are) and swapped in
-for the real kernel.  The kernel alone at the smollm-135m prefill shape
-(8, 2048, 9/3 heads, dh 64, bf16), and the whole prefill forward at
-(8, 2048), are then held to chip_smoke.py's checks (``row_rel_err`` against
-FLASH_TOL and LM_TOL), the real kernel first.  The whole-tensor measure
-max|got - want| / max|want| is printed beside them.  Exits 0 when the real
-kernel passes both checks and every mutant fails both.
+for the real kernel, the real kernel first.  A flash mutant is held to the
+kernel alone at the smollm-135m prefill shape (8, 2048, 9/3 heads, dh 64,
+bf16) and to the whole prefill forward at (8, 2048) (``row_rel_err``
+against FLASH_TOL and LM_TOL).  A GEMM mutant is held to the kernel alone
+at the six main-path shapes (``rel_err`` against TOL) and to the logits of
+the dlrm-mlp forward at B = 256 and 4096 (LOGIT_TOL) and of the prefill
+forward at (8, 2048) with ``use_kernel_matmul`` (LM_TOL).
+
+The same machinery builds design alternatives of the sm90 kernel, which the
+real one was chosen over; each must pass the kernel check at the shapes it
+is timed at, beside the real kernel with the same tiles (``kernel_ms``):
+
+    split_k2/4/8    K split 2, 4 or 8 ways: each CTA sums one part of K
+                    into an fp32 workspace the launcher allocates, and a
+                    second kernel adds the parts, the bias and act (timed at
+                    the memory-bound (256, 4096, 4096), where the 128-row
+                    tiles alone fill few SMs; K a multiple of 64 * splits)
+    act_switch      the epilogue switches on the activation per element, in
+                    one instantiation, instead of one instantiation per act
+
+Exits 0 when the real kernels pass every check, each flash mutant fails
+both of its checks, each GEMM mutant fails the kernel check at some
+main-path shape, and each alternative passes.
 """
 from __future__ import annotations
 
@@ -36,13 +60,168 @@ import chip_smoke as smoke     # also puts src/ on sys.path
 
 _RESCALE = ("      acc[n][0] *= alpha[0];\n      acc[n][1] *= alpha[0];\n"
             "      acc[n][2] *= alpha[1];\n      acc[n][3] *= alpha[1];\n")
-#: name -> (text of the bf16 kernel, its replacement)
+#: source -> mutant name -> [(text of the kernel, its replacement), ...]
 MUTANTS = {
-    "skip_tile_16": ("    const int k0 = kt * kBfTileK;\n",
-                     "    if (kt == 16 && kt + 1 < kt_last) continue;\n"
-                     "    const int k0 = kt * kBfTileK;\n"),
-    "stale_alpha_16": (_RESCALE, "      if (kt >= 16) continue;\n" + _RESCALE),
+    "flash_attention": {
+        "skip_tile_16": [("    const int k0 = kt * kBfTileK;\n",
+                          "    if (kt == 16 && kt + 1 < kt_last) continue;\n"
+                          "    const int k0 = kt * kBfTileK;\n")],
+        "stale_alpha_16": [(_RESCALE,
+                            "      if (kt >= 16) continue;\n" + _RESCALE)],
+    },
+    "blocked_matmul": {
+        "release_early": [
+            ("        if (ks > 0 && lane == 0) mbar_arrive(&empty[prev]);\n",
+             "        if (lane == 0) mbar_arrive(&empty[s]);\n"),
+            ("      if (lane == 0) mbar_arrive(&empty[prev]);\n", "")],
+        "skip_last_k": [("for (int kk = 0; kk < kSmBK / 16; ++kk)",
+                         "for (int kk = 0; kk < (ks + 1 < k_steps ? kSmBK / 16"
+                         " : 0); ++kk)")],
+    },
 }
+
+
+_SPLIT_KERNEL = "  const int tiles = m_tiles * n_tiles;\n"
+_SPLIT_DECODE = (
+    "    m0 = (n_fastest ? t / n_tiles : t % m_tiles) * kSmBM;\n"
+    "    n0 = (n_fastest ? t % n_tiles : t / m_tiles) * BN;\n")
+_SPLIT_STORE = """      {   // this K part's fp32 sums, for splitk_finish
+        const int row0 = m0 + 64 * cw + 16 * warp + lane / 4;
+        float* part = ws + (int64_t)(t / (m_tiles * n_tiles)) * M * N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (row0 + 8 * h < M && col < N)
+              *reinterpret_cast<float2*>(part + (int64_t)(row0 + 8 * h) * N
+                                         + col) =
+                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+"""
+_SPLIT_FINISH = """// Adds the kSplits parts, the bias and act; one cast.  Four columns a thread.
+__global__ void splitk_finish(const float* __restrict__ ws,
+                              const __nv_bfloat16* __restrict__ bias,
+                              __nv_bfloat16* __restrict__ C, int M, int N,
+                              int act) {
+  const int64_t MN = (int64_t)M * N;
+  const int64_t i = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= MN) return;
+  float y[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) y[c] = 0.0f;
+  for (int s = 0; s < kSplits; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(ws + s * MN + i);
+    y[0] += p.x; y[1] += p.y; y[2] += p.z; y[3] += p.w;
+  }
+  const int col = static_cast<int>(i % N);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    y[c] = apply_act(y[c] + (bias ? __bfloat162float(bias[col + c]) : 0.0f),
+                     act);
+  *reinterpret_cast<uint2*>(C + i) =
+      make_uint2(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]));
+}
+
+"""
+_SPLIT_LAUNCH = """  static float* ws = nullptr;   // the parts' fp32 sums, grown as needed
+  static size_t ws_elems = 0;
+  if ((size_t)kSplits * M * N > ws_elems) {
+    cudaFree(ws);
+    ws_elems = (size_t)kSplits * M * N;
+    rc = cudaMalloc(&ws, ws_elems * sizeof(float));
+    if (rc != cudaSuccess) return rc;
+  }
+  gemm_sm90_kernel<BN><<<grid, kSmThreads, Cfg::kSmem, stream>>>(
+      ta, tb, bias, C, M, N, K, act, n_fastest, ws);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  splitk_finish<<<((int64_t)M * N / 4 + 255) / 256, 256, 0, stream>>>(
+      ws, bias, C, M, N, act);
+  return cudaGetLastError();
+"""
+
+
+def _split_k(n: int) -> list:
+    return [
+        ("constexpr int kBoxBytes = kSmBK * 64 * 2;",
+         f"constexpr int kSplits = {n};\nconstexpr int kBoxBytes = kSmBK * 64 * 2;"),
+        ("int act, int n_fastest) {", "int act, int n_fastest, float* ws) {"),
+        (_SPLIT_KERNEL,
+         "  const int tiles = m_tiles * n_tiles * kSplits;\n"
+         "  const int k_per = k_steps / kSplits;\n"),
+        (_SPLIT_DECODE, "    const int u = t % (m_tiles * n_tiles);\n"
+         + _SPLIT_DECODE.replace("? t", "? u").replace(": t", ": u")),
+        ("for (int ks = 0; ks < k_steps; ++ks) {\n          mbar_wait",
+         "const int k0 = t / (m_tiles * n_tiles) * k_per;\n"
+         "        for (int ks = k0; ks < k0 + k_per; ++ks) {\n          mbar_wait"),
+        ("for (int ks = 0; ks < k_steps; ++ks) {\n        mbar_wait",
+         "for (int ks = 0; ks < k_per; ++ks) {\n        mbar_wait"),
+        ("      sm90_epilogue<BN>(acc, m0 + 64 * cw + 16 * warp + lane / 4, n0,"
+         " M, N,\n                        bias, C, act);\n", _SPLIT_STORE),
+        ("bool aligned(const void* p, uintptr_t bytes) {",
+         _SPLIT_FINISH + "bool aligned(const void* p, uintptr_t bytes) {"),
+        ("  gemm_sm90_kernel<BN><<<grid, kSmThreads, Cfg::kSmem, stream>>>(\n"
+         "      ta, tb, bias, C, M, N, K, act, n_fastest);\n"
+         "  return cudaGetLastError();\n", _SPLIT_LAUNCH),
+        ("(tiles < sms[dev] ? tiles : sms[dev])",
+         "(tiles * kSplits < sms[dev] ? tiles * kSplits : sms[dev])"),
+    ]
+
+
+#: source -> alternative -> edits, as MUTANTS
+ALTERNATIVES = {"blocked_matmul": {
+    **{f"split_k{n}": _split_k(n) for n in (2, 4, 8)},
+    "act_switch": [
+        ("template <int BN, int ACT>\n__device__ __forceinline__ void "
+         "sm90_store_tile(",
+         "__device__ __forceinline__ float act_rt(float y, int act) {\n"
+         "  switch (act) {\n"
+         "    case kRelu: return fast_act<kRelu>(y);\n"
+         "    case kRelu2: return fast_act<kRelu2>(y);\n"
+         "    case kSilu: return fast_act<kSilu>(y);\n"
+         "    case kGelu: return fast_act<kGelu>(y);\n"
+         "    default: return y;\n  }\n}\n\n"
+         "template <int BN, int ACT>\n__device__ __forceinline__ void "
+         "sm90_store_tile("),
+        ("__nv_bfloat16* __restrict__ C) {\n  const int lane",
+         "__nv_bfloat16* __restrict__ C, int act) {\n  const int lane"),
+        ("fast_act<ACT>(acc[4 * j + 2 * h] + bz.x)",
+         "act_rt(acc[4 * j + 2 * h] + bz.x, act)"),
+        ("fast_act<ACT>(acc[4 * j + 2 * h + 1] + bz.y)",
+         "act_rt(acc[4 * j + 2 * h + 1] + bz.y, act)"),
+        ("      sm90_epilogue<BN>(acc,", "      sm90_store_tile<BN, kNone>(acc,"),
+    ],
+}}
+
+
+def build_mutants(_build, copies: dict = MUTANTS) -> dict:
+    """Compile every edited copy in ``copies`` at once: {(source, name):
+    CDLL}."""
+    out_dir = _build.BUILD_DIR.parent / "mutants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for source, mutants in copies.items():
+        src = (_build.CSRC / f"{source}.cu").read_text()
+        for name, edits in mutants.items():
+            text = src
+            for old, new in edits:
+                smoke.check(src.count(old) == 1,
+                            f"{name}: its text is not in {source}.cu once")
+                text = text.replace(old, new)
+            cu = out_dir / f"{source}_{name}.cu"
+            cu.write_text(text)
+            so = cu.with_suffix(".so")
+            procs[(source, name)] = (so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        smoke.check(proc.returncode == 0, f"nvcc failed on {key}:\n{log}")
+        libs[key] = ctypes.CDLL(str(so))
+    return libs
 
 
 def main() -> int:
@@ -51,11 +230,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
-    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.convert import lm_params_from_numpy, mlp_params_from_numpy
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import blocked_matmul as bm
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import ref_flash_attention
-    from repro_torch.models import transformer
+    from repro_torch.kernels.ref import ref_flash_attention, ref_matmul
+    from repro_torch.measure.timers import kernel_ms
+    from repro_torch.models import mlp_dlrm, transformer
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -63,25 +244,11 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    # every mutant's nvcc at once, the real kernel's build meanwhile
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    out_dir = _build.BUILD_DIR.parent / "mutants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (old, new) in MUTANTS.items():
-        smoke.check(src.count(old) == 1,
-                    f"{name}: its text is not in flash_attention.cu once")
-        cu = out_dir / f"flash_attention_{name}.cu"
-        cu.write_text(src.replace(old, new))
-        so = cu.with_suffix(".so")
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    kernels = {"real": fa._launcher()}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        smoke.check(proc.returncode == 0, f"nvcc failed on {name}:\n{log}")
-        kernels[name] = fa.bind(ctypes.CDLL(str(so)))
+    # the real kernels, then every mutant's nvcc at once
+    _build.build()
+    libs = build_mutants(_build, {
+        src: {**MUTANTS.get(src, {}), **ALTERNATIVES.get(src, {})}
+        for src in MUTANTS})
 
     cfg = get_config("smollm-135m").replace(use_flash=True)
     bf16 = cfg.compute_dtype
@@ -95,17 +262,21 @@ def main() -> int:
         smoke.smollm_tree(cfg, np.random.default_rng(0)), device=dev)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S))).to(dev)
-    want_lm = transformer.forward(params, tokens, cfg.replace(use_flash=False))[0]
+    lm_plain = cfg.replace(use_flash=False)
+    want_lm = transformer.forward(params, tokens, lm_plain)[0]
 
+    ok = True
     real_launcher = fa._launcher
-    rows = []
     try:
+        kernels = {"real": fa._launcher(),
+                   **{n: fa.bind(lib) for (src, n), lib in libs.items()
+                      if src == "flash_attention" and n in MUTANTS[src]}}
         for name, fn in kernels.items():
             fa._launcher = lambda fn=fn: fn
             got = ops.flash_attention(q, k, v)
             logits = transformer.forward(params, tokens, cfg)[0]
             row = {
-                "kernel": name,
+                "kernel": name, "source": "flash_attention",
                 "attn_row_rel_err": smoke.row_rel_err(got, want_attn),
                 "attn_tol": smoke.FLASH_TOL[bf16],
                 "attn_whole_rel_err": smoke.rel_err(got, want_attn),
@@ -119,12 +290,100 @@ def main() -> int:
             row["caught"] = [row["attn_row_rel_err"] >= row["attn_tol"],
                              row["logits_row_rel_err"] >= row["logits_tol"]]
             print(json.dumps(row), flush=True)
-            rows.append(row)
+            ok &= row["caught"] == ([False, False] if name == "real"
+                                    else [True, True])
             del got, logits
     finally:
         fa._launcher = real_launcher
-    ok = (rows[0]["caught"] == [False, False]
-          and all(r["caught"] == [True, True] for r in rows[1:]))
+
+    # the sm90 GEMM: its six main-path shapes (M, K, N, act, bias), the
+    # dlrm-mlp forward and the prefill forward with use_kernel_matmul
+    W = 4096
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = [(256, W, W, "relu", True), (1024, W, W, "relu", True),
+              (4096, W, W, "relu", True), (B * S, d, f, "silu", False),
+              (B * S, d, f, None, False), (B * S, f, d, None, False)]
+    operands = []
+    for M, K, N, act, has_bias in shapes:
+        a = torch.randn((M, K), generator=gen, device=dev).to(bf16)
+        b = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5).to(bf16)
+        bias = (torch.randn((N,), generator=gen, device=dev).to(bf16)
+                if has_bias else None)
+        operands.append((a, b, bias, act, ref_matmul(a, b, bias=bias, act=act)))
+    mlp_cfg = get_config("dlrm-mlp").replace(use_kernel_matmul=True)
+    rng = np.random.default_rng(0)
+    mlp_params = mlp_params_from_numpy(smoke.dlrm_tree(mlp_cfg, rng), device=dev)
+    feats = {n: torch.from_numpy(rng.standard_normal((n, W), np.float32)).to(dev)
+             for n in (256, 4096)}
+    want_mlp = {n: mlp_dlrm.forward(mlp_params, x,
+                                    mlp_cfg.replace(use_kernel_matmul=False))
+                for n, x in feats.items()}
+    lm_kmm = cfg.replace(use_kernel_matmul=True)
+
+    real_launcher = bm._launcher
+    try:
+        kernels = {"real": bm._launcher(),
+                   **{n: bm.bind(lib) for (src, n), lib in libs.items()
+                      if src == "blocked_matmul" and n in MUTANTS[src]}}
+        for name, fns in kernels.items():
+            bm._launcher = lambda fns=fns: fns
+            errs = []
+            for a, b, bias, act, want in operands:
+                before = bm.blocked_matmul.launches_by_variant["sm90"]
+                got = bm.blocked_matmul(a, b, bias=bias, act=act)
+                smoke.check(bm.blocked_matmul.launches_by_variant["sm90"]
+                            == before + 1, "a main-path shape left sm90")
+                errs.append(smoke.rel_err(got, want))
+            mlp_errs = [smoke.rel_err(mlp_dlrm.forward(mlp_params, x, mlp_cfg),
+                                      want_mlp[n]) for n, x in feats.items()]
+            logits = transformer.forward(params, tokens, lm_kmm)[0]
+            row = {
+                "kernel": name, "source": "blocked_matmul",
+                "shapes": [list(sh[:4]) for sh in shapes],
+                "kernel_rel_err": errs, "kernel_tol": smoke.TOL[bf16],
+                "mlp_logits_rel_err": mlp_errs, "mlp_tol": smoke.LOGIT_TOL,
+                "lm_logits_row_rel_err": smoke.row_rel_err(logits, want_lm),
+                "lm_tol": smoke.LM_TOL, "card": card}
+            row["caught"] = [max(errs) >= smoke.TOL[bf16],
+                             max(mlp_errs) >= smoke.LOGIT_TOL,
+                             row["lm_logits_row_rel_err"] >= smoke.LM_TOL]
+            print(json.dumps(row), flush=True)
+            ok &= (row["caught"] == [False] * 3 if name == "real"
+                   else row["caught"][0])
+            del got, logits
+    finally:
+        bm._launcher = real_launcher
+
+    # the alternatives, each beside the real kernel with the same tiles:
+    # (M, K, N, act, bias) -> [(BN, n_fastest), ...]
+    timed_at = {
+        "split_k": {(256, W, W, "relu", True):
+                    [(64, False), (128, False), (256, False)]},
+        "act_switch": {sh: [bm.tile_plan(sh[0], sh[2], sh[1],
+                                         torch.cuda.get_device_properties(
+                                             dev).multi_processor_count)]
+                       for sh in shapes[2:5]},
+    }
+    real_sm90 = bm._launcher()[1]
+    for name in ALTERNATIVES["blocked_matmul"]:
+        alt_sm90 = bm.bind(libs[("blocked_matmul", name)])[1]
+        kind = "split_k" if name.startswith("split_k") else name
+        for sh, plans in timed_at[kind].items():
+            a, b, bias, act, want = operands[shapes.index(sh)]
+            bs_ = [b] + [(torch.randn(b.shape, generator=gen, device=dev)
+                          / b.shape[0] ** 0.5).to(bf16) for _ in range(7)]
+            for plan in map(lambda p: bm.Plan(*p), plans):
+                err = smoke.rel_err(smoke.sm90_option(alt_sm90, a, b, bias,
+                                                      act, plan), want)
+                ms = {k: kernel_ms(lambda i: smoke.sm90_option(
+                    fn, a, bs_[i % 8], bias, act, plan), iters=40)
+                    for k, fn in (("real_ms", real_sm90), ("ms", alt_sm90),
+                                  ("real_ms_again", real_sm90))}
+                row = {"alternative": name, "shape": list(sh[:4]),
+                       "plan": list(plan), **ms, "kernel_rel_err": err,
+                       "kernel_tol": smoke.TOL[bf16], "card": card}
+                print(json.dumps(row), flush=True)
+                ok &= err < smoke.TOL[bf16]
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

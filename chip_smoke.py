@@ -9,17 +9,21 @@ main paths, each with the launch counts set to 0 just before it and read
 just after:
 
   mlp_serve   the full 8 x 4096 DLRM MLP tower scoring batches of 256, 1024
-              and 4096 requests through the fused GEMM + bias + ReLU kernel;
+              and 4096 requests through the fused GEMM + bias + ReLU kernel
+              (its Hopper variant, sm90: TMA ring, wgmma, persistent grid);
   lm_prefill  the full smollm-135m (30 layers, width 576, random weights)
               prefilling token batches (8, 2048), (1, 2048) and (4, 1000)
               with every layer's attention in the flash-attention kernel,
               and (8, 2048) once more with the FFN products in the blocked
               matmul kernel too.
 
-It times both, places them on the Ridgeline plane of the H100 datasheet
-spec, and runs the microbenchmarks.  Any failed check exits nonzero
-(``chip_mutants.py`` shows that the flash and logits checks fail a kernel
-that is wrong in its late kv tiles only).  The
+Every blocked-matmul launch of both paths must take the sm90 variant (the
+wrapper counts launches by variant).  It times both paths, places them on
+the Ridgeline plane of the H100 datasheet spec, times the sm90 kernel's
+tile options at every main-path shape, and runs the microbenchmarks.  Any
+failed check exits nonzero (``chip_mutants.py`` shows that the parity and
+logits checks fail kernels with planted faults: late kv tiles of the flash
+kernel, the ring and the last k-step of the sm90 GEMM).  The
 last two lines are a JSON summary of each kernel (its times are totals over
 its own launches on the main paths) and the device line
 ``{"ok": true, "device": {...}}``.  Every number printed names the card and
@@ -40,8 +44,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 BATCHES = (256, 1024, 4096)
+#: (M, K, N).  bf16 takes the sm90 kernel wherever K and N are multiples of
+#: 8, the wmma kernel at (300, 700, 520) and (1, 4100, 17).  The sm90 edges:
+#: ragged M (1000, 3000, 5000) and M = 1; N = 576 (BN 192) and N = 8; K = 64
+#: and K = 8 (one k-step, fewer than the ring's stages); 96 tiles (< 132
+#: SMs) and 320 (not a multiple of 132)
 PARITY_SHAPES = ((4096, 4096, 4096), (256, 4096, 4096), (1000, 4096, 3000),
-                 (300, 700, 520), (1, 4100, 17))
+                 (300, 700, 520), (1, 4100, 17), (1000, 576, 1536),
+                 (1, 4096, 4096), (1000, 1536, 576), (300, 64, 8),
+                 (130, 8, 520), (3000, 1024, 1000), (5000, 512, 2048))
 ACTS = (None, "relu", "relu2", "silu", "gelu")
 #: rel error = max|got - want| / max|want|.  fp32: IEEE FMAs in another
 #: summation order than cuBLAS; bf16: one rounding of the output (the
@@ -110,6 +121,20 @@ def max_abs(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def sm90_option(sm90, a: torch.Tensor, b: torch.Tensor, bias, act, plan):
+    """One launch of ``sm90`` (the second entry point ``blocked_matmul.bind``
+    returns) with the tiles of ``plan``, past the wrapper and its counters."""
+    from repro_torch.kernels.blocked_matmul import _ACT_CODE
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    rc = sm90(a.data_ptr(), b.data_ptr(),
+              None if bias is None else bias.data_ptr(), out.data_ptr(),
+              M, N, K, _ACT_CODE[act], plan.bn, int(plan.n_fastest),
+              torch.cuda.current_stream(a.device).cuda_stream)
+    check(rc == 0, f"sm90 {plan} failed at ({M},{K},{N}): CUDA error {rc}")
+    return out
+
+
 def attn_work(B: int, S: int, H: int, K: int, dh: int, causal: bool,
               elem: int):
     """(FLOP, bytes) one flash launch needs: the Q.K^T and P.V products over
@@ -149,6 +174,18 @@ def smollm_tree(cfg, rng: np.random.Generator) -> dict:
     }
 
 
+def dlrm_tree(cfg, rng: np.random.Generator) -> dict:
+    """Random dlrm-mlp weights: dense layers at 1/sqrt(width), biases at
+    0.1, one head column."""
+    W, L = cfg.mlp_widths[0], len(cfg.mlp_widths)
+    scale = np.float32(1.0 / np.sqrt(W))
+    return {"layers": [{"w": rng.standard_normal((W, W), np.float32) * scale,
+                        "b": rng.standard_normal(W, np.float32)
+                        * np.float32(0.1)} for _ in range(L)],
+            "head": {"w": rng.standard_normal((W, 1), np.float32) * scale,
+                     "b": rng.standard_normal(1, np.float32)}}
+
+
 def bound_of(flops: float, nbytes: float, hw) -> tuple:
     """(least ms, "operations" or "bytes") for the work on ``hw``."""
     t_ops, t_bytes = flops / hw.peak_flops, nbytes / hw.hbm_bw
@@ -166,11 +203,13 @@ def main() -> int:
     from repro_torch.core.hardware import H100_SXM, H100_SXM_FP32
     from repro_torch.core.ridgeline import WorkUnit, analyze
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import blocked_matmul as bm
     from repro_torch.kernels.blocked_matmul import blocked_matmul
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.ref import ref_flash_attention, ref_matmul
     from repro_torch.measure import microbench
-    from repro_torch.measure.timers import cuda_event_ms, time_callable
+    from repro_torch.measure.timers import (cuda_event_ms, kernel_ms,
+                                            time_callable)
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -211,19 +250,23 @@ def main() -> int:
             a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
             b = torch.randn((K, N), generator=gen, device=dev).to(dtype)
             bias = torch.randn((N,), generator=gen, device=dev).to(dtype)
+            var = bm.variant(M, N, K, dtype, True)   # fresh tensors: aligned
             cases = [(act, bias) for act in ACTS] + [("relu", None)]
             for act, bz in cases:
+                before = dict(blocked_matmul.launches_by_variant)
                 got = blocked_matmul(a, b, bias=bz, act=act)
                 want = ref_matmul(a, b, bias=bz, act=act)
                 torch.cuda.synchronize()
                 err = rel_err(got, want)
                 name = (f"{str(dtype)[6:]} ({M},{K},{N}) act={act} "
-                        f"bias={bz is not None}")
+                        f"bias={bz is not None} {var}")
                 say(f"  {name}: rel_err {err:.3e} (tol {TOL[dtype]:g})")
+                check(blocked_matmul.launches_by_variant[var]
+                      == before[var] + 1, f"{name}: not one {var} launch")
                 check(got.shape == (M, N) and torch.isfinite(got).all().item(),
                       f"kernel output malformed: {name}")
                 check(err < TOL[dtype], f"kernel disagrees: {name}: {err}")
-                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                worst[(dtype, var)] = max(worst.get((dtype, var), 0.0), err)
         a3 = torch.randn((4, 300, 700), generator=gen, device=dev).to(dtype)
         b3 = torch.randn((700, 520), generator=gen, device=dev).to(dtype)
         got = ops.matmul(a3, b3, act="gelu")
@@ -234,7 +277,7 @@ def main() -> int:
         check(got.shape == (4, 300, 520) and err < TOL[dtype],
               f"ops.matmul leading dims {dtype}: {err}")
     say("worst rel_err: " + ", ".join(
-        f"{str(k)[6:]} {v:.3e}" for k, v in worst.items()))
+        f"{str(d)[6:]} {var} {v:.3e}" for (d, var), v in worst.items()))
 
     # ---- 4. flash attention parity ----------------------------------------------
     phase("flash_parity")
@@ -282,14 +325,7 @@ def main() -> int:
     plain_cfg = cfg.replace(use_kernel_matmul=False)
     W, L = cfg.mlp_widths[0], len(cfg.mlp_widths)
     rng = np.random.default_rng(0)
-    scale = np.float32(1.0 / np.sqrt(W))
-    tree = {"layers": [{"w": rng.standard_normal((W, W), np.float32) * scale,
-                        "b": rng.standard_normal(W, np.float32) * np.float32(0.1)}
-                       for _ in range(L)],
-            "head": {"w": rng.standard_normal((W, 1), np.float32) * scale,
-                     "b": rng.standard_normal(1, np.float32)}}
-    params = mlp_params_from_numpy(tree, device=dev)
-    del tree
+    params = mlp_params_from_numpy(dlrm_tree(cfg, rng), device=dev)
     feats = {B: torch.from_numpy(rng.standard_normal((B, W), np.float32)).to(dev)
              for B in BATCHES}
     say(f"dlrm-mlp {L} x {W}, compute {str(cfg.compute_dtype)[6:]}, "
@@ -297,6 +333,7 @@ def main() -> int:
 
     # the main path: each batch scored once through the kernel path
     blocked_matmul.launches = 0
+    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
     logits = {}
     per_forward = []
     for B in BATCHES:
@@ -305,9 +342,14 @@ def main() -> int:
         per_forward.append(blocked_matmul.launches - before)
     torch.cuda.synchronize()
     main_launches = blocked_matmul.launches
-    say(f"launches per forward {per_forward}, main path total {main_launches}")
+    mlp_variants = dict(blocked_matmul.launches_by_variant)
+    say(f"launches per forward {per_forward}, main path total {main_launches}"
+        f", by variant {mlp_variants}")
     check(per_forward == [L] * len(BATCHES),
           f"expected {L} kernel launches per forward, got {per_forward}")
+    check(mlp_variants == {**dict.fromkeys(bm.VARIANTS, 0),
+                           "sm90": L * len(BATCHES)},
+          f"every mlp_serve launch must take the sm90 kernel: {mlp_variants}")
 
     for B in BATCHES:
         want = mlp_dlrm.forward(params, feats[B], plain_cfg)
@@ -328,17 +370,17 @@ def main() -> int:
             lyr["w"].to(dt)
             lyr["b"].to(dt)
 
-    cast_ms = cuda_event_ms(casts, iters=10)
+    cast_ms = kernel_ms(casts, iters=10)
     per_batch = []
     for B in BATCHES:
         h = feats[B].to(dt)
         # rotate through the 8 layers' weights, as the forward does, so no
         # launch finds its 32 MB weight in L2 from the launch before
-        k_ms = cuda_event_ms(lambda i: blocked_matmul(
+        k_ms = kernel_ms(lambda i: blocked_matmul(
             h, w_c[i % L], bias=b_c[i % L], act="relu"), iters=40)
-        p_ms = cuda_event_ms(lambda i: ref_matmul(
+        p_ms = kernel_ms(lambda i: ref_matmul(
             h, w_c[i % L], bias=b_c[i % L], act="relu"), iters=40)
-        lib_ms = cuda_event_ms(lambda i: torch.relu(torch.addmm(
+        lib_ms = kernel_ms(lambda i: torch.relu(torch.addmm(
             b_c[i % L], h, w_c[i % L])), iters=40)
         err_abs = max_abs(blocked_matmul(h, w_c[0], bias=b_c[0], act="relu"),
                           ref_matmul(h, w_c[0], bias=b_c[0], act="relu"))
@@ -350,6 +392,8 @@ def main() -> int:
                                   plain_cfg, device=dev, repeats=10, warmup=2)
         fwd_ev = cuda_event_ms(lambda i: mlp_dlrm.forward(params, feats[B], cfg),
                                iters=10)
+        fwd_kern = kernel_ms(lambda i: mlp_dlrm.forward(params, feats[B], cfg),
+                             iters=10)
         layer_flops = 2.0 * B * W * W
         layer_bytes = 2.0 * (B * W + W * W + W + B * W)   # A, W, bias, out
         layer = analyze(WorkUnit(f"layer_b{B}", layer_flops, layer_bytes, 0.0),
@@ -373,7 +417,8 @@ def main() -> int:
             f"max_abs_err {err_abs:.3e}")
         say(f"  B={B} forward: host median {fwd.median * 1e3:.4f} ms, "
             f"p90 {fwd_p90 * 1e3:.4f} ms (n={len(fwd.samples)}), "
-            f"{B / fwd.median:.0f} requests/s; card {fwd_ev:.4f} ms, "
+            f"{B / fwd.median:.0f} requests/s; card {fwd_ev:.4f} ms "
+            f"(kernels {fwd_kern:.4f} ms), "
             f"plain path host {fwd_plain.median * 1e3:.4f} ms; "
             f"{fwd_flops / fwd.median / 1e12:.1f} TFLOP/s; "
             f"{whole.summary()}; at {100 * whole.runtime / fwd.median:.1f}% "
@@ -415,6 +460,7 @@ def main() -> int:
     runs = [(bs, lm_cfg) for bs in PREFILL] + [(PREFILL[0], lm_kmm)]
     flash_attention_bhsd.launches = 0
     blocked_matmul.launches = 0
+    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
     lm_logits, per_fwd = [], []
     for bs, c in runs:
         f0, m0 = flash_attention_bhsd.launches, blocked_matmul.launches
@@ -424,11 +470,15 @@ def main() -> int:
     torch.cuda.synchronize()
     lm_launches = {"flash_attention_bhsd": flash_attention_bhsd.launches,
                    "blocked_matmul": blocked_matmul.launches}
+    lm_variants = dict(blocked_matmul.launches_by_variant)
     say(f"(flash, blocked_matmul) launches per forward {per_fwd}; main path "
-        f"totals {lm_launches}")
+        f"totals {lm_launches}; blocked_matmul by variant {lm_variants}")
     check(per_fwd == [(NL, 0)] * len(PREFILL) + [(NL, 3 * NL)],
           f"expected {NL} flash launches per forward and {3 * NL} blocked "
           f"matmul launches with use_kernel_matmul, got {per_fwd}")
+    check(lm_variants == {**dict.fromkeys(bm.VARIANTS, 0), "sm90": 3 * NL},
+          f"every lm_prefill blocked-matmul launch must take the sm90 "
+          f"kernel: {lm_variants}")
 
     for (bs, c), got in zip(runs, lm_logits):
         B, S = bs
@@ -484,25 +534,32 @@ def main() -> int:
         f"use_flash + use_kernel_matmul {kmm_ev:.4f} ms, plain path "
         f"{plain_ev:.4f} ms")
 
-    # where the card's time goes in one forward: every kernel the profiler
-    # saw, by name, summed; their total against the unprofiled card time
-    # (a row of a CPU op also counts its kernels' time as its own, so only
-    # the device's rows are summed)
+    # where the card's time goes in one forward, with and without the FFN
+    # products in the blocked matmul: every kernel the profiler saw, by
+    # name, summed; their total against the unprofiled card time (a row of
+    # a CPU op also counts its kernels' time as its own, so only the
+    # device's rows are summed)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        transformer.forward(lm_params, toks, lm_cfg)
-        torch.cuda.synchronize()
-    kern = [(r.key, r.count, r.self_device_time_total / 1e3)
-            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
-    kern_ms = sum(ms for _, _, ms in kern)
-    check(kern_ms > 0, "the profiler saw no kernel time on the card")
-    say(f"  B={B0} S={S0} profile of one forward (use_flash): {len(kern)} "
-        f"kernel names, {sum(n for _, n, _ in kern)} launches, "
-        f"{kern_ms:.4f} ms of kernels = {100 * kern_ms / lm_ev:.1f}% of the "
-        f"unprofiled card time {lm_ev:.4f} ms; by name, most first:")
-    for name, n, ms in sorted(kern, key=lambda x: -x[2])[:20]:
-        say(f"    {ms:9.4f} ms {100 * ms / kern_ms:5.1f}% x{n:<4d} {name[:110]}")
+    for label, c, card_ms in (
+            ("use_flash", lm_cfg, lm_ev),
+            ("use_flash + use_kernel_matmul", lm_kmm, kmm_ev)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            transformer.forward(lm_params, toks, c)
+            torch.cuda.synchronize()
+        kern = [(r.key, r.count, r.self_device_time_total / 1e3)
+                for r in prof.key_averages()
+                if r.device_type == DeviceType.CUDA]
+        kern_ms = sum(ms for _, _, ms in kern)
+        check(kern_ms > 0, "the profiler saw no kernel time on the card")
+        say(f"  B={B0} S={S0} profile of one forward ({label}): {len(kern)} "
+            f"kernel names, {sum(n for _, n, _ in kern)} launches, "
+            f"{kern_ms:.4f} ms of kernels = {100 * kern_ms / card_ms:.1f}% of "
+            f"the unprofiled card time {card_ms:.4f} ms; by name, most first:")
+        for name, n, ms in sorted(kern, key=lambda x: -x[2])[:20]:
+            say(f"    {ms:9.4f} ms {100 * ms / kern_ms:5.1f}% x{n:<4d} "
+                f"{name[:110]}")
 
     # per launch, at each main-path shape: the kernel, its plain version and
     # the library's one call (SDPA, timed as a yardstick only: the port never
@@ -513,10 +570,10 @@ def main() -> int:
         n_launch = NL * sum(1 for bs, _ in runs if bs == (B, S))
         q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=dev).to(bf16)
                    for n in (H, K, K))
-        k_ms = cuda_event_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
-        p_ms = cuda_event_ms(lambda i: ref_flash_attention(q, k, v), iters=5)
+        k_ms = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
+        p_ms = kernel_ms(lambda i: ref_flash_attention(q, k, v), iters=5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = cuda_event_ms(lambda i: F.scaled_dot_product_attention(
+        lib_ms = kernel_ms(lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
         got, want = ops.flash_attention(q, k, v), ref_flash_attention(q, k, v)
         err_abs, err = max_abs(got, want), row_rel_err(got, want)
@@ -550,9 +607,9 @@ def main() -> int:
                         (x_mid, ffn["w_down"], None)):
         M, Kd = a_.shape
         N = b_.shape[1]
-        k_ms = cuda_event_ms(lambda i: blocked_matmul(a_, b_, act=act), iters=20)
-        p_ms = cuda_event_ms(lambda i: ref_matmul(a_, b_, act=act), iters=20)
-        lib_ms = cuda_event_ms(
+        k_ms = kernel_ms(lambda i: blocked_matmul(a_, b_, act=act), iters=20)
+        p_ms = kernel_ms(lambda i: ref_matmul(a_, b_, act=act), iters=20)
+        lib_ms = kernel_ms(
             (lambda i: F.silu(torch.mm(a_, b_))) if act
             else (lambda i: torch.mm(a_, b_)), iters=20)
         got, want = blocked_matmul(a_, b_, act=act), ref_matmul(a_, b_, act=act)
@@ -569,25 +626,72 @@ def main() -> int:
         say(f"  blocked_matmul ({M},{Kd},{N}) act={act} per launch: kernel "
             f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
             f"{p_ms:.4f} ms, library mm{'+silu' if act else ''} "
-            f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms "
+            f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); bound "
+            f"{b_ms:.4f} ms "
             f"({b_by}); max_abs_err {err_abs:.3e}, rel_err {err:.3e} "
             f"(tol {TOL[bf16]:g})")
     del got, want
 
-    # ---- 7. microbench ----------------------------------------------------------
+    # ---- 7. tile_options ------------------------------------------------------
+    phase("tile_options")
+    # the sm90 kernel at every main-path shape under each tile width and
+    # order, beside tile_plan's choice (PERF.md reads the rule off these);
+    # each call takes the next of 8 weights, as a forward's layers do
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, sm90 = bm._launcher()
+    for row in per_batch + ffn_rows:
+        M, Kd, N = row["shape"]
+        a_ = torch.randn((M, Kd), generator=gen, device=dev).to(bf16)
+        bs_ = [(torch.randn((Kd, N), generator=gen, device=dev)
+                / Kd ** 0.5).to(bf16) for _ in range(L)]
+        bz = (torch.randn((N,), generator=gen, device=dev).to(bf16)
+              if row["act"] == "relu" else None)
+        rule = bm.tile_plan(M, N, Kd, n_sms)
+        timed = []
+        for bn in bm.SM90_BN:
+            for n_fastest in (True, False):
+                plan = bm.Plan(bn, n_fastest)
+                ms = kernel_ms(lambda i: sm90_option(
+                    sm90, a_, bs_[i % L], bz, row["act"], plan), iters=40)
+                timed.append((ms, plan))
+        best_ms, best = min(timed)
+        say(f"  ({M},{Kd},{N}) act={row['act']}: rule {tuple(rule)} "
+            f"{dict((p, t) for t, p in timed)[rule]:.4f} ms; best "
+            f"{tuple(best)} {best_ms:.4f} ms; all (bn, n_fastest) ms: "
+            + ", ".join(f"{tuple(p)} {t:.4f}" for t, p in timed))
+    del a_, bs_
+
+    # ---- 8. microbench --------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
-    # ctypes call), enqueue only, beside one torch.mm at the same tiny shape
+    # tensor-map encoding, ctypes call), enqueue only, beside one torch call
+    # of the same shape; at the B=256 layer, beside the kernel's card time
     tiny = torch.randn((64, 64), device=dev)
-    for label, fn in (("blocked_matmul", lambda: blocked_matmul(tiny, tiny)),
-                      ("torch.mm", lambda: torch.mm(tiny, tiny))):
+    tiny16 = tiny.to(bf16)
+    h256 = feats[256].to(bf16)
+    for label, fn in (
+            ("blocked_matmul f32 64x64x64",
+             lambda: blocked_matmul(tiny, tiny)),
+            ("torch.mm f32 64x64x64", lambda: torch.mm(tiny, tiny)),
+            ("blocked_matmul sm90 64x64x64",
+             lambda: blocked_matmul(tiny16, tiny16)),
+            ("torch.mm bf16 64x64x64", lambda: torch.mm(tiny16, tiny16)),
+            ("blocked_matmul sm90 (256,4096,4096) relu",
+             lambda: blocked_matmul(h256, w_c[0], bias=b_c[0], act="relu")),
+            ("torch.addmm+relu (256,4096,4096)",
+             lambda: torch.relu(torch.addmm(b_c[0], h256, w_c[0])))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(1000):
+        for _ in range(200):
             fn()
-        host_us = (time.perf_counter() - t0) * 1e3
+        host_us = (time.perf_counter() - t0) * 1e6 / 200
         torch.cuda.synchronize()
-        say(f"host enqueue per call, {label} 64x64x64: {host_us:.2f} us")
+        say(f"host enqueue per call, {label}: {host_us:.2f} us")
+    ev_ms = cuda_event_ms(lambda i: blocked_matmul(
+        h256, w_c[i % L], bias=b_c[i % L], act="relu"), iters=40)
+    say(f"card time per call, blocked_matmul sm90 (256,4096,4096) relu: "
+        f"kernel {per_batch[0]['kernel_ms'] * 1e3:.2f} us, back-to-back calls "
+        f"between CUDA events {ev_ms * 1e3:.2f} us")
     sizes = microbench.FULL_MATMUL_SIZES + (4096,)
     for m in microbench.matmul_benches(sizes, repeats=5, device=dev):
         a = analyze(m.work, H100_SXM_FP32)
@@ -637,8 +741,9 @@ def main() -> int:
               lm_launches["flash_attention_bhsd"], flash_rows),
     ]}
     print(json.dumps(summary))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": count}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": count}}))
     return 0
 
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain ``extern "C"`` launcher and becomes
 ``build/repro_torch/<name>-<hash>.so`` under the repository root (a
-directory ``.gitignore`` lists), keyed by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is not.  All
+directory ``.gitignore`` lists), keyed by a hash of the source, every header
+under ``csrc/`` (``*.cuh``, ``*.h``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is not.  All
 sources asked for are compiled in parallel, one ``nvcc`` each.
 
 Nothing here runs at import: the tests import every module on machines with
@@ -56,8 +57,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")])
+    for path in (CSRC / f"{name}.cu", *headers):
+        key.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 

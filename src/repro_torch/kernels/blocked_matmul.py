@@ -1,17 +1,19 @@
 """Fused ``act(A·B + bias)``: the wrapper of ``csrc/blocked_matmul.cu``.
 
-The CUDA kernel replaces ``src/repro/kernels/blocked_matmul.py::
+The CUDA kernels replace ``src/repro/kernels/blocked_matmul.py::
 blocked_matmul`` (the Pallas TPU kernel); the source's header says what
-bounds it on an H100 and what its design does about that.  This wrapper
-checks its inputs, allocates the output, launches on the current stream and
-counts launches.  A tensor on the CPU takes the plain version,
-``ref.ref_matmul``; a CUDA tensor launches the kernel or raises.
+bounds them on an H100 and what their design does about that.  This wrapper
+checks its inputs, picks the kernel (``variant``) and, for the Hopper
+kernel, its tiles (``tile_plan``), allocates the output, launches on the
+current stream and counts launches, in total and by variant.  A tensor on
+the CPU takes the plain version, ``ref.ref_matmul``; a CUDA tensor launches
+a kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,13 +24,92 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {None: 0, **{name: i + 1 for i, name in enumerate(ACTS)}}
 _INT_MAX = 2 ** 31 - 1
 
+#: the kernels, in ``variant``'s words: the Hopper TMA + wgmma kernel, the
+#: wmma kernel for bf16 shapes TMA cannot read, IEEE fp32 on the CUDA cores
+VARIANTS = ("sm90", "wmma", "f32")
+#: the sm90 kernel's tile rows (two consumer warpgroups of 64) and the tile
+#: widths it is compiled for
+SM90_BM = 128
+SM90_BN = (64, 128, 192, 256)
+
+
+class Plan(NamedTuple):
+    """How the sm90 kernel covers one product; the launcher adds the grid
+    (one CTA per tile, at most one per SM)."""
+
+    bn: int            # tile width
+    n_fastest: bool    # tile order: the N tile fastest, else the M tile
+
+
+def bind(lib: ctypes.CDLL):
+    """The typed ``(blocked_matmul_launch, blocked_matmul_sm90_launch)`` of
+    a library built from ``csrc/blocked_matmul.cu`` (or an edited copy)."""
+    base = lib.blocked_matmul_launch
+    base.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    base.restype = ctypes.c_int
+    sm90 = lib.blocked_matmul_sm90_launch
+    sm90.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    sm90.restype = ctypes.c_int
+    return base, sm90
+
 
 @functools.cache
 def _launcher():
-    fn = _build.load("blocked_matmul").blocked_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(_build.load("blocked_matmul"))
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def aligned(a: torch.Tensor, b: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> bool:
+    """Whether the bases meet the sm90 kernel's rules: A and B 16-byte
+    aligned (TMA), the bias 4-byte aligned (the epilogue reads it in bf16
+    pairs at even columns)."""
+    return (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            and (bias is None or bias.data_ptr() % 4 == 0))
+
+
+def variant(M: int, N: int, K: int, dtype: torch.dtype,
+            is_aligned: bool) -> str:
+    """The kernel that takes a call, by dtype, shape and alignment alone.
+
+    sm90 reads A and B through TMA, which needs 16-byte row strides (K and
+    N multiples of 8 bf16 values) and bases as ``aligned`` says
+    (``is_aligned``).  Other bf16 calls go to wmma; fp32 to f32.
+    """
+    if dtype == torch.float32:
+        return "f32"
+    if K % 8 == 0 and N % 8 == 0 and is_aligned:
+        return "sm90"
+    return "wmma"
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_plan(M: int, N: int, K: int, num_sms: int) -> Plan:
+    """The sm90 kernel's tiles for an (M, K) @ (K, N) product.
+
+    1. The width of {256, 192, 128} whose tiles pad N least, the widest on a
+       tie: N = 576 takes 192 (3 tiles, where 128 needs 4.5), N = 1536 and
+       4096 take 256.
+    2. While the 128-row tiles fill at most half the SMs, halve the width
+       (192 goes to 64), down to 64: (256, 4096, 4096) goes from 32 tiles of
+       256 to 128 of 64.
+    3. The order shares the larger operand in L2: the N tile runs fastest
+       when A is at least as large as B (M >= N), so the CTAs in flight
+       share a band of A's rows ((16384, 1536, 576) reads its 50 MB A from
+       HBM once, not once per N tile); otherwise the M tile runs fastest and
+       they share a band of B's columns.
+    ``chip_smoke.py`` times the other widths and orders at every main-path
+    shape; PERF.md has the numbers behind each step.
+    """
+    m_tiles = -(-M // SM90_BM)
+    bn = min((256, 192, 128), key=lambda w: (-(-N // w) * w, -w))
+    while bn > 64 and 2 * m_tiles * -(-N // bn) <= num_sms:
+        bn = 64 if bn == 192 else bn // 2
+    return Plan(bn, M >= N)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
@@ -60,6 +141,34 @@ def _check(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
                 f"{bias.device}")
 
 
+def _launch(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
+            act: Optional[str], kind: str) -> torch.Tensor:
+    """Launch the ``kind`` kernel (sm90 with ``tile_plan``'s tiles) on CUDA
+    tensors that passed ``_check``; count it."""
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    base, sm90 = _launcher()
+    bias_ptr = None if bias is None else bias.data_ptr()
+    plan = None
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "sm90":
+            plan = tile_plan(M, N, K, _num_sms(a.device.index))
+            rc = sm90(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
+                      M, N, K, _ACT_CODE[act], plan.bn, int(plan.n_fastest),
+                      stream)
+        else:
+            rc = base(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
+                      M, N, K, _DTYPE_CODE[a.dtype], _ACT_CODE[act], stream)
+    if rc != 0:
+        raise RuntimeError(f"blocked_matmul {kind} kernel launch failed: "
+                           f"CUDA error {rc} at M={M} N={N} K={K} {a.dtype}"
+                           + (f" {plan}" if plan else ""))
+    blocked_matmul.launches += 1
+    blocked_matmul.launches_by_variant[kind] += 1
+    return out
+
+
 def blocked_matmul(a: torch.Tensor, b: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
                    act: Optional[str] = None) -> torch.Tensor:
@@ -74,20 +183,11 @@ def blocked_matmul(a: torch.Tensor, b: torch.Tensor,
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
     (M, K), N = a.shape, b.shape[1]
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    launch = _launcher()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(a.data_ptr(), b.data_ptr(),
-                    None if bias is None else bias.data_ptr(),
-                    out.data_ptr(), M, N, K, _DTYPE_CODE[a.dtype],
-                    _ACT_CODE[act], stream)
-    if rc != 0:
-        raise RuntimeError(f"blocked_matmul kernel launch failed: CUDA error "
-                           f"{rc} at M={M} N={N} K={K} {a.dtype}")
-    blocked_matmul.launches += 1
-    return out
+    return _launch(a, b, bias, act,
+                   variant(M, N, K, a.dtype, aligned(a, b, bias)))
 
 
-#: kernel launches so far in this process (CPU calls do not count)
+#: kernel launches so far in this process (CPU calls do not count), in total
+#: and by ``variant``
 blocked_matmul.launches = 0
+blocked_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -2,48 +2,76 @@
 //
 // Replaces src/repro/kernels/blocked_matmul.py::blocked_matmul, the Pallas TPU
 // kernel whose fp32 VMEM accumulator is carried across the sequential K grid
-// axis and whose epilogue adds the bias and applies the activation on that
-// accumulator before one cast to the output dtype.
+// axis and whose epilogue (_epilogue) adds the bias and applies the
+// activation on that accumulator before one cast to the output dtype.
 //
 // What it computes: A (M,K) row-major, B (K,N) row-major, bias (N,) or null,
 // out (M,N) row-major, all of one dtype (fp32 or bf16).  The product is
 // accumulated in fp32; the bias is added in fp32; act is applied in fp32
 // (0 none, 1 relu, 2 relu2 = relu^2, 3 silu = y*sigmoid(y),
 // 4 gelu = 0.5*y*(1 + tanh(sqrt(2/pi)*(y + 0.044715*y^3)))); the result is
-// cast to the output dtype once.  Any M, N, K >= 1: ragged edges are masked
-// inside the kernel (zero-filled loads, guarded stores), so no padded copies
-// are made.
+// cast to the output dtype once.  Any M, N, K >= 1; ragged edges are handled
+// inside the kernels, so no padded copies are made.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM3;
-// ridge ~295 FLOP/byte): at the DLRM tower's shapes in bf16 (K = N = 4096,
-// M = batch) a layer moves 2*(2*M*4096 + 4096^2) bytes for 2*M*4096^2 FLOP.
-// At M = 256 that is ~37.7 MB, >= 11 us, memory-bound; from M ~ 345 up it is
-// compute-bound (M = 4096: 137 GFLOP, >= 0.139 ms).  The fp32 path runs on
-// the CUDA cores (67 TFLOP/s), compute-bound at all but tiny shapes.
+// ridge ~295 FLOP/byte), at the main paths' bf16 shapes (M, K, N), each
+// input read once and the output written once:
+//   (256, 4096, 4096)    dlrm B=256    37.7 MB, 8.6 GFLOP  -> bytes, 11.3 us
+//   (1024, 4096, 4096)   dlrm B=1024   34.4 GFLOP          -> ops,   34.7 us
+//   (4096, 4096, 4096)   dlrm B=4096   137 GFLOP           -> ops,   139 us
+//   (16384, 576, 1536)   FFN gate, up  29.0 GFLOP, 71 MB   -> ops,   29.3 us
+//   (16384, 1536, 576)   FFN down      29.0 GFLOP, 71 MB   -> ops,   29.3 us
+// The FFN products write (or read) a 50 MB activation, so their byte time
+// (21 us) is close behind the operations.
 //
-// What this first design does about it: nothing beyond the fusion itself
-// (the activation never makes a round trip through device memory).  One
-// thread block owns one 128x128 output tile and loops over K inside the
-// block; this loop replaces the TPU's sequential K grid axis, and the fp32
-// accumulator lives in registers instead of a VMEM scratch.  A and B tiles
-// are staged through double-buffered shared memory, with the next tile
-// prefetched into registers while the current one is multiplied.
-//   * bf16: tensor cores through nvcuda::wmma (16x16x16, bf16 in, fp32
-//     accumulate); 8 warps, each a 64x32 sub-tile.
-//   * fp32: plain IEEE fp32 FMAs on the CUDA cores (no TF32), 8x8 outputs
-//     per thread.
-// The redesign for speed (later work) is the usual Hopper shape: TMA loads
-// into a multi-stage shared-memory ring under mbarriers, a producer warp and
-// wgmma consumer warpgroups, a persistent grid over output tiles.
+// Three kernels; blocked_matmul.py::variant picks one by dtype, shape and
+// alignment alone.
 //
-// Build (plain C interface, loaded with ctypes):
+// sm90 (bf16, K % 8 == 0, N % 8 == 0, A and B 16-byte aligned: TMA's rules
+// for a row stride and a base; the bias 4-byte aligned, read in pairs).  The Hopper shape, for the operations:
+//   * TMA loads into a ring of shared-memory stages (4 to 8, as many as fit)
+//     under mbarriers, one full and one empty barrier per stage.  One
+//     producer thread issues cp.async.bulk.tensor.2d for the A tile
+//     (128 x 64, K-major) and the BN/64 boxes of the B tile (64 x 64 each,
+//     N-major), all with 128-byte swizzle.  Out-of-bounds boxes read as
+//     zeros, which handles ragged M, N and K edges with no padded copies.
+//   * Two consumer warpgroups, 64 rows of the 128-row tile each, run
+//     wgmma.mma_async m64nBNk16 on a stage (B with the transpose bit, as the
+//     weights are (K, N) with N contiguous), keep one wgmma group in flight
+//     and release a stage only after the wgmma that read it has retired.
+//     setmaxnreg moves registers from the producer to them.
+//   * A persistent grid: one CTA per SM walks the output tiles in the order
+//     that shares the larger operand in L2: the N tile fastest (a band of
+//     A's rows) when M >= N, else the M tile (a band of B's columns).  The
+//     producer runs ahead into the next tile while the consumers run the
+//     epilogue.
+//   * The epilogue works on the accumulator registers: bias, act (one
+//     instantiation per act), one cast to bf16, a 4x4 transpose within each
+//     quad of lanes, and 16-byte guarded stores.
+//   * blocked_matmul.py::tile_plan picks the tile width BN (64, 128, 192 or
+//     256) and the order.  The memory-bound (256, 4096, 4096) takes narrow
+//     tiles (BN 64, 128 CTAs) to fill the SMs; a split of K, with an fp32
+//     workspace and a second pass for bias and act, was slower there
+//     (chip_mutants.py times it as an edited copy).
+// wmma (bf16 otherwise): nvcuda::wmma 16x16x16 tensor cores (mma.sync), one
+// 128 x 128 tile per block, element-wise masked loads staged through
+// registers into double-buffered shared memory.  PARITY_SHAPES in
+// chip_smoke.py has two such shapes: (300, 700, 520) and (1, 4100, 17).
+// f32: plain IEEE fp32 FMAs on the CUDA cores (no TF32; 67 TFLOP/s, so
+// compute-bound at all but tiny shapes), 8x8 outputs per thread, the same
+// tiling and staging as wmma.
+//
+// Build (plain C interface, loaded with ctypes; no -lcuda: the tensor-map
+// encoder is found through cudaGetDriverEntryPoint):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -Xptxas -v -o libblocked_matmul.so blocked_matmul.cu
 
-#include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -72,8 +100,460 @@ __device__ __forceinline__ float apply_act(float y, int act) {
   }
 }
 
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // ---------------------------------------------------------------------------
-// bf16: wmma tensor cores, fp32 accumulators.
+// sm90: TMA ring, wgmma warpgroups, persistent grid.
+// ---------------------------------------------------------------------------
+
+constexpr int kSmBM = 128;            // two consumer warpgroups x 64 rows
+constexpr int kSmBK = 64;             // one 128-byte swizzle row of bf16
+constexpr int kSmThreads = 384;       // producer warpgroup + 2 consumers
+constexpr int kConsumerWarps = 8;     // each releases every stage it read
+constexpr int kSmemLimit = 232448;    // 227 KB per block on an H100
+constexpr int kABytes = kSmBM * kSmBK * 2;   // 16 KB
+constexpr int kBoxBytes = kSmBK * 64 * 2;    // one 64 x 64 B box, 8 KB
+
+template <int BN>
+struct Sm90Cfg {
+  static constexpr int kStageBytes = kABytes + (BN / 64) * kBoxBytes;
+  // as many stages as fit beside the barriers and 1 KB of alignment slack
+  static constexpr int kStagesFit = (kSmemLimit - 2048) / kStageBytes;
+  static constexpr int kStages = kStagesFit < 8 ? kStagesFit : 8;
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * 8 * kStages;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of `parity` to complete.  A protocol fault that would
+// wait forever traps after 10 s instead, so it surfaces as a launch error
+// and never hangs the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 10000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across a
+// wgmma fence, commit or wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D (64 x N, fp32, N/2 registers a thread) += A (64 x 16, K-major, from
+// shared memory) * B (16 x N, N-major: the transpose bit is set).
+// scale_d == 0 overwrites D.
+template <int N>
+__device__ void wgmma(float* d, uint64_t da, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<192>(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<256>(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(x));
+  return t;
+}
+
+// The sm90 epilogue's activation, one instantiation per act so the unrolled
+// epilogue holds no switch (a switch per element made the epilogue several
+// times larger and the FFN products several times slower).  The functions
+// of apply_act, on one SFU tanh each (tanh.approx.f32, relative error ~2^-11,
+// below the bf16 rounding that follows): silu(y) = y/2 * (1 + tanh(y/2)).
+template <int ACT>
+__device__ __forceinline__ float fast_act(float y) {
+  if (ACT == kRelu) return fmaxf(y, 0.0f);
+  if (ACT == kRelu2) {
+    const float r = fmaxf(y, 0.0f);
+    return r * r;
+  }
+  if (ACT == kSilu) {
+    const float h = 0.5f * y;
+    return h + h * tanh_approx(h);
+  }
+  if (ACT == kGelu) {
+    const float h = 0.5f * y;
+    return h + h * tanh_approx(0.7978845608028654f * (y + 0.044715f * y * y * y));
+  }
+  return y;
+}
+
+// One consumer thread's share of a tile's epilogue.  The thread (warp w of
+// its warpgroup, lane l, q = l % 4) holds rows row0 = 16w + l/4 and row0 + 8
+// of the warpgroup's 64, at columns 8j + 2q and 8j + 2q + 1 for j < BN/8:
+// acc[4j + 2h] and acc[4j + 2h + 1] for the row of half h.  bias + act +
+// one cast; a 4x4 transpose within each quad of lanes then gives each lane
+// 8 consecutive columns, one 16-byte store.
+template <int BN, int ACT>
+__device__ __forceinline__ void sm90_store_tile(
+    const float* acc, int row0, int n0, int M, int N,
+    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ C) {
+  const int lane = threadIdx.x % 32, q = lane % 4;
+#pragma unroll
+  for (int g = 0; g < BN / 32; ++g) {
+    uint32_t v[2][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * g + jj;
+      const int col = n0 + 8 * j + 2 * q;
+      float2 bz = make_float2(0.0f, 0.0f);
+      if (bias != nullptr && col < N)
+        bz = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        v[h][jj] = pack_bf16x2(fast_act<ACT>(acc[4 * j + 2 * h] + bz.x),
+                               fast_act<ACT>(acc[4 * j + 2 * h + 1] + bz.y));
+    }
+    const int col = n0 + 8 * (4 * g + q);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // after round r, lane q holds lane src's pair of block 4g + q
+      uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int send = (q + r) & 3, src = (q - r) & 3;
+        const uint32_t out = send == 0 ? v[h][0] : send == 1 ? v[h][1]
+                             : send == 2 ? v[h][2] : v[h][3];
+        const uint32_t got = __shfl_sync(0xffffffffu, out, (lane & ~3) | src);
+        w[0] = src == 0 ? got : w[0];
+        w[1] = src == 1 ? got : w[1];
+        w[2] = src == 2 ? got : w[2];
+        w[3] = src == 3 ? got : w[3];
+      }
+      const int row = row0 + 8 * h;
+      if (row < M && col < N)   // N % 8 == 0: the 8 columns are all in
+        *reinterpret_cast<uint4*>(C + (int64_t)row * N + col) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// The tile's epilogue: one instantiation per act, chosen once per tile.
+template <int BN>
+__device__ __forceinline__ void sm90_epilogue(
+    const float* acc, int row0, int n0, int M, int N,
+    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ C,
+    int act) {
+  switch (act) {
+    case kRelu:
+      sm90_store_tile<BN, kRelu>(acc, row0, n0, M, N, bias, C);
+      break;
+    case kRelu2:
+      sm90_store_tile<BN, kRelu2>(acc, row0, n0, M, N, bias, C);
+      break;
+    case kSilu:
+      sm90_store_tile<BN, kSilu>(acc, row0, n0, M, N, bias, C);
+      break;
+    case kGelu:
+      sm90_store_tile<BN, kGelu>(acc, row0, n0, M, N, bias, C);
+      break;
+    default:
+      sm90_store_tile<BN, kNone>(acc, row0, n0, M, N, bias, C);
+  }
+}
+
+// The persistent warp-specialised GEMM.  The producer and both consumer
+// warpgroups walk the same output tiles t = blockIdx.x + i * gridDim.x, the
+// N tile fastest when n_fastest is set and the M tile otherwise, and the
+// ring's stage and phase run on from one tile to the next.
+template <int BN>
+__global__ void __launch_bounds__(kSmThreads, 1)
+gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
+                 const __grid_constant__ CUtensorMap tma_b,
+                 const __nv_bfloat16* __restrict__ bias,
+                 __nv_bfloat16* __restrict__ C, int M, int N, int K,
+                 int act, int n_fastest) {
+  using Cfg = Sm90Cfg<BN>;
+  constexpr int S = Cfg::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  // a 128-byte swizzle atom is 8 rows of 128 bytes: align the ring to 1 KB
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * Cfg::kStageBytes);
+  uint64_t* empty = full + S;
+
+  const int m_tiles = (M + kSmBM - 1) / kSmBM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int k_steps = (K + kSmBK - 1) / kSmBK;
+  const int tiles = m_tiles * n_tiles;
+  auto decode = [&](int t, int& m0, int& n0) {
+    m0 = (n_fastest ? t / n_tiles : t % m_tiles) * kSmBM;
+    n0 = (n_fastest ? t % n_tiles : t / m_tiles) * BN;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer warpgroup: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int m0, n0;
+        decode(t, m0, n0);
+        for (int ks = 0; ks < k_steps; ++ks) {
+          mbar_wait(&empty[s], phase ^ 1);   // the first round passes
+          uint8_t* st = ring + s * Cfg::kStageBytes;
+          mbar_expect_tx(&full[s], Cfg::kStageBytes);
+          tma_load_2d(st, &tma_a, &full[s], ks * kSmBK, m0);
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            tma_load_2d(st + kABytes + c * kBoxBytes, &tma_b, &full[s],
+                        n0 + 64 * c, ks * kSmBK);
+          if (++s == S) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: rows 64 * cw .. 64 * cw + 63 of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int m0, n0;
+      decode(t, m0, n0);
+      int prev = 0;
+      for (int ks = 0; ks < k_steps; ++ks) {
+        mbar_wait(&full[s], phase);
+        const uint32_t a = smem_u32(ring + s * Cfg::kStageBytes) + cw * 64 * 128;
+        const uint32_t b = smem_u32(ring + s * Cfg::kStageBytes + kABytes);
+        fence_acc<BN / 2>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSmBK / 16; ++kk)   // A: 32 bytes of K a step
+          wgmma<BN>(acc, gmma_desc(a + 32 * kk, 16, 1024),   // B: 16 rows
+                    gmma_desc(b + 2048 * kk, kBoxBytes, 1024),
+                    (ks > 0 || kk > 0) ? 1 : 0);
+        wgmma_commit();
+        fence_acc<BN / 2>(acc);
+        wgmma_wait<1>();   // the k-step before this one has retired
+        if (ks > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == S) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc<BN / 2>(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      sm90_epilogue<BN>(acc, m0 + 64 * cw + 16 * warp + lane / 4, n0, M, N,
+                        bias, C, act);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wmma: bf16 shapes the sm90 kernel does not take (K or N not a multiple of
+// 8, or a base of A or B not 16-byte aligned, or of the bias not 4-byte).
 // ---------------------------------------------------------------------------
 
 constexpr int kBfTileK = 32;
@@ -85,53 +565,8 @@ constexpr int kFragM = kWarpM / 16;    // 4
 constexpr int kFragN = kWarpN / 16;    // 2
 
 // One K tile of A (128 x 32) and B (32 x 128) as held in registers between
-// the global load and the shared-memory store.  VEC: 16-byte vectors (K and
-// N multiples of 8, 16-byte aligned bases); otherwise single elements.
-template <bool VEC>
-struct BfStage;
-
-template <>
-struct BfStage<true> {
-  uint4 a[2];  // 128*32/8 = 512 vectors of A, 2 per thread
-  uint4 b[2];  // 32*128/8 = 512 vectors of B, 2 per thread
-
-  __device__ void load(const __nv_bfloat16* A, const __nv_bfloat16* B,
-                       int M, int N, int K, int m0, int n0, int k0) {
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = t + i * kThreads;
-      const int row = v / (kBfTileK / 8), kc = (v % (kBfTileK / 8)) * 8;
-      const int gm = m0 + row, gk = k0 + kc;
-      a[i] = make_uint4(0, 0, 0, 0);
-      if (gm < M && gk < K)
-        a[i] = *reinterpret_cast<const uint4*>(A + (int64_t)gm * K + gk);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = t + i * kThreads;
-      const int row = v / (kTileN / 8), nc = (v % (kTileN / 8)) * 8;
-      const int gk = k0 + row, gn = n0 + nc;
-      b[i] = make_uint4(0, 0, 0, 0);
-      if (gk < K && gn < N)
-        b[i] = *reinterpret_cast<const uint4*>(B + (int64_t)gk * N + gn);
-    }
-  }
-
-  __device__ void store(__nv_bfloat16 (*As)[kBfPadA],
-                        __nv_bfloat16 (*Bs)[kBfPadB]) const {
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = t + i * kThreads;
-      *reinterpret_cast<uint4*>(&As[v / (kBfTileK / 8)][(v % (kBfTileK / 8)) * 8]) = a[i];
-      *reinterpret_cast<uint4*>(&Bs[v / (kTileN / 8)][(v % (kTileN / 8)) * 8]) = b[i];
-    }
-  }
-};
-
-template <>
-struct BfStage<false> {
+// the global load and the shared-memory store, one masked element at a time.
+struct BfStage {
   __nv_bfloat16 a[16];  // 128*32 = 4096 elements of A, 16 per thread
   __nv_bfloat16 b[16];
 
@@ -165,7 +600,6 @@ struct BfStage<false> {
   }
 };
 
-template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                  const __nv_bfloat16* __restrict__ B,
@@ -188,7 +622,7 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
     for (int j = 0; j < kFragN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int k_tiles = (K + kBfTileK - 1) / kBfTileK;
-  BfStage<VEC> next;
+  BfStage next;
   next.load(A, B, M, N, K, m0, n0, 0);
   next.store(As[0], Bs[0]);
   __syncthreads();
@@ -332,14 +766,91 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library needs no -lcuda.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 row-major (rows, cols) tensor read in (box_rows, 64) boxes with
+// 128-byte swizzle; out-of-bounds elements read as zero.
+bool encode_2d(CUtensorMap* map, const void* base, uint64_t rows,
+               uint64_t cols, uint32_t box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kMaxDevices = 64;
+
+// One persistent CTA per tile, at most one per SM.
+template <int BN>
+cudaError_t launch_sm90(const CUtensorMap& ta, const CUtensorMap& tb,
+                        const __nv_bfloat16* bias, __nv_bfloat16* C, int M,
+                        int N, int K, int act, int n_fastest,
+                        cudaStream_t stream) {
+  using Cfg = Sm90Cfg<BN>;
+  // the SMs, read (and the shared-memory limit set) once per device
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    rc = cudaFuncSetAttribute(gemm_sm90_kernel<BN>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Cfg::kSmem);
+    if (rc != cudaSuccess) return rc;
+    rc = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                dev);
+    if (rc != cudaSuccess) return rc;
+  }
+  const int64_t tiles = ((int64_t)M + kSmBM - 1) / kSmBM
+                        * (((int64_t)N + BN - 1) / BN);
+  const int grid = static_cast<int>(tiles < sms[dev] ? tiles : sms[dev]);
+  gemm_sm90_kernel<BN><<<grid, kSmThreads, Cfg::kSmem, stream>>>(
+      ta, tb, bias, C, M, N, K, act, n_fastest);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16.  act: 0 none, 1 relu, 2 relu2, 3 silu, 4 gelu.
-// bias may be null.  Launches on `stream` and returns cudaGetLastError().
+// The f32 and wmma kernels.  dtype: 0 = fp32, 1 = bf16 (the wmma kernel;
+// blocked_matmul.py sends bf16 here only where the sm90 kernel does not
+// apply).  act: 0 none, 1 relu, 2 relu2, 3 silu, 4 gelu.  bias may be null.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int blocked_matmul_launch(const void* a, const void* b,
                                      const void* bias, void* out, int M,
                                      int N, int K, int dtype, int act,
@@ -350,20 +861,56 @@ extern "C" int blocked_matmul_launch(const void* a, const void* b,
   const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (dtype == 0)
     gemm_f32_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b),
         static_cast<const float*>(bias), static_cast<float*>(out), M, N, K,
         act);
-  } else {
-    const auto* A = static_cast<const __nv_bfloat16*>(a);
-    const auto* B = static_cast<const __nv_bfloat16*>(b);
-    const auto* bz = static_cast<const __nv_bfloat16*>(bias);
-    auto* C = static_cast<__nv_bfloat16*>(out);
-    if (K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(b))
-      gemm_bf16_kernel<true><<<grid, kThreads, 0, s>>>(A, B, bz, C, M, N, K, act);
-    else
-      gemm_bf16_kernel<false><<<grid, kThreads, 0, s>>>(A, B, bz, C, M, N, K, act);
-  }
+  else
+    gemm_bf16_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(b),
+        static_cast<const __nv_bfloat16*>(bias),
+        static_cast<__nv_bfloat16*>(out), M, N, K, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sm90 kernel, bf16 only, with the tile width `bn` (64, 128, 192, 256)
+// and the tile order (`n_fastest`) that blocked_matmul.py::tile_plan chose,
+// on one persistent CTA per tile, at most one per SM.  Needs K % 8 == 0,
+// N % 8 == 0, 16-byte aligned a, b and out, and a 4-byte aligned bias.
+// Returns cudaGetLastError().
+extern "C" int blocked_matmul_sm90_launch(const void* a, const void* b,
+                                          const void* bias, void* out, int M,
+                                          int N, int K, int act, int bn,
+                                          int n_fastest, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % 8 || K % 8 || act < kNone ||
+      act > kGelu || (bn != 64 && bn != 128 && bn != 192 && bn != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = ((int64_t)M + kSmBM - 1) / kSmBM
+                        * (((int64_t)N + bn - 1) / bn);
+  if (tiles > 0x7fffffff || !aligned(a, 16) || !aligned(b, 16) ||
+      !aligned(out, 16) || !aligned(bias, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  if (!encode_2d(&ta, a, M, K, kSmBM) || !encode_2d(&tb, b, K, N, kSmBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* bz = static_cast<const __nv_bfloat16*>(bias);
+  auto* C = static_cast<__nv_bfloat16*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  switch (bn) {
+    case 64:
+      rc = launch_sm90<64>(ta, tb, bz, C, M, N, K, act, n_fastest, s);
+      break;
+    case 128:
+      rc = launch_sm90<128>(ta, tb, bz, C, M, N, K, act, n_fastest, s);
+      break;
+    case 192:
+      rc = launch_sm90<192>(ta, tb, bz, C, M, N, K, act, n_fastest, s);
+      break;
+    default:
+      rc = launch_sm90<256>(ta, tb, bz, C, M, N, K, act, n_fastest, s);
+  }
+  return static_cast<int>(rc);
 }

@@ -7,7 +7,9 @@ calls return before the card finishes, and the reference's duck-typed
 ``block_until_ready`` does nothing on a tensor, so it would time only the
 enqueue.  Here every sample ends in ``torch.cuda.synchronize()`` inside the
 timed region (``time_callable``), or is bracketed by CUDA events
-(``cuda_event_ms``, which times the card alone, without the host).
+(``cuda_event_ms``, which times the card alone, without the host, and
+``kernel_ms``, which also leaves out the gaps a slow host leaves between
+the calls).
 """
 from __future__ import annotations
 
@@ -23,6 +25,10 @@ from repro_torch.device import DeviceLike, resolve_device
 #: fewer kept samples than this and an IQR is structurally ~0 — the spread
 #: statistic is undefined, not "perfectly stable"
 MIN_SAMPLES_FOR_SPREAD = 3
+
+#: seconds of work the card does before a timed run: a card that sat idle
+#: runs at a low clock, and a few short calls end before it has climbed back
+WARM_S = 0.05
 
 
 def _quantile(sorted_xs: Sequence[float], q: float) -> float:
@@ -130,13 +136,15 @@ def cuda_event_ms(fn: Callable[[int], object], iters: int = 20,
 
     ``fn(i)`` gets the call's index so a caller can rotate through inputs
     (e.g. one weight per layer, so no call finds its operands in L2 from
-    the call before).  Needs the card: there is no CPU version of an event.
+    the call before); ``_warm`` says what the warm-up is.  The time counts
+    the card's idle gaps between calls, so it reads the host's pace where
+    the host is slower.  Needs the card: there is no CPU version of an
+    event.
     """
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
     resolve_device("cuda")
-    for i in range(warmup):
-        fn(i)
+    _warm(fn, warmup)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -145,3 +153,49 @@ def cuda_event_ms(fn: Callable[[int], object], iters: int = 20,
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _warm(fn: Callable[[int], object], warmup: int) -> None:
+    """At least ``warmup`` calls, and calls until the card has worked
+    ``WARM_S`` seconds."""
+    t0 = time.perf_counter()
+    i = 0
+    while i < warmup or time.perf_counter() - t0 < WARM_S:
+        fn(i)
+        i += 1
+        if i % 8 == 0:                 # keep the host clock on the card's
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+
+
+def kernel_ms(fn: Callable[[int], object], iters: int = 20,
+              warmup: int = 3) -> float:
+    """Card time of one call's kernels, in ms, without the host's pace.
+
+    The card sleeps (``torch.cuda._sleep``) while the host enqueues
+    ``iters`` warm calls between two CUDA events, so it then runs them back
+    to back: unlike ``cuda_event_ms``, a call whose host enqueue is slower
+    than its kernels still reads the kernels' own time.  The sleep starts at
+    0.2 ms a call and grows fourfold until the card is still asleep when the
+    host has enqueued the last call.  ``fn(i)`` as for ``cuda_event_ms``.
+    """
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    resolve_device("cuda")
+    _warm(fn, warmup)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sleep_s = max(1e-3, 2e-4 * iters)
+    for _ in range(4):
+        torch.cuda._sleep(int(2e9 * sleep_s))   # cycles: <= 2 GHz clocks
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        asleep = not start.query()
+        end.synchronize()
+        if asleep:
+            return start.elapsed_time(end) / iters
+        sleep_s *= 4
+    raise RuntimeError(f"the host did not enqueue {iters} calls within "
+                       f"{sleep_s / 4:.3f} s of the card's sleep")

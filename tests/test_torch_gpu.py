@@ -37,7 +37,13 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("act", [None, "relu", "relu2", "silu", "gelu"])
 @pytest.mark.parametrize("mkn", [(256, 4096, 4096), (300, 700, 520),
-                                 (1, 4100, 17), (129, 64, 136)])
+                                 (1, 4100, 17), (129, 64, 136),
+                                 # sm90 edges: ragged M, M = 1, N = 576 and
+                                 # 8, K = 64 and 8, 96 and 320 tiles
+                                 (1000, 576, 1536), (1, 4096, 4096),
+                                 (1000, 1536, 576), (300, 64, 8),
+                                 (130, 8, 520), (3000, 1024, 1000),
+                                 (5000, 512, 2048)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_kernel_matches_plain_version(cuda, dtype, mkn, act):
@@ -50,6 +56,54 @@ def test_kernel_matches_plain_version(cuda, dtype, mkn, act):
     torch.cuda.synchronize()
     assert got.shape == (M, N) and got.dtype == dtype
     assert _rel_err(got, ref_matmul(a, b, bias=bias, act=act)) < TOL[dtype]
+
+
+def test_variant_counters_follow_the_rule(cuda):
+    from repro_torch.kernels.blocked_matmul import variant
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    flat = torch.randn(64 * 64 + 1, generator=gen, device=cuda)
+    b = torch.randn((64, 128), generator=gen, device=cuda)
+    cases = [(flat[:4096].view(64, 64).bfloat16(), b.bfloat16(), "sm90"),
+             (flat.bfloat16()[1:].view(64, 64), b.bfloat16(), "wmma"),
+             (flat[:4096].view(64, 64), b, "f32")]
+    for a, b_, kind in cases:
+        aligned = a.data_ptr() % 16 == 0
+        assert variant(64, 128, 64, a.dtype, aligned) == kind
+        before = dict(blocked_matmul.launches_by_variant)
+        got = blocked_matmul(a, b_, act="silu")
+        torch.cuda.synchronize()
+        assert blocked_matmul.launches_by_variant == {
+            **before, kind: before[kind] + 1}
+        assert _rel_err(got, ref_matmul(a, b_, act="silu")) < TOL[a.dtype]
+
+
+def test_sm90_rejects_a_plan_it_was_not_built_for(cuda):
+    from repro_torch.kernels import blocked_matmul as bm
+    a = torch.ones((128, 64), device=cuda, dtype=torch.bfloat16)
+    b = a.t().contiguous()
+    out = torch.empty((128, 128), device=cuda, dtype=torch.bfloat16)
+    _, sm90 = bm._launcher()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bn, bias in ((96, None), (128, out.view(-1)[1:129])):  # bias off 2 B
+        rc = sm90(a.data_ptr(), b.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  128, 128, 64, 0, bn, 1, stream)
+        assert rc == 1   # cudaErrorInvalidValue
+
+
+def test_sm90_takes_a_bias_at_a_4_byte_offset(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn((256, 64), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((64, 128), generator=gen, device=cuda).bfloat16()
+    bias = torch.randn(130, generator=gen, device=cuda).bfloat16()[2:]
+    assert bias.data_ptr() % 16 == 4
+    before = dict(blocked_matmul.launches_by_variant)
+    got = blocked_matmul(a, b, bias=bias, act="relu")
+    torch.cuda.synchronize()
+    assert blocked_matmul.launches_by_variant == {
+        **before, "sm90": before["sm90"] + 1}
+    assert _rel_err(got, ref_matmul(a, b, bias=bias, act="relu")) \
+        < TOL[torch.bfloat16]
 
 
 def test_launch_counter_rises_once_per_cuda_call(cuda):

@@ -162,3 +162,87 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 def test_ref_rejects_unknown_activation():
     with pytest.raises(ValueError, match="unsupported activation"):
         ref.ref_matmul(torch.ones((2, 2)), torch.ones((2, 2)), act="tanh")
+
+
+@pytest.mark.parametrize("case", [
+    # (M, N, K, dtype, aligned) -> kernel
+    ((256, 4096, 4096, torch.bfloat16, True), "sm90"),
+    ((16384, 1536, 576, torch.bfloat16, True), "sm90"),
+    ((16384, 576, 1536, torch.bfloat16, True), "sm90"),
+    ((1, 8, 8, torch.bfloat16, True), "sm90"),
+    ((300, 520, 700, torch.bfloat16, True), "wmma"),     # K % 8 != 0
+    ((1, 17, 4100, torch.bfloat16, True), "wmma"),       # N % 8 != 0
+    ((256, 4096, 4096, torch.bfloat16, False), "wmma"),  # a base off 16 B
+    ((256, 4096, 4096, torch.float32, True), "f32"),
+    ((300, 520, 700, torch.float32, False), "f32"),
+], ids=lambda c: "-".join(map(str, c[0])).replace("torch.", "")
+   if isinstance(c[0], tuple) else str(c))
+def test_variant_rule(case):
+    from repro_torch.kernels.blocked_matmul import variant
+    (M, N, K, dtype, aligned), want = case
+    assert variant(M, N, K, dtype, aligned) == want
+
+
+@pytest.mark.parametrize("case", [
+    # (M, K, N) on 132 SMs -> (BN, n_fastest): the six main-path shapes,
+    # then edges; the N tile runs fastest when M >= N
+    ((256, 4096, 4096), (64, False)),     # 32 tiles of 256 -> 128 of 64
+    ((1024, 4096, 4096), (256, False)),
+    ((4096, 4096, 4096), (256, True)),
+    ((16384, 576, 1536), (256, True)),    # FFN gate and up
+    ((16384, 1536, 576), (192, True)),    # FFN down: 3 tiles of 192
+    ((1, 4096, 8), (64, False)),
+    ((1000, 1536, 576), (64, True)),      # 24 tiles of 192 -> 72 of 64
+    ((3000, 1024, 1000), (256, True)),    # 256 and 128 both pad to 1024
+    ((5000, 512, 2048), (256, True)),
+], ids=lambda c: "x".join(map(str, c[0])) if isinstance(c[0], tuple) else "")
+def test_tile_plan_rule(case):
+    from repro_torch.kernels.blocked_matmul import SM90_BN, Plan, tile_plan
+    (M, K, N), want = case
+    plan = tile_plan(M, N, K, num_sms=132)
+    assert plan == Plan(*want)
+    assert plan.bn in SM90_BN
+
+
+@pytest.mark.parametrize("case", [
+    # byte offsets of (A, B, bias) from 64-byte aligned bases -> sm90's rule
+    ((0, 0, None), True),
+    ((0, 0, 0), True),
+    ((16, 32, 4), True),       # a bias at a 4-byte offset: read in pairs
+    ((0, 0, 2), False),
+    ((2, 0, None), False),     # TMA needs 16-byte bases for A and B
+    ((0, 8, 0), False),
+], ids=str)
+def test_aligned_rule(case):
+    from repro_torch.kernels.blocked_matmul import aligned
+    offsets, want = case
+    base = torch.zeros(4096, dtype=torch.bfloat16)
+    assert base.data_ptr() % 64 == 0
+    a, b, bias = (None if off is None else base[off // 2:off // 2 + 64]
+                  for off in offsets)
+    assert aligned(a, b, bias) is want
+
+
+def test_cpu_calls_count_no_launch_by_variant():
+    rng = np.random.default_rng(9)
+    a, b = (torch.from_numpy(_normal(rng, s)).to(torch.bfloat16)
+            for s in ((64, 64), (64, 128)))
+    before = dict(blocked_matmul.launches_by_variant)
+    assert set(before) == {"sm90", "wmma", "f32"}
+    blocked_matmul(a, b, act="relu")
+    blocked_matmul(a.float(), b.float())
+    assert blocked_matmul.launches_by_variant == before
+
+
+def test_build_key_covers_headers_and_flags(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    second = _build._target("k")
+    assert second != first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._target("k") not in (first, second)

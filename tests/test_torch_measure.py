@@ -138,6 +138,7 @@ def test_entry_points_raise_without_a_card():
                  lambda: microbench.memory_benches((1,)),
                  lambda: timers.time_callable(lambda: None),
                  lambda: timers.cuda_event_ms(lambda i: None),
+                 lambda: timers.kernel_ms(lambda i: None),
                  lambda: mlp_params_from_numpy({"layers": [], "head": {}})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
