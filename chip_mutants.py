@@ -6,12 +6,17 @@
 A check that passes the real kernel shows little unless it fails a wrong
 one.  Each mutant is a kernel source with one planted fault:
 
-  flash_attention.cu (the bf16 kernel is wrong in its late kv tiles only,
-  where an output row averages ~1000 keys and is small)
-    skip_tile_16    kv tile 16 (keys 1024-1087) is skipped when a later tile
-                    follows it
-    stale_alpha_16  from kv tile 16 on, acc is not rescaled by alpha when a
-                    tile raises the row's running max
+  flash_attention.cu (the sm90 kernel; the first two are wrong in rows
+  past key 1024 only, where an output row averages ~1000 keys and is small)
+    skip_tile_16    the kv tile at keys 1024-1151 (tile 16 of 64 keys in the
+                    first design) is skipped when a later tile follows it
+    stale_alpha_16  at the kv tiles from key 1024 up, acc is not rescaled by
+                    alpha when a tile raises the row's running max
+    release_v_early each V stage is released as soon as it has landed, a tile
+                    before the P.V wgmma that reads it is issued, so the
+                    producer's next TMA load may overwrite it first (released
+                    right after that wgmma's issue instead, it read the same
+                    as the real kernel: the load lands after the read)
   blocked_matmul.cu (the sm90 kernel)
     release_early   each ring stage is released one k-step early: right
                     after the wgmma that reads it is issued, not once it has
@@ -21,19 +26,29 @@ one.  Each mutant is a kernel source with one planted fault:
                     waited for and released)
 
 Each mutant is compiled from an edited copy of the source written under
-``build/mutants/`` (the checkout's sources stay as they are) and swapped in
-for the real kernel, the real kernel first.  A flash mutant is held to the
-kernel alone at the smollm-135m prefill shape (8, 2048, 9/3 heads, dh 64,
-bf16) and to the whole prefill forward at (8, 2048) (``row_rel_err``
-against FLASH_TOL and LM_TOL).  A GEMM mutant is held to the kernel alone
+``build/mutants/`` (the checkout's sources stay as they are; the copies
+include ``csrc/sm90.cuh``) and swapped in for the real kernel, the real
+kernel first.  A flash mutant is held to the kernel alone at the
+smollm-135m prefill shape (8, 2048, 9/3 heads, dh 64, bf16) and to the
+whole prefill forward at (8, 2048) (``row_rel_err`` against FLASH_TOL and
+LM_TOL).  A GEMM mutant is held to the kernel alone
 at the six main-path shapes (``rel_err`` against TOL) and to the logits of
 the dlrm-mlp forward at B = 256 and 4096 (LOGIT_TOL) and of the prefill
 forward at (8, 2048) with ``use_kernel_matmul`` (LM_TOL).
 
-The same machinery builds design alternatives of the sm90 kernel, which the
-real one was chosen over; each must pass the kernel check at the shapes it
-is timed at, beside the real kernel with the same tiles (``kernel_ms``):
+The same machinery builds design alternatives of the sm90 kernels, which
+the real ones were chosen over; each must pass the kernel check at the
+shapes it is timed at, beside the real kernel with the same tiles
+(``kernel_ms``):
 
+  flash_attention.cu
+    q_rows_128      128-row q tiles at dh 64: two consumer warpgroups in one
+                    block an SM (timed at the three prefill shapes)
+    pingpong        at dh 128, the two consumer warpgroups take turns on
+                    named barriers to issue their products (FlashAttention-
+                    3's ping-pong) instead of issuing them when ready (timed
+                    at (2, 2048, 9/3 heads, dh 128))
+  blocked_matmul.cu
     split_k2/4/8    K split 2, 4 or 8 ways: each CTA sums one part of K
                     into an fp32 workspace the launcher allocates, and a
                     second kernel adds the parts, the bias and act (timed at
@@ -43,8 +58,8 @@ is timed at, beside the real kernel with the same tiles (``kernel_ms``):
                     one instantiation, instead of one instantiation per act
 
 Exits 0 when the real kernels pass every check, each flash mutant fails
-both of its checks, each GEMM mutant fails the kernel check at some
-main-path shape, and each alternative passes.
+both of its checks (the ring race: either), each GEMM mutant fails the
+kernel check at some main-path shape, and each alternative passes.
 """
 from __future__ import annotations
 
@@ -58,16 +73,31 @@ import torch
 
 import chip_smoke as smoke     # also puts src/ on sys.path
 
-_RESCALE = ("      acc[n][0] *= alpha[0];\n      acc[n][1] *= alpha[0];\n"
-            "      acc[n][2] *= alpha[1];\n      acc[n][3] *= alpha[1];\n")
 #: source -> mutant name -> [(text of the kernel, its replacement), ...]
 MUTANTS = {
     "flash_attention": {
-        "skip_tile_16": [("    const int k0 = kt * kBfTileK;\n",
-                          "    if (kt == 16 && kt + 1 < kt_last) continue;\n"
-                          "    const int k0 = kt * kBfTileK;\n")],
-        "stale_alpha_16": [(_RESCALE,
-                            "      if (kt >= 16) continue;\n" + _RESCALE)],
+        "skip_tile_16": [(
+            "      if (tile_needs_mask(p, r0, k0))\n",
+            "      if (k0 == 1024 && t + 1 < n) {  // every key masked\n"
+            "        for (int i = 0; i < kSmBN / 2; ++i) sc[i] = kNegInf;\n"
+            "        softmax_tile<false>(sc, m, l, alpha, row, k0, p, c2);\n"
+            "      } else if (tile_needs_mask(p, r0, k0))\n")],
+        "stale_alpha_16": [(
+            "for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i / 2) % 2];",
+            "for (int i = 0; i < DH / 2; ++i)\n"
+            "          if ((kt_last - 1 - t) * kSmBN < 1024)\n"
+            "            acc[i] *= alpha[(i / 2) % 2];")],
+        "release_v_early": [
+            ("        if (lane == 0) mbar_arrive(&v_empty[ps]);  // its P . V "
+             "has retired\n", ""),
+            ("      if (lane == 0) mbar_arrive(&v_empty[ps]);  // the last "
+             "P . V retired\n", ""),
+            ("      mbar_wait(&v_full[0], 0);\n",
+             "      mbar_wait(&v_full[0], 0);\n"
+             "      if (lane == 0) mbar_arrive(&v_empty[0]);\n"),
+            ("        mbar_wait(&v_full[s], phase);\n",
+             "        mbar_wait(&v_full[s], phase);\n"
+             "        if (lane == 0) mbar_arrive(&v_empty[s]);\n")],
     },
     "blocked_matmul": {
         "release_early": [
@@ -170,8 +200,52 @@ def _split_k(n: int) -> list:
     ]
 
 
+#: FlashAttention-3's ping-pong in the flash kernel's two-warpgroup block:
+#: each warpgroup waits for its turn (named barrier 1 + its index) before it
+#: issues its products and passes the turn on once they are issued;
+#: warpgroup 0 goes first, and its last wait takes warpgroup 1's last pass
+_TURNS = """
+__device__ __forceinline__ void turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\\n" :: "r"(1 + cw) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\\n" :: "r"(2 - cw) : "memory");
+}
+
+"""
+_PINGPONG = [
+    ("// One block per (h, b, q tile), the heaviest causal tiles first.\n",
+     _TURNS + "// One block per (h, b, q tile), the heaviest causal tiles "
+     "first.\n"),
+    ("    if (n > 0) {\n      // the first tile",
+     "    if (WG == 2 && cw == 1) turn_pass(cw);\n"
+     "    if (n > 0) {\n      // the first tile"),
+    ("      mbar_wait(&k_full[0], 0);\n",
+     "      mbar_wait(&k_full[0], 0);\n      if (WG == 2) turn_wait(cw);\n"),
+    ("      qk_product(0);\n",
+     "      qk_product(0);\n      if (WG == 2) turn_pass(cw);\n"),
+    ("        fence_acc<kSmBN / 2>(sc);\n        fence_acc<DH / 2>(acc);\n",
+     "        if (WG == 2) turn_wait(cw);\n"
+     "        fence_acc<kSmBN / 2>(sc);\n        fence_acc<DH / 2>(acc);\n"),
+    ("        wgmma_commit();\n        if (t + 1 < n)",
+     "        wgmma_commit();\n        if (WG == 2) turn_pass(cw);\n"
+     "        if (t + 1 < n)"),
+    ("      // P . V of the last tile\n",
+     "      // P . V of the last tile\n      if (WG == 2) turn_wait(cw);\n"),
+    ("      wgmma_commit();\n      wgmma_wait<0>();\n",
+     "      wgmma_commit();\n      if (WG == 2) turn_pass(cw);\n"
+     "      wgmma_wait<0>();\n"),
+    ("    // Finish: the row sums are spread over the quad",
+     "    if (WG == 2 && cw == 0) turn_wait(cw);\n"
+     "    // Finish: the row sums are spread over the quad"),
+]
+
 #: source -> alternative -> edits, as MUTANTS
-ALTERNATIVES = {"blocked_matmul": {
+ALTERNATIVES = {"flash_attention": {
+    "q_rows_128": [("rc = launch_sm90<64, 1>(", "rc = launch_sm90<64, 2>(")],
+    "pingpong": _PINGPONG,
+}, "blocked_matmul": {
     **{f"split_k{n}": _split_k(n) for n in (2, 4, 8)},
     "act_switch": [
         ("template <int BN, int ACT>\n__device__ __forceinline__ void "
@@ -214,7 +288,8 @@ def build_mutants(_build, copies: dict = MUTANTS) -> dict:
             cu.write_text(text)
             so = cu.with_suffix(".so")
             procs[(source, name)] = (so, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                 "-o", str(so), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (so, proc) in procs.items():
@@ -290,11 +365,41 @@ def main() -> int:
             row["caught"] = [row["attn_row_rel_err"] >= row["attn_tol"],
                              row["logits_row_rel_err"] >= row["logits_tol"]]
             print(json.dumps(row), flush=True)
-            ok &= row["caught"] == ([False, False] if name == "real"
-                                    else [True, True])
+            if name == "real":
+                ok &= row["caught"] == [False, False]
+            elif name == "release_v_early":   # a race: caught by either
+                ok &= any(row["caught"])
+            else:
+                ok &= row["caught"] == [True, True]
             del got, logits
     finally:
         fa._launcher = real_launcher
+
+    # the flash alternatives, each beside the real kernel, in turns (real,
+    # alternative, real): (B, S, dh) -> 9 query / 3 kv heads
+    flash_at = {"q_rows_128": [(B_, S_, cfg.dh) for B_, S_ in smoke.PREFILL],
+                "pingpong": [(2, 2048, 128)]}
+    real_flash = fa._launcher()
+    for name in ALTERNATIVES["flash_attention"]:
+        alt = fa.bind(libs[("flash_attention", name)])
+        for Bp, Sp, dh in flash_at[name]:
+            qp, kp, vp = (torch.randn((Bp, Sp, n, dh), generator=gen,
+                                      device=dev).to(bf16)
+                          for n in (cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.n_kv_heads))
+            err = smoke.row_rel_err(
+                smoke.flash_option(alt, "sm90", qp, kp, vp),
+                ref_flash_attention(qp, kp, vp))
+            ms = {key: kernel_ms(lambda i: smoke.flash_option(
+                fns, "sm90", qp, kp, vp), iters=20)
+                for key, fns in (("real_ms", real_flash), ("ms", alt),
+                                 ("real_ms_again", real_flash))}
+            row = {"alternative": name, "source": "flash_attention",
+                   "shape": [Bp, Sp, cfg.n_heads, cfg.n_kv_heads, dh],
+                   **ms, "attn_row_rel_err": err,
+                   "attn_tol": smoke.FLASH_TOL[bf16], "card": card}
+            print(json.dumps(row), flush=True)
+            ok &= err < smoke.FLASH_TOL[bf16]
 
     # the sm90 GEMM: its six main-path shapes (M, K, N, act, bias), the
     # dlrm-mlp forward and the prefill forward with use_kernel_matmul

@@ -13,21 +13,24 @@ just after:
               (its Hopper variant, sm90: TMA ring, wgmma, persistent grid);
   lm_prefill  the full smollm-135m (30 layers, width 576, random weights)
               prefilling token batches (8, 2048), (1, 2048) and (4, 1000)
-              with every layer's attention in the flash-attention kernel,
-              and (8, 2048) once more with the FFN products in the blocked
-              matmul kernel too.
+              with every layer's attention in the flash-attention kernel
+              (its Hopper variant, sm90: TMA K/V ring, wgmma, the softmax
+              under the products), and (8, 2048) once more with the FFN
+              products in the blocked matmul kernel too.
 
-Every blocked-matmul launch of both paths must take the sm90 variant (the
-wrapper counts launches by variant).  It times both paths, places them on
-the Ridgeline plane of the H100 datasheet spec, times the sm90 kernel's
-tile options at every main-path shape, and runs the microbenchmarks.  Any
-failed check exits nonzero (``chip_mutants.py`` shows that the parity and
-logits checks fail kernels with planted faults: late kv tiles of the flash
-kernel, the ring and the last k-step of the sm90 GEMM).  The
-last two lines are a JSON summary of each kernel (its times are totals over
-its own launches on the main paths) and the device line
-``{"ok": true, "device": {...}}``.  Every number printed names the card and
-its power limit, as ``nvidia-smi`` reports them.
+Every blocked-matmul and flash-attention launch of both paths must take the
+sm90 variant (the wrappers count launches by variant).  It times both
+paths, places them on the Ridgeline plane of the H100 datasheet spec, times
+the flash kernel's earlier mma design beside the sm90 kernel at every
+prefill shape and the sm90 GEMM's tile options at every main-path shape,
+and runs the microbenchmarks.  Any failed check exits nonzero
+(``chip_mutants.py`` shows that the parity and logits checks fail kernels
+with planted faults: late kv tiles and the K/V ring of the flash kernel,
+the ring and the last k-step of the sm90 GEMM).  The last two lines are a
+JSON summary of each kernel (its times are totals over its own launches on
+the main paths) and the device line ``{"ok": true, "device": {...}}``.
+Every number printed names the card and its power limit, as ``nvidia-smi``
+reports them.
 """
 from __future__ import annotations
 
@@ -71,11 +74,14 @@ LOGIT_TOL = 2e-2
 #: chip_mutants.py 0.99-5.4 at the prefill shape.
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 #: (B, S, H, K, dh, causal, window): tests/test_kernels.py's four, a ragged
-#: S, S = 1, and the smollm-135m prefill launch
+#: S, S = 1, the smollm-135m prefill launch, and for the sm90 kernel's
+#: 128-row tiles: ragged S at 1000 with dh 128 and a window that cuts
+#: through 128-key tiles
 FLASH_SHAPES = ((2, 512, 4, 2, 64, True, 0), (1, 512, 4, 4, 128, True, 0),
                 (1, 1024, 8, 2, 64, True, 256), (2, 512, 6, 3, 64, False, 0),
                 (2, 300, 9, 3, 64, True, 0), (2, 1, 9, 3, 128, True, 0),
-                (8, 2048, 9, 3, 64, True, 0))
+                (8, 2048, 9, 3, 64, True, 0), (2, 1000, 4, 2, 128, True, 0),
+                (1, 777, 4, 2, 64, False, 200))
 #: the prefill's token batches (B, S); the first is timed (2048 is
 #: SmolLM-135M's trained context), the last is ragged
 PREFILL = ((8, 2048), (1, 2048), (4, 1000))
@@ -133,6 +139,19 @@ def sm90_option(sm90, a: torch.Tensor, b: torch.Tensor, bias, act, plan):
               torch.cuda.current_stream(a.device).cuda_stream)
     check(rc == 0, f"sm90 {plan} failed at ({M},{K},{N}): CUDA error {rc}")
     return out
+
+
+def flash_option(fns, kind: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """One causal launch of the ``kind`` kernel of ``fns`` (what
+    ``flash_attention.bind`` returns) on model-layout q, k, v, past the
+    wrapper and its counters."""
+    from repro_torch.kernels import flash_attention as fa
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = torch.empty_like(qt)
+    rc = fa.launch(fns, kind, qt, kt, vt, out, True, 0, q.shape[1])
+    check(rc == 0, f"flash {kind} failed at {tuple(q.shape)}: CUDA error {rc}")
+    return out.transpose(1, 2)
 
 
 def attn_work(B: int, S: int, H: int, K: int, dh: int, causal: bool,
@@ -204,6 +223,7 @@ def main() -> int:
     from repro_torch.core.ridgeline import WorkUnit, analyze
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.blocked_matmul import blocked_matmul
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.ref import ref_flash_attention, ref_matmul
@@ -282,37 +302,64 @@ def main() -> int:
     # ---- 4. flash attention parity ----------------------------------------------
     phase("flash_parity")
     worst = {}
+
+    def flash_case(name, dtype, call, want, dh):
+        """One wrapper call: it must take the variant the rule names, be
+        finite, and agree with ``want`` row by row."""
+        var = fa.variant(dtype, dh, True)   # fresh tensors: TMA reads them
+        before = dict(flash_attention_bhsd.launches_by_variant)
+        got = call()
+        torch.cuda.synchronize()
+        err = row_rel_err(got, want)
+        name = f"{str(dtype)[6:]} {name} {var}"
+        say(f"  {name}: row_rel_err {err:.3e} (tol {FLASH_TOL[dtype]:g})")
+        check(flash_attention_bhsd.launches_by_variant
+              == {**before, var: before[var] + 1}, f"{name}: not one {var} launch")
+        check(got.shape == want.shape and torch.isfinite(got).all().item(),
+              f"flash output malformed: {name}")
+        check(err < FLASH_TOL[dtype], f"flash kernel disagrees: {name}: {err}")
+        worst[(dtype, var)] = max(worst.get((dtype, var), 0.0), err)
+        return got
+
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, H, K, dh, causal, window in FLASH_SHAPES:
             q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=dev)
                        .to(dtype) for n in (H, K, K))
-            got = ops.flash_attention(q, k, v, causal=causal, window=window)
-            want = ref_flash_attention(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            err = row_rel_err(got, want)
-            name = (f"{str(dtype)[6:]} B{B} S{S} H{H} K{K} dh{dh} "
-                    f"causal={causal} window={window}")
-            say(f"  {name}: row_rel_err {err:.3e} (tol {FLASH_TOL[dtype]:g})")
-            check(got.shape == q.shape and got.is_contiguous()
-                  and torch.isfinite(got).all().item(),
-                  f"flash output malformed: {name}")
-            check(err < FLASH_TOL[dtype], f"flash kernel disagrees: {name}: {err}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-        # the (B, H, S, dh) entry point, keys at or past seq_len masked
-        q, k, v = (torch.randn((2, n, 384, 64), generator=gen, device=dev)
-                   .to(dtype) for n in (6, 2, 2))
-        k[:, :, 300:] = 1e4
-        got = flash_attention_bhsd(q, k, v, causal=True, seq_len=300)
-        want = ref_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), causal=True,
-                                   seq_len=300).transpose(1, 2)
-        err = row_rel_err(got, want)
-        say(f"  flash_attention_bhsd {str(dtype)[6:]} (2,6,384,64) seq_len=300: "
-            f"row_rel_err {err:.3e}")
-        check(err < FLASH_TOL[dtype], f"flash seq_len masking {dtype}: {err}")
-        worst[dtype] = max(worst[dtype], err)
+            got = flash_case(
+                f"B{B} S{S} H{H} K{K} dh{dh} causal={causal} window={window}",
+                dtype,
+                lambda: ops.flash_attention(q, k, v, causal=causal,
+                                            window=window),
+                ref_flash_attention(q, k, v, causal=causal, window=window), dh)
+            check(got.is_contiguous(), "flash output not contiguous")
+        # the (B, H, S, dh) entry point, keys at or past seq_len masked: junk
+        # 1e4 in k; NaN in k and v (the kernels must never read them into a
+        # product: the reference gets the same keys with the junk zeroed);
+        # seq_len 0 (every row sees no key: 0)
+        for junk, seq_len in ((1e4, 300), (float("nan"), 300),
+                              (float("nan"), 0)):
+            q, k, v = (torch.randn((2, n, 384, 64), generator=gen, device=dev)
+                       .to(dtype) for n in (6, 2, 2))
+            clean_k, clean_v = k.clone(), v.clone()
+            clean_k[:, :, seq_len:] = 0.0
+            clean_v[:, :, seq_len:] = 0.0
+            k[:, :, seq_len:] = junk
+            if junk != junk:
+                v[:, :, seq_len:] = junk
+            want = ref_flash_attention(
+                q.transpose(1, 2), clean_k.transpose(1, 2),
+                clean_v.transpose(1, 2), causal=True,
+                seq_len=seq_len).transpose(1, 2)
+            got = flash_case(
+                f"flash_attention_bhsd (2,6,384,64) seq_len={seq_len} "
+                f"junk {junk:g}", dtype,
+                lambda: flash_attention_bhsd(q, k, v, causal=True,
+                                             seq_len=seq_len), want, 64)
+            if seq_len == 0:
+                check(torch.equal(got, torch.zeros_like(got)),
+                      f"seq_len 0 {dtype}: rows that see no key are not 0")
     say("worst row_rel_err: " + ", ".join(
-        f"{str(k)[6:]} {v:.3e}" for k, v in worst.items()))
+        f"{str(d)[6:]} {var} {v:.3e}" for (d, var), v in worst.items()))
 
     # ---- 5. mlp_serve: the first main path ----------------------------------------
     phase("mlp_serve")
@@ -459,6 +506,7 @@ def main() -> int:
     # batch once more with the FFN products in the blocked-matmul kernel too
     runs = [(bs, lm_cfg) for bs in PREFILL] + [(PREFILL[0], lm_kmm)]
     flash_attention_bhsd.launches = 0
+    flash_attention_bhsd.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
     blocked_matmul.launches = 0
     blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
     lm_logits, per_fwd = [], []
@@ -471,14 +519,20 @@ def main() -> int:
     lm_launches = {"flash_attention_bhsd": flash_attention_bhsd.launches,
                    "blocked_matmul": blocked_matmul.launches}
     lm_variants = dict(blocked_matmul.launches_by_variant)
+    flash_variants = dict(flash_attention_bhsd.launches_by_variant)
     say(f"(flash, blocked_matmul) launches per forward {per_fwd}; main path "
-        f"totals {lm_launches}; blocked_matmul by variant {lm_variants}")
+        f"totals {lm_launches}; flash by variant {flash_variants}; "
+        f"blocked_matmul by variant {lm_variants}")
     check(per_fwd == [(NL, 0)] * len(PREFILL) + [(NL, 3 * NL)],
           f"expected {NL} flash launches per forward and {3 * NL} blocked "
           f"matmul launches with use_kernel_matmul, got {per_fwd}")
     check(lm_variants == {**dict.fromkeys(bm.VARIANTS, 0), "sm90": 3 * NL},
           f"every lm_prefill blocked-matmul launch must take the sm90 "
           f"kernel: {lm_variants}")
+    check(flash_variants == {**dict.fromkeys(fa.VARIANTS, 0),
+                             "sm90": NL * len(runs)},
+          f"every lm_prefill flash launch must take the sm90 kernel: "
+          f"{flash_variants}")
 
     for (bs, c), got in zip(runs, lm_logits):
         B, S = bs
@@ -561,38 +615,51 @@ def main() -> int:
             say(f"    {ms:9.4f} ms {100 * ms / kern_ms:5.1f}% x{n:<4d} "
                 f"{name[:110]}")
 
-    # per launch, at each main-path shape: the kernel, its plain version and
-    # the library's one call (SDPA, timed as a yardstick only: the port never
-    # calls it); q, k, v of (8, 2048) are 31 MB, so they sit in L2, as they
-    # do in the forward, which has just written them
+    # per launch, at each main-path shape: the kernel, its plain version,
+    # the earlier mma design (called past the wrapper, in turns: the kernel,
+    # mma, the kernel again), and the library's one call (SDPA, timed as a
+    # yardstick only: the port never calls it); q, k, v of (8, 2048) are
+    # 31 MB, so they sit in L2, as they do in the forward, which has just
+    # written them
+    flash_fns = fa._launcher()
     flash_rows = []
     for B, S in PREFILL:
         n_launch = NL * sum(1 for bs, _ in runs if bs == (B, S))
         q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=dev).to(bf16)
                    for n in (H, K, K))
         k_ms = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
+        mma_ms = kernel_ms(lambda i: flash_option(flash_fns, "mma", q, k, v),
+                           iters=20)
+        k_ms_again = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
         p_ms = kernel_ms(lambda i: ref_flash_attention(q, k, v), iters=5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = kernel_ms(lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-        got, want = ops.flash_attention(q, k, v), ref_flash_attention(q, k, v)
+        want = ref_flash_attention(q, k, v)
+        got = ops.flash_attention(q, k, v)
         err_abs, err = max_abs(got, want), row_rel_err(got, want)
         check(err < FLASH_TOL[bf16],
               f"flash kernel disagrees at the prefill's ({B},{S}): {err}")
+        e_mma = row_rel_err(flash_option(flash_fns, "mma", q, k, v), want)
+        check(e_mma < FLASH_TOL[bf16],
+              f"flash mma disagrees at the prefill's ({B},{S}): {e_mma}")
         flops, nbytes = attn_work(B, S, H, K, dh, True, 2)
         b_ms, b_by = bound_of(flops, nbytes, H100_SXM)
         flash_rows.append({
             "path": "lm_prefill", "shape": [B, S, H, K, dh], "causal": True,
-            "launches": n_launch, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "launches": n_launch, "kernel_ms": k_ms,
+            "kernel_ms_again": k_ms_again, "mma_ms": mma_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": err_abs, "flops": flops, "bytes": nbytes})
         say(f"  flash B={B} S={S} H={H} K={K} dh={dh} per launch: kernel "
-            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+            f"(sm90) {k_ms:.4f} / {k_ms_again:.4f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s), earlier mma design "
+            f"{mma_ms:.4f} ms ({mma_ms / k_ms:.2f}x the kernel); plain "
             f"{p_ms:.4f} ms, library SDPA {lib_ms:.4f} ms "
             f"({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}), kernel at "
             f"{100 * b_ms / k_ms:.1f}% of bound; {n_launch} main-path "
             f"launches; max_abs_err {err_abs:.3e}, row_rel_err {err:.3e} "
-            f"(tol {FLASH_TOL[bf16]:g})")
+            f"(mma {e_mma:.3e}; tol {FLASH_TOL[bf16]:g})")
     attn_ms = NL * flash_rows[0]["kernel_ms"]
     say(f"  B={B0} S={S0}: {NL} flash launches take {attn_ms:.4f} ms = "
         f"{100 * attn_ms / lm_ev:.1f}% of the forward's card time")
@@ -708,7 +775,7 @@ def main() -> int:
 
     # ---- summary ------------------------------------------------------------------
     def entry(name: str, source: str, replaces: str, launches: int,
-              rows: list) -> dict:
+              rows: list, by_variant: dict) -> dict:
         """Times are totals over the kernel's own main-path launches: each
         per-launch time times the launches at that shape."""
         check(sum(r["launches"] for r in rows) == launches,
@@ -720,6 +787,7 @@ def main() -> int:
         return {
             "name": name, "route": "cuda",
             "source": source, "replaces": replaces, "launches": launches,
+            "launches_by_variant": by_variant,
             "times": "ms, plain_ms, library_ms and bound_ms are totals over "
                      "the kernel's own launches on the main paths",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -727,6 +795,8 @@ def main() -> int:
             "plain_ms": sum(r["launches"] * r["plain_ms"] for r in rows),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": sum(r["launches"] * r["library_ms"] for r in rows),
+            **({"mma_ms": sum(r["launches"] * r["mma_ms"] for r in rows)}
+               if all("mma_ms" in r for r in rows) else {}),
             "card": card, "per_launch": rows}
 
     summary = {"kernels": [
@@ -734,11 +804,13 @@ def main() -> int:
               "src/repro_torch/kernels/csrc/blocked_matmul.cu",
               "src/repro/kernels/blocked_matmul.py:57",
               main_launches + lm_launches["blocked_matmul"],
-              per_batch + ffn_rows),
+              per_batch + ffn_rows,
+              {v: mlp_variants[v] + lm_variants[v] for v in bm.VARIANTS}),
         entry("flash_attention_bhsd",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
-              lm_launches["flash_attention_bhsd"], flash_rows),
+              lm_launches["flash_attention_bhsd"], flash_rows,
+              flash_variants),
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Causal GQA flash attention: the wrapper of ``csrc/flash_attention.cu``.
 
-The CUDA kernel replaces ``src/repro/kernels/flash_attention.py::
+The CUDA kernels replace ``src/repro/kernels/flash_attention.py::
 flash_attention_bhsd`` (the Pallas TPU kernel); the source's header says
-what bounds it on an H100 and what its design does about that.  This
-wrapper keeps the JAX layout and meaning, checks its inputs, allocates the
-output, launches on the current stream and counts launches.  A tensor on
-the CPU takes the plain version, ``ref.ref_flash_attention``, at any head
-dim; a CUDA tensor launches the kernel or raises.
+what bounds them on an H100 and what their design does about that.  This
+wrapper keeps the JAX layout and meaning, checks its inputs, picks the
+kernel (``variant``), allocates the output, launches on the current stream
+and counts launches, in total and by variant.  A tensor on the CPU takes
+the plain version, ``ref.ref_flash_attention``, at any head dim; a CUDA
+tensor launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -26,20 +27,49 @@ HEAD_DIMS = (64, 128)
 _GRID_MAX = 65535   # gridDim.y (heads) and gridDim.z (batch)
 _INT_MAX = 2 ** 31 - 1
 
+#: the kernels, in ``variant``'s words: the Hopper TMA + wgmma kernel, the
+#: first design's mma.sync kernel, IEEE fp32 on the CUDA cores
+VARIANTS = ("sm90", "mma", "f32")
+
 
 def bind(lib: ctypes.CDLL):
-    """The typed ``flash_attention_launch`` of a library built from
-    ``csrc/flash_attention.cu`` (or from an edited copy of it)."""
-    fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """The typed ``(flash_attention_launch, flash_attention_sm90_launch)``
+    of a library built from ``csrc/flash_attention.cu`` (or an edited
+    copy of it)."""
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+    base, sm90 = lib.flash_attention_launch, lib.flash_attention_sm90_launch
+    base.argtypes = head + [ctypes.c_int, ctypes.c_void_p]   # + dtype
+    sm90.argtypes = head + [ctypes.c_void_p]
+    for fn in (base, sm90):
+        fn.restype = ctypes.c_int
+    return base, sm90
 
 
 @functools.cache
 def _launcher():
     return bind(_build.load("flash_attention"))
+
+
+def tma_readable(*xs: torch.Tensor) -> bool:
+    """Whether TMA can read each (B, heads, S, dh) tensor as the sm90
+    kernel encodes it, beyond what ``_check_cuda`` demands: no stride 0
+    (a broadcast view) on a dimension longer than 1."""
+    return all(s != 0 for x in xs for n, s in zip(x.shape, x.stride())
+               if n > 1)
+
+
+def variant(dtype: torch.dtype, dh: int, is_tma_readable: bool) -> str:
+    """The kernel that takes a call, by dtype, head dim and layout alone.
+
+    fp32 goes to f32 (IEEE, no TF32).  bf16 goes to sm90 at the head dims
+    it is built for (64 and 128, as the mma kernel) when TMA can read the
+    tensors (``tma_readable``), otherwise to mma.
+    """
+    if dtype == torch.float32:
+        return "f32"
+    if dh in HEAD_DIMS and is_tma_readable:
+        return "sm90"
+    return "mma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -109,24 +139,41 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda(q, k, v)
+    kind = variant(q.dtype, dh, tma_readable(q, k, v))
     out = torch.empty_like(q)
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
-                                    *v.stride()[:3], *out.stride()[:3])
-    launch = _launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        # a window >= S masks as little as none; min() keeps it a C int
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    ctypes.addressof(strides), B, H, k.shape[1], S, dh,
-                    seq_len, int(causal), min(window, S),
-                    1.0 / dh ** 0.5, _DTYPE_CODE[q.dtype], stream)
+    rc = launch(_launcher(), kind, q, k, v, out, causal, window, seq_len)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{rc} at q {tuple(q.shape)} k {tuple(k.shape)} "
-                           f"{q.dtype}")
+        raise RuntimeError(f"flash_attention {kind} kernel launch failed: "
+                           f"CUDA error {rc} at q {tuple(q.shape)} k "
+                           f"{tuple(k.shape)} {q.dtype}")
     flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.launches_by_variant[kind] += 1
     return out
 
 
-#: kernel launches so far in this process (CPU calls do not count)
+def launch(fns, kind: str, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, out: torch.Tensor, causal: bool, window: int,
+           seq_len: int) -> int:
+    """One launch of the ``kind`` kernel from ``fns`` (what ``bind``
+    returns) on CUDA tensors that passed the checks; counts nothing.
+    Returns the CUDA error code.  ``chip_smoke.py`` calls it directly to
+    time the kernel the rule does not pick."""
+    base, sm90 = fns
+    B, H, S, dh = q.shape
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        # a window >= S masks as little as none; min() keeps it a C int
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ctypes.addressof(strides), B, H, k.shape[1], S, dh, seq_len,
+                int(causal), min(window, S), 1.0 / dh ** 0.5)
+        if kind == "sm90":
+            return sm90(*args, stream)
+        return base(*args, _DTYPE_CODE[q.dtype], stream)
+
+
+#: kernel launches so far in this process (CPU calls do not count), in total
+#: and by ``variant``
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_by_variant = dict.fromkeys(VARIANTS, 0)

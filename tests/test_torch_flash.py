@@ -153,3 +153,85 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         kw["seq_len"] = -2
     with pytest.raises((ValueError, TypeError)):
         flash_attention_bhsd(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("case", [
+    # (dtype, dh, TMA can read the tensors) -> kernel
+    ((torch.bfloat16, 64, True), "sm90"),
+    ((torch.bfloat16, 128, True), "sm90"),
+    ((torch.bfloat16, 64, False), "mma"),
+    ((torch.bfloat16, 128, False), "mma"),
+    ((torch.float32, 64, True), "f32"),
+    ((torch.float32, 128, False), "f32"),
+], ids=lambda c: "-".join(map(str, c[0])).replace("torch.", "")
+   if isinstance(c[0], tuple) else str(c))
+def test_variant_rule(case):
+    from repro_torch.kernels.flash_attention import VARIANTS, variant
+    (dtype, dh, readable), want = case
+    assert variant(dtype, dh, readable) == want
+    assert want in VARIANTS
+
+
+@pytest.mark.parametrize("case", ["bhsd", "model_layout", "broadcast_kv",
+                                  "size_one_stride_zero"])
+def test_tma_readable_rule(case):
+    from repro_torch.kernels.flash_attention import tma_readable
+    if case == "bhsd":
+        x, want = torch.zeros((2, 3, 40, 64)), True
+    elif case == "model_layout":     # (B, S, H, dh) seen through a transpose
+        x, want = torch.zeros((2, 40, 3, 64)).transpose(1, 2), True
+    elif case == "broadcast_kv":     # one kv head expanded: stride 0 on 3
+        x, want = torch.zeros((2, 1, 40, 64)).expand(2, 3, 40, 64), False
+    else:                            # never stepped over: any stride will do
+        x, want = torch.zeros((2, 1, 40, 64)).expand(2, 1, 40, 64), True
+        x = x.as_strided(x.shape, (x.stride(0), 0, 64, 1))
+    assert tma_readable(x) is want
+
+
+def test_cpu_calls_count_no_launch_by_variant():
+    before = dict(flash_attention_bhsd.launches_by_variant)
+    assert set(before) == {"sm90", "mma", "f32"}
+    for dtype in ("float32", "bfloat16"):
+        _, (q, k, v) = _qkv(4, 1, 70, 4, 2, 64, dtype)
+        ops.flash_attention(q, k, v, causal=True)
+    assert flash_attention_bhsd.launches_by_variant == before
+
+
+def test_bind_types_both_launchers():
+    """The ctypes signatures match the C prototypes: 64-bit pointers (q, k,
+    v, o, strides and the stream) and C ints, a float scale, and the dtype
+    code on the base launcher only."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels.flash_attention import bind
+
+    lib = types.SimpleNamespace(
+        flash_attention_launch=types.SimpleNamespace(),
+        flash_attention_sm90_launch=types.SimpleNamespace())
+    base, sm90 = bind(lib)
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+    assert base.argtypes == head + [ctypes.c_int, ctypes.c_void_p]
+    assert sm90.argtypes == head + [ctypes.c_void_p]
+    assert base.restype is sm90.restype is ctypes.c_int
+
+
+def _mutant_copies():
+    import chip_mutants
+    return [(src, name, edits) for table in (chip_mutants.MUTANTS,
+                                             chip_mutants.ALTERNATIVES)
+            for src, copies in table.items()
+            for name, edits in copies.items()]
+
+
+@pytest.mark.parametrize("copy", _mutant_copies(),
+                         ids=[f"{src}-{name}" for src, name, _
+                              in _mutant_copies()])
+def test_chip_mutants_edit_text_the_kernel_source_holds_once(copy):
+    """Every planted fault and design alternative of ``chip_mutants.py``
+    edits text that its kernel source holds exactly once, so the copies it
+    builds on the card differ from the real kernel where they say."""
+    from repro_torch.kernels import _build
+    src, _, edits = copy
+    text = (_build.CSRC / f"{src}.cu").read_text()
+    assert [text.count(old) for old, _ in edits] == [1] * len(edits)

@@ -196,3 +196,92 @@ def test_lm_forward_launches_one_flash_kernel_per_layer(cuda):
     assert got.shape == (2, 200, 512) and torch.isfinite(got).all()
     # bf16: the kernel rounds unnormalised p, the plain path scores in bf16
     assert _rel_err(got, want) < 5e-2
+
+
+def _row_rel_err(got, want):
+    got, want = got.float(), want.float()
+    num = torch.linalg.vector_norm(got - want, dim=-1)
+    den = torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-6)
+    return (num / den).max().item()
+
+
+@pytest.mark.parametrize("layout", ["model", "bhsd"])
+@pytest.mark.parametrize("case", [
+    # the sm90 kernel's edges: ragged S, S = 1, a window that cuts through
+    # 128-key tiles (causal and not), dh 128, GQA groups of 1 and 3
+    (2, 300, 9, 3, 64, True, 0), (1, 1000, 4, 2, 64, True, 0),
+    (3, 1, 4, 2, 64, True, 0), (1, 1000, 6, 2, 64, True, 100),
+    (1, 777, 4, 4, 64, False, 200), (2, 1000, 4, 2, 128, True, 0),
+    (1, 1, 2, 1, 128, True, 0), (1, 300, 4, 4, 128, False, 150)],
+    ids=lambda c: "B{}S{}H{}K{}d{}c{:d}w{}".format(*c))
+def test_sm90_flash_matches_plain_version(cuda, case, layout):
+    B, S, H, K, dh, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(S + 7 * H)
+    q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=cuda)
+               .to(torch.bfloat16) for n in (H, K, K))
+    want = ref_flash_attention(q, k, v, causal=causal, window=window)
+    before = dict(flash_attention_bhsd.launches_by_variant)
+    if layout == "model":       # transposed views of (B, S, heads, dh)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:                       # contiguous (B, heads, S, dh)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        got = flash_attention_bhsd(qt, kt, vt, causal=causal,
+                                   window=window).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches_by_variant == {
+        **before, "sm90": before["sm90"] + 1}
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert _row_rel_err(got, want) < FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("junk", [1e4, float("nan")], ids=["1e4", "nan"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_never_reads_keys_past_seq_len(cuda, causal, junk):
+    """Keys at or past seq_len hold junk in k and v; the result must be
+    that of the same keys zeroed (the values there are masked)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((2, n, 384, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16) for n in (6, 2, 2))
+    want = ref_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               seq_len=300).transpose(1, 2)
+    k[:, :, 300:] = junk
+    v[:, :, 300:] = junk
+    before = flash_attention_bhsd.launches_by_variant["sm90"]
+    got = flash_attention_bhsd(q, k, v, causal=causal, seq_len=300)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches_by_variant["sm90"] == before + 1
+    assert torch.isfinite(got).all()
+    assert _row_rel_err(got, want) < FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_seq_len_zero_gives_zero_rows(cuda, dtype):
+    q, k, v = (torch.randn((1, n, 200, 64), device=cuda).to(dtype)
+               for n in (4, 2, 2))
+    k.fill_(float("nan"))
+    got = flash_attention_bhsd(q, k, v, causal=True, seq_len=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_flash_launch_counts_follow_the_variant_rule(cuda):
+    from repro_torch.kernels.flash_attention import (tma_readable,
+                                                     variant)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn((1, 4, 130, 64), generator=gen, device=cuda)
+    kv = torch.randn((1, 1, 130, 64), generator=gen, device=cuda)
+    cases = [(q.bfloat16(), kv.bfloat16().expand(1, 2, 130, 64), "mma"),
+             (q.bfloat16(), kv.bfloat16().repeat(1, 2, 1, 1), "sm90"),
+             (q, kv.repeat(1, 2, 1, 1), "f32")]
+    for q_, kv_, kind in cases:
+        assert variant(q_.dtype, 64, tma_readable(q_, kv_)) == kind
+        before = dict(flash_attention_bhsd.launches_by_variant)
+        got = flash_attention_bhsd(q_, kv_, kv_, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention_bhsd.launches_by_variant == {
+            **before, kind: before[kind] + 1}
+        want = ref_flash_attention(q_.transpose(1, 2), kv_.transpose(1, 2),
+                                   kv_.transpose(1, 2)).transpose(1, 2)
+        assert _row_rel_err(got, want) < FLASH_TOL[q_.dtype]
