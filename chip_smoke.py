@@ -4,9 +4,9 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Builds every CUDA kernel from the sources in the checkout, holds each one
-against its plain PyTorch version on the card, and drives the port's two
-main paths, each with the launch counts set to 0 just before it and read
-just after:
+against its plain PyTorch version on the card, and drives the port's main
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
   mlp_serve   the full 8 x 4096 DLRM MLP tower scoring batches of 256, 1024
               and 4096 requests through the fused GEMM + bias + ReLU kernel
@@ -16,14 +16,28 @@ just after:
               with every layer's attention in the flash-attention kernel
               (its Hopper variant, sm90: TMA K/V ring, wgmma, the softmax
               under the products), and (8, 2048) once more with the FFN
-              products in the blocked matmul kernel too.
+              products in the blocked matmul kernel too;
+  mlp_train   the full tower trained (bf16 compute, fp32 params, AdamW with
+              warmup-cosine): the loss falls over 20 steps at B = 1024,
+              bf16 grads agree with fp32 grads, three fp32 steps on the card
+              agree with the CPU's, the counted FLOPs with the analytic
+              count; the step timed and profiled at B = 256, 1024, 4096.
+              It launches no kernel of the port (the blocked matmul is
+              forward-only, as the JAX package's is);
+  calibrate   the smoke calibration suite (fp32 GEMMs through the blocked
+              matmul's f32 kernel, saxpy streams, two train steps) and
+              fp32 GEMMs at 2048 and 4096, fitted into achievable ceilings
+              against h100_sxm_fp32 (a registry entry in a temporary
+              directory); the train steps placed on the datasheet and the
+              fitted plane.
 
-Every blocked-matmul and flash-attention launch of both paths must take the
-sm90 variant (the wrappers count launches by variant).  It times both
-paths, places them on the Ridgeline plane of the H100 datasheet spec, times
-the flash kernel's earlier mma design beside the sm90 kernel at every
-prefill shape and the sm90 GEMM's tile options at every main-path shape,
-and runs the microbenchmarks.  Any failed check exits nonzero
+Every blocked-matmul and flash-attention launch of the first two paths must
+take the sm90 variant, every calibration GEMM the f32 variant (the wrappers
+count launches by variant).  It times the paths, places them on the
+Ridgeline plane of the H100 datasheet spec, times the flash kernel's
+earlier mma design beside the sm90 kernel at every prefill shape and the
+sm90 GEMM's tile options at every main-path shape, and the host cost of a
+launch.  Any failed check exits nonzero
 (``chip_mutants.py`` shows that the parity and logits checks fail kernels
 with planted faults: late kv tiles and the K/V ring of the flash kernel,
 the ring and the last k-step of the sm90 GEMM).  The last two lines are a
@@ -94,6 +108,35 @@ PREFILL = ((8, 2048), (1, 2048), (4, 1000))
 #: planted faults in the kernel's late kv tiles read 0.58-0.80
 #: (chip_mutants.py; PERF.md): 6e-2 is twice the worst reading.
 LM_TOL = 6e-2
+#: the dlrm-mlp train step: 20 AdamW steps on one fixed batch of 1024, the
+#: step timed at three batches (256 below the bf16 ridge, 1024 and 4096
+#: above it)
+TRAIN_BATCH, TRAIN_STEPS = 1024, 20
+STEP_BATCHES = (256, 1024, 4096)
+#: bf16-compute grads against fp32-compute grads of one step, per param,
+#: ``norm(g_bf16 - g_fp32) / norm(g_fp32)``.  bf16 rounds each product's
+#: inputs and output (2^-9), and a ReLU whose input sits within that
+#: rounding of 0 passes the backward signal in one path and not the other;
+#: the flips compound through the later layers, so layer 0's weight grad
+#: is furthest off.  In plain PyTorch on the CPU (8 layers, widths 512 to
+#: 2048, batches 256 and 1024, these weights) layer 0's weight grad reads
+#: 0.156-0.162 at every width and the last layers 0.01-0.02; a wrong
+#: backward (a lost grad, a swapped layer) reads ~1.  0.3 is twice the worst
+#: reading.  On an H100: 0.1593 (layer 0's weight) down to 0.0187 (PERF.md).
+GRAD_TOL = 0.3
+#: the fp32 step on the card (cuBLAS, TF32 off) against the same step on the
+#: CPU, 4 layers of 512 at B 256, three AdamW steps.  The products sum in
+#: other orders (~1e-6 relative): loss and grad norm within 1e-5.  AdamW
+#: divides each grad by its own RMS, so an element whose grad is near eps
+#: (1e-8) can move by a few 1e-3 of lr: params within 1e-4 of the largest.
+STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "params": 1e-4}
+#: the gate of benchmarks/run.py on the counted / analytic FLOP ratio of the
+#: dlrm-mlp step (the analytic 6·B·W²·L counts layer 0's input grad, which
+#: the step never forms: 23/24 = 0.958 at 8 layers)
+FLOP_RATIO = (0.9, 1.3)
+#: fp32 GEMMs the calibration fit also reads beyond the smoke suite's sizes
+#: (the peak is reached only there)
+CAL_BIG = (2048, 4096)
 
 
 class SmokeFailure(RuntimeError):
@@ -212,6 +255,283 @@ def bound_of(flops: float, nbytes: float, hw) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def tree_rel_err(got, want) -> float:
+    """max |got - want| over every leaf / max |want| over every leaf."""
+    from repro_torch.tree import tree_leaves
+    g, w = tree_leaves(got), tree_leaves(want)
+    scale = max(x.abs().max().item() for x in w)
+    return max((a.cpu() - b.cpu()).abs().max().item()
+               for a, b in zip(g, w)) / scale
+
+
+def grads(cfg, params, batch) -> list:
+    """One step's grads of ``params`` (in ``tree_leaves`` order)."""
+    from repro_torch.train.loop import make_loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = make_loss_fn(cfg)(tree_unflatten(params, leaves), batch)
+    return list(torch.autograd.grad(loss, leaves))
+
+
+def click_batch(rng: np.random.Generator, B: int, W: int, dev) -> dict:
+    """Features N(0, 1) and 30% clicks, from numpy."""
+    return {"features": torch.from_numpy(
+                rng.standard_normal((B, W), np.float32)).to(dev),
+            "click": torch.from_numpy(
+                (rng.random(B) < 0.3).astype(np.float32)).to(dev)}
+
+
+def profile_kernels(fn) -> list:
+    """(name, launches, ms) of every kernel the profiler saw in one ``fn()``
+    (the device's rows only: a CPU op's row counts its kernels too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(r.key, r.count, r.self_device_time_total / 1e3)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+
+
+def is_gemm(kernel_name: str) -> bool:
+    """cuBLAS and CUTLASS product kernels, by name."""
+    name = kernel_name.lower()
+    return any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
+def mlp_train(dev, say, cfg, rng: np.random.Generator) -> list:
+    """The dlrm-mlp train path: (a) ``TRAIN_STEPS`` AdamW steps on one batch
+    with the loss falling, (b) bf16 against fp32 grads, (c) three fp32 steps
+    on the card against the CPU, (d) counted against analytic FLOPs, (e) the
+    step timed at ``STEP_BATCHES``.  Returns (B, WorkUnit, host median s)
+    of each timed step for the Ridgeline placement."""
+    from repro_torch.convert import mlp_params_from_numpy
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import cuda_event_ms, time_callable
+    from repro_torch.models.mlp_dlrm import analytic_work_unit
+    from repro_torch.optim.optimizer import (AdamW, apply_updates,
+                                             warmup_cosine)
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    W, L = cfg.mlp_widths[0], len(cfg.mlp_widths)
+    params = mlp_params_from_numpy(dlrm_tree(cfg, rng), device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    opt = AdamW(learning_rate=warmup_cosine(1e-3, 5, TRAIN_STEPS))
+    step = loop.build_train_step(cfg, opt)
+    fresh = loop.TrainState(params, opt.init(params),
+                            torch.zeros((), dtype=torch.int32, device=dev),
+                            None)
+    say(f"dlrm-mlp {L} x {W}: {n_params} fp32 params, compute "
+        f"{str(cfg.compute_dtype)[6:]}, AdamW (warmup_cosine 1e-3, 5, "
+        f"{TRAIN_STEPS}), clip 1.0")
+
+    # (a) the loss falls over TRAIN_STEPS steps on one fixed batch
+    batch = click_batch(rng, TRAIN_BATCH, W, dev)
+    state, losses = fresh, []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = [x.item() for x in losses]
+    say(f"  (a) B={TRAIN_BATCH} loss over {TRAIN_STEPS} steps: "
+        + " ".join(f"{x:.4f}" for x in losses))
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(int(state.step) == TRAIN_STEPS, f"step counter {int(state.step)}")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1] < losses[0],
+          f"the train loss does not fall: {losses}")
+    del state
+
+    # (b) bf16-compute grads against fp32-compute grads of one step
+    g16 = grads(cfg, params, batch)
+    g32 = grads(cfg.replace(compute_dtype=torch.float32), params, batch)
+    names = [f"head.{k}" for k in ("b", "w")] + [
+        f"layer{i}.{k}" for i in range(L) for k in ("b", "w")]
+    errs = [(torch.linalg.vector_norm(a.float() - b)
+             / torch.linalg.vector_norm(b)).item() for a, b in zip(g16, g32)]
+    say("  (b) grads bf16 vs fp32 compute (TF32 off), norm rel err per "
+        f"param (tol {GRAD_TOL:g}): "
+        + ", ".join(f"{n} {e:.4f}" for n, e in zip(names, errs)))
+    check(all(np.isfinite(errs)) and max(errs) < GRAD_TOL,
+          f"bf16 grads disagree with fp32: {max(errs)}")
+    del g16, g32
+
+    # (c) three fp32 steps at 4 x 512, B 256: the card against the CPU
+    small = cfg.replace(n_layers=4, mlp_widths=(512,) * 4, d_model=512,
+                        compute_dtype=torch.float32)
+    tree = dlrm_tree(small, rng)
+    sb = click_batch(rng, 256, 512, "cpu")
+    sides = {}
+    for d in (dev, torch.device("cpu")):
+        p = mlp_params_from_numpy(tree, device=d)
+        st = loop.TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=d), None)
+        s_step = loop.build_train_step(small, opt)
+        ms = []
+        for _ in range(3):
+            st, m = s_step(st, {k: v.to(d) for k, v in sb.items()})
+            ms.append(m)
+        sides[d.type] = (st, ms)
+    (gst, gms), (cst, cms) = sides[dev.type], sides["cpu"]
+    rel = {"loss": max(abs(a["loss"].item() - b["loss"].item())
+                       / abs(b["loss"].item()) for a, b in zip(gms, cms)),
+           "grad_norm": max(abs(a["grad_norm"].item() - b["grad_norm"].item())
+                            / abs(b["grad_norm"].item())
+                            for a, b in zip(gms, cms)),
+           "params": tree_rel_err(gst.params, cst.params)}
+    say("  (c) 3 fp32 AdamW steps, 4 x 512 at B=256, card vs CPU: "
+        + ", ".join(f"{k} {v:.3e} (tol {STEP_TOL[k]:g})"
+                    for k, v in rel.items()))
+    check(all(rel[k] < STEP_TOL[k] for k in rel),
+          f"the card's fp32 steps disagree with the CPU's: {rel}")
+
+    # (d) + (e): the step at each batch, counted and timed
+    placed = []
+    for B in STEP_BATCHES:
+        b_ = click_batch(rng, B, W, dev)
+        flops, nbytes = counters.count(step, fresh, b_)
+        analytic = analytic_work_unit(B, W, L)[0]
+        ratio = flops / analytic
+        say(f"  (d) B={B}: counted F {flops:.6g}, B_M {nbytes:.6g} (eager "
+            f"ops); analytic 6BW^2L {analytic:.6g}; ratio {ratio:.4f} "
+            f"(gate {FLOP_RATIO})")
+        check(FLOP_RATIO[0] < ratio < FLOP_RATIO[1],
+              f"counted/analytic FLOPs {ratio} at B={B}")
+        host = time_callable(step, fresh, b_, device=dev, repeats=30,
+                             warmup=3)
+        p90 = float(np.percentile(host.samples, 90))
+        card_ms = cuda_event_ms(lambda i: step(fresh, b_), iters=10)
+        g = grads(cfg, params, b_)
+        g = tree_unflatten(params, g)
+        upd_ms = cuda_event_ms(lambda i: apply_updates(
+            params, opt.update(g, fresh.opt_state, params)[0]), iters=10)
+        kern = profile_kernels(lambda: step(fresh, b_))
+        k_ms = sum(ms for _, _, ms in kern)
+        gemm_ms = sum(ms for n, _, ms in kern if is_gemm(n))
+        work = WorkUnit(f"train_step_mlp_b{B}", flops, nbytes, 0.0)
+        a = analyze(work, H100_SXM)
+        a_gemm = analyze(WorkUnit("gemms", flops, 0.0, 0.0), H100_SXM)
+        placed.append((B, work, host.median))
+        say(f"  (e) B={B} step: host median {host.median * 1e3:.4f} ms, p90 "
+            f"{p90 * 1e3:.4f} ms (n={len(host.samples)}); card "
+            f"{card_ms:.4f} ms; optimizer update + apply alone {upd_ms:.4f} "
+            f"ms; {flops / host.median / 1e12:.1f} TFLOP/s; h100_sxm: "
+            f"{a.summary()}; at {100 * a.runtime / host.median:.1f}% of "
+            f"bound (its products alone {a_gemm.runtime * 1e3:.4f} ms)")
+        say(f"  (e) B={B} profile of one step: {len(kern)} kernel names, "
+            f"{sum(n for _, n, _ in kern)} launches, {k_ms:.4f} ms of kernels "
+            f"({100 * k_ms / card_ms:.1f}% of the card time); GEMMs "
+            f"{gemm_ms:.4f} ms ({100 * gemm_ms / k_ms:.1f}%), the rest "
+            f"(elementwise: casts, ReLU masks, AdamW) "
+            f"{k_ms - gemm_ms:.4f} ms; by name, most first:")
+        for name, n, ms in sorted(kern, key=lambda x: -x[2])[:12]:
+            say(f"    {ms:9.4f} ms {100 * ms / k_ms:5.1f}% x{n:<4d} "
+                f"{name[:110]}")
+        del g, b_
+    return placed
+
+
+def calibrate(dev, say, card: str, placed: list, cfg) -> list:
+    """The calibration path: ``default_suite(smoke=True)`` and the fp32
+    GEMMs at ``CAL_BIG``, all through the blocked matmul's f32 kernel,
+    fitted against ``h100_sxm_fp32`` into a registry entry in a temporary
+    directory; then the train steps of ``placed`` on both planes.  Returns
+    the blocked matmul's launches by variant in the suite (read before the
+    per-launch timing below) and the f32 kernel's summary rows, each size's
+    launches counted from the suite's calls."""
+    import tempfile
+    W, L = cfg.mlp_widths[0], len(cfg.mlp_widths)
+
+    from repro_torch.core.hardware import (H100_SXM, H100_SXM_FP32,
+                                           get_hardware)
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels.blocked_matmul import blocked_matmul
+    from repro_torch.kernels.ref import ref_matmul
+    from repro_torch.measure import calibrate as cal
+    from repro_torch.models.mlp_dlrm import analytic_work_unit
+    from repro_torch.measure import microbench
+    from repro_torch.measure.timers import kernel_ms
+
+    passes, r = 3, 9
+    suite = microbench.default_suite(smoke=True, passes=passes, repeats=r,
+                                     device=dev)
+    big = microbench.matmul_benches(CAL_BIG, repeats=r, device=dev)
+    torch.cuda.synchronize()
+    launched = dict(blocked_matmul.launches_by_variant)
+    # each bench: a probe call, 2 warmups and r timed calls, in each pass
+    calls = {s: passes * (3 + r) for s in microbench.SMOKE_MATMUL_SIZES}
+    calls.update({s: 3 + r for s in CAL_BIG})
+    for m in suite + big:
+        spec = H100_SXM_FP32 if m.category != "memory" else H100_SXM
+        a = analyze(m.work, spec)
+        print(json.dumps({**m.to_dict(), "card": card, "bound_spec": spec.name,
+                          "bound_s": a.runtime, "bound_by": a.bottleneck.value,
+                          "share_of_bound": a.runtime / m.seconds}))
+    fit = [m for m in suite if m.category != "step"] + big
+    steps = [m for m in suite if m.category == "step"]
+    calib = cal.fit_ceilings(fit, H100_SXM_FP32, validation=steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = calib.save(tmp)
+        loaded = get_hardware(H100_SXM_FP32.name, calibrated=True,
+                              registry_dir=tmp)
+    check(loaded == calib.spec(), "the registry entry does not load back")
+    for line in calib.summary().splitlines():
+        say(line)
+    say(f"wrote {os.path.basename(path)} (to a temporary directory); NET "
+        f"ceiling: {calib.net_bw:.4g} B/s, {calib.sources['net_bw']} (one "
+        f"rank, no collective benches)")
+    check(calib.sources["net_bw"] == "datasheet"
+          and calib.sources["peak_flops"] == "measured"
+          and calib.sources["hbm_bw"] == "measured",
+          f"sources {calib.sources}")
+    for name, e in calib.errors("validation").items():
+        say(f"  validation {name}: model {100 * e:+.1f}% against measured")
+
+    # each step as counted (eager traffic) and in the paper's accounting
+    # (6BW²L, the weights read once), on the datasheet plane and on the
+    # fitted one (an fp32 ceiling: the GEMMs it was fitted on are fp32)
+    fitted = calib.spec()
+    for B, work, host_s in placed:
+        F, B_M, _ = analytic_work_unit(B, W, L)
+        for w in (work, WorkUnit(f"paper_mlp_b{B}", F, B_M, 0.0)):
+            for spec in (H100_SXM, fitted):
+                a = analyze(w, spec)
+                say(f"  train step B={B} on {spec.name}: {a.summary()}; "
+                    f"bound {a.runtime * 1e3:.4f} ms = "
+                    f"{100 * a.runtime / host_s:.1f}% of the host median "
+                    f"{host_s * 1e3:.4f} ms")
+
+    rows = []
+    for s in microbench.SMOKE_MATMUL_SIZES + CAL_BIG:
+        gen = torch.Generator(device=dev).manual_seed(s)
+        a_ = torch.randn((s, s), generator=gen, device=dev)
+        b_ = torch.randn((s, s), generator=gen, device=dev)
+        k_ms = kernel_ms(lambda i: blocked_matmul(a_, b_), iters=20)
+        p_ms = kernel_ms(lambda i: ref_matmul(a_, b_), iters=20)
+        lib_ms = kernel_ms(lambda i: torch.mm(a_, b_), iters=20)
+        got, want = blocked_matmul(a_, b_), ref_matmul(a_, b_)
+        err_abs, err = max_abs(got, want), rel_err(got, want)
+        check(err < TOL[torch.float32],
+              f"f32 blocked matmul disagrees at {s}^3: {err}")
+        flops, nbytes = 2.0 * s ** 3, 3.0 * 4 * s * s
+        b_ms, b_by = bound_of(flops, nbytes, H100_SXM_FP32)
+        rows.append({
+            "path": "calibrate", "shape": [s, s, s], "dtype": "f32",
+            "act": None, "launches": calls[s], "kernel_ms": k_ms,
+            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err_abs, "flops": flops,
+            "bytes": nbytes})
+        say(f"  blocked_matmul f32 {s}^3 per launch: kernel {k_ms:.4f} ms "
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
+            f"library torch.mm fp32 (TF32 off) {lib_ms:.4f} ms "
+            f"({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}, "
+            f"h100_sxm_fp32), kernel at {100 * b_ms / k_ms:.1f}% of bound; "
+            f"{calls[s]} calibration launches; rel_err {err:.3e}")
+    return launched, rows
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------------
     phase("device")
@@ -227,7 +547,6 @@ def main() -> int:
     from repro_torch.kernels.blocked_matmul import blocked_matmul
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.ref import ref_flash_attention, ref_matmul
-    from repro_torch.measure import microbench
     from repro_torch.measure.timers import (cuda_event_ms, kernel_ms,
                                             time_callable)
 
@@ -699,7 +1018,34 @@ def main() -> int:
             f"(tol {TOL[bf16]:g})")
     del got, want
 
-    # ---- 7. tile_options ------------------------------------------------------
+    # ---- 7. mlp_train: the third main path --------------------------------------
+    phase("mlp_train")
+    for counted in (blocked_matmul, flash_attention_bhsd):
+        counted.launches = 0
+    placed = mlp_train(dev, say, get_config("dlrm-mlp"),
+                       np.random.default_rng(2))
+    torch.cuda.synchronize()
+    say(f"kernel launches during mlp_train: blocked_matmul "
+        f"{blocked_matmul.launches}, flash {flash_attention_bhsd.launches}")
+    check(blocked_matmul.launches == 0 and flash_attention_bhsd.launches == 0,
+          "the train step reached a forward-only kernel")
+
+    # ---- 8. calibrate: the fourth main path -------------------------------------
+    phase("calibrate")
+    blocked_matmul.launches = 0
+    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
+    flash_attention_bhsd.launches = 0
+    cal_variants, f32_rows = calibrate(dev, say, card, placed,
+                                       get_config("dlrm-mlp"))
+    cal_launches = sum(r["launches"] for r in f32_rows)
+    say(f"blocked_matmul launches during calibrate, by variant: "
+        f"{cal_variants} (the suite's GEMMs: {cal_launches})")
+    check(cal_variants == {**dict.fromkeys(bm.VARIANTS, 0), "f32": cal_launches}
+          and flash_attention_bhsd.launches == 0,
+          f"the calibration GEMMs must each launch the f32 kernel once: "
+          f"{cal_variants}")
+
+    # ---- 9. tile_options ------------------------------------------------------
     phase("tile_options")
     # the sm90 kernel at every main-path shape under each tile width and
     # order, beside tile_plan's choice (PERF.md reads the rule off these);
@@ -728,7 +1074,7 @@ def main() -> int:
             + ", ".join(f"{tuple(p)} {t:.4f}" for t, p in timed))
     del a_, bs_
 
-    # ---- 8. microbench --------------------------------------------------------
+    # ---- 10. microbench -------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
     # tensor-map encoding, ctypes call), enqueue only, beside one torch call
@@ -759,31 +1105,24 @@ def main() -> int:
     say(f"card time per call, blocked_matmul sm90 (256,4096,4096) relu: "
         f"kernel {per_batch[0]['kernel_ms'] * 1e3:.2f} us, back-to-back calls "
         f"between CUDA events {ev_ms * 1e3:.2f} us")
-    sizes = microbench.FULL_MATMUL_SIZES + (4096,)
-    for m in microbench.matmul_benches(sizes, repeats=5, device=dev):
-        a = analyze(m.work, H100_SXM_FP32)
-        print(json.dumps({**m.to_dict(), "card": card,
-                          "bound_s": a.runtime, "bound_by": a.bottleneck.value,
-                          "share_of_bound": a.runtime / m.seconds}))
-    for m in microbench.memory_benches(microbench.FULL_STREAM_MB,
-                                       sizes_kb=microbench.FULL_STREAM_KB,
-                                       repeats=5, device=dev):
-        a = analyze(m.work, H100_SXM)
-        print(json.dumps({**m.to_dict(), "card": card,
-                          "bound_s": a.runtime, "bound_by": a.bottleneck.value,
-                          "share_of_bound": a.runtime / m.seconds}))
 
     # ---- summary ------------------------------------------------------------------
     def entry(name: str, source: str, replaces: str, launches: int,
               rows: list, by_variant: dict) -> dict:
         """Times are totals over the kernel's own main-path launches: each
-        per-launch time times the launches at that shape."""
+        per-launch time times the launches at that shape.  The bound: the
+        operations over the peak of their type (bf16 tensor cores, fp32
+        CUDA cores) against all the bytes over the memory rate."""
         check(sum(r["launches"] for r in rows) == launches,
               f"{name}: timed rows cover {sum(r['launches'] for r in rows)} "
               f"launches, the main paths made {launches}")
-        b_ms, b_by = bound_of(sum(r["launches"] * r["flops"] for r in rows),
-                              sum(r["launches"] * r["bytes"] for r in rows),
-                              H100_SXM)
+        peak = {"bf16": H100_SXM.peak_flops, "f32": H100_SXM_FP32.peak_flops}
+        t_ops = sum(r["launches"] * r["flops"] / peak[r.get("dtype", "bf16")]
+                    for r in rows)
+        t_bytes = sum(r["launches"] * r["bytes"] for r in rows) \
+            / H100_SXM.hbm_bw
+        b_ms = max(t_ops, t_bytes) * 1e3
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
         return {
             "name": name, "route": "cuda",
             "source": source, "replaces": replaces, "launches": launches,
@@ -803,9 +1142,10 @@ def main() -> int:
         entry("blocked_matmul",
               "src/repro_torch/kernels/csrc/blocked_matmul.cu",
               "src/repro/kernels/blocked_matmul.py:57",
-              main_launches + lm_launches["blocked_matmul"],
-              per_batch + ffn_rows,
-              {v: mlp_variants[v] + lm_variants[v] for v in bm.VARIANTS}),
+              main_launches + lm_launches["blocked_matmul"] + cal_launches,
+              per_batch + ffn_rows + f32_rows,
+              {v: mlp_variants[v] + lm_variants[v] + cal_variants[v]
+               for v in bm.VARIANTS}),
         entry("flash_attention_bhsd",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",

@@ -1,18 +1,24 @@
-"""Parameters from the JAX package's layout, as numpy, to the port's.
+"""Parameters and train states from the JAX package's layout, as numpy,
+to the port's.
 
 The layouts are the same (weights ``(d_in, d_out)``, as ``dense_init``
 makes them), so nothing is transposed: each leaf becomes a tensor of the
-same dtype on the target device.
+same dtype on the target device.  ``opt_state_from_numpy`` and
+``train_state_from_numpy`` carry a run over mid-way, so both packages can
+go on from one state at a step where the bias correction matters.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import Params
+from repro_torch.optim.optimizer import AdamWState, SGDState
+from repro_torch.train.loop import TrainState
+from repro_torch.tree import tree_map
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -31,11 +37,44 @@ def mlp_params_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
 
 
 def _tree(x: Any, dev: torch.device) -> Any:
-    if isinstance(x, Mapping):
-        return {k: _tree(v, dev) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return [_tree(v, dev) for v in x]
-    return _tensor(x, dev)
+    return tree_map(lambda a: _tensor(a, dev), x)
+
+
+def _fields(x: Any) -> dict:
+    """A NamedTuple (the JAX package's states) or a mapping, as a dict."""
+    return x._asdict() if hasattr(x, "_asdict") else dict(x)
+
+
+def _step(x: Any, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=dev)
+
+
+def opt_state_from_numpy(state: Any, device: DeviceLike = None):
+    """An ``AdamWState`` (fields step, mu, nu) or ``SGDState`` (step,
+    momentum) of numpy leaves -> the port's, the step an int32 scalar."""
+    dev = resolve_device(device)
+    f = _fields(state)
+    step = _step(f["step"], dev)
+    if set(f) == {"step", "mu", "nu"}:
+        return AdamWState(step=step, mu=_tree(f["mu"], dev),
+                          nu=_tree(f["nu"], dev))
+    if set(f) == {"step", "momentum"}:
+        return SGDState(step=step, momentum=_tree(f["momentum"], dev))
+    raise ValueError(f"not an AdamW or SGD state: fields {sorted(f)}")
+
+
+def train_state_from_numpy(state: Any, device: DeviceLike = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> TrainState:
+    """The JAX package's ``TrainState`` (params, opt_state, step, rng) of
+    numpy leaves -> the port's.  A JAX PRNG key has no torch counterpart:
+    the port's ``rng`` is ``generator``."""
+    dev = resolve_device(device)
+    f = _fields(state)
+    return TrainState(
+        params=_tree(f["params"], dev),
+        opt_state=opt_state_from_numpy(f["opt_state"], dev),
+        step=_step(f["step"], dev), rng=generator)
 
 
 def _unstack(blocks: Mapping) -> list:

@@ -3,14 +3,15 @@
 A *work unit* is characterized by F (FLOPs), B_M (memory bytes) and B_N
 (network bytes).  On a machine (``HardwareSpec``) its resource times are
 
-    t_C = α_C + F / PEAK      (α_C only when F > 0)
+    t_C = α_C + F / (PEAK · eff(F))   (α_C only when F > 0)
     t_M = α_M + B_M / HBM     (α_M only when B_M > 0)
     t_N = α_N · steps + B_N / NET
 
 its bottleneck is the argmax (ties COMPUTE > MEMORY > NETWORK), and the
 least time it can take is ``max(t_C, t_M, t_N)``.  The plane coordinates are
-x = I_M = B_M / B_N and y = I_A = F / B_M.  The reference's size-dependent
-efficiency curve is the identity on datasheet specs and is left out.
+x = I_M = B_M / B_N and y = I_A = F / B_M.  ``eff`` is the spec's
+``compute_eff`` curve: the identity on datasheet specs, fitted by the
+calibration.
 """
 from __future__ import annotations
 
@@ -98,9 +99,13 @@ def resource_times(work: WorkUnit, hw: HardwareSpec,
     """The α-aware (t_C, t_M, t_N); α's of 0 give the paper's pure-β times.
 
     ``link`` names the network link the wire bytes rode (None = primary).
+    The compute ceiling is ``PEAK · eff(F)`` (``hw.compute_eff``); the
+    identity curve multiplies by exactly 1.0, so a spec without a fitted
+    curve prices times as a constant ceiling does, bit for bit.
     """
     t_c = (hw.alpha_compute if work.flops > 0 else 0.0) + \
-        _safe_div(work.flops, hw.peak_flops)
+        _safe_div(work.flops,
+                  hw.peak_flops * hw.compute_eff.eff(work.flops))
     t_m = (hw.alpha_memory if work.mem_bytes > 0 else 0.0) + \
         _safe_div(work.mem_bytes, hw.hbm_bw)
     t_n = hw.alpha_for(link) * work.net_steps + \

@@ -7,18 +7,23 @@ requests.  Parameters are a plain dict in the JAX package's layout:
 fp32 master weights cast to ``cfg.compute_dtype`` at use.
 
 ``cfg.use_kernel_matmul`` routes the layer GEMMs through the fused
-GEMM + bias + ReLU CUDA kernel (``kernels/ops.matmul``).
+GEMM + bias + ReLU CUDA kernel (``kernels/ops.matmul``).  That kernel is
+forward-only, as the JAX package's Pallas kernel is: training runs the
+plain path through autograd, and ``loss_fn`` refuses the kernel path while
+autograd records.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig, Params
+
+Specs = Any  # a tree of mesh-axis tuples, one per param
 
 
 def _dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -49,6 +54,13 @@ def init_mlp(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return {"layers": layers, "head": head}
 
 
+def mlp_specs(cfg: ModelConfig) -> Specs:
+    """Pure data parallelism (the paper's deployment): every weight is
+    replicated, so every param's mesh axes are None."""
+    layers = [{"w": (None, None), "b": (None,)} for _ in cfg.mlp_widths]
+    return {"layers": layers, "head": {"w": (None, None), "b": (None,)}}
+
+
 def forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x (B, d_in) -> logit (B,).
 
@@ -71,7 +83,17 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def loss_fn(params: Params, x: torch.Tensor, y: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
-    """Binary cross-entropy (click-through objective of DLRM), stable form."""
+    """Binary cross-entropy (click-through objective of DLRM), stable form.
+
+    Raises on the kernel path while autograd records: the CUDA kernel has
+    no backward, so its layers would pass no gradient.
+    """
+    if cfg.use_kernel_matmul and torch.is_grad_enabled():
+        raise RuntimeError(
+            "use_kernel_matmul routes the layers through the forward-only "
+            "blocked_matmul kernel (kernels/csrc/blocked_matmul.cu), which "
+            "has no backward; train on the plain path "
+            "(use_kernel_matmul=False) or score under torch.no_grad()")
     logit = forward(params, x, cfg).float()
     return torch.mean(torch.clamp_min(logit, 0) - logit * y
                       + torch.log1p(torch.exp(-torch.abs(logit))))

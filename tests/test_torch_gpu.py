@@ -285,3 +285,62 @@ def test_flash_launch_counts_follow_the_variant_rule(cuda):
         want = ref_flash_attention(q_.transpose(1, 2), kv_.transpose(1, 2),
                                    kv_.transpose(1, 2)).transpose(1, 2)
         assert _row_rel_err(got, want) < FLASH_TOL[q_.dtype]
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three fp32 AdamW steps of the reduced dlrm-mlp (TF32 off): the card's
+    cuBLAS and the CPU's BLAS sum in other orders, so loss and grad norm
+    within 1e-5, params within 1e-4 of the largest (chip_smoke.STEP_TOL)."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import mlp_params_from_numpy
+    from repro_torch.optim.optimizer import AdamW, warmup_cosine
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_reduced("dlrm-mlp").replace(compute_dtype=torch.float32)
+    W = cfg.mlp_widths[0]
+    rng = np.random.default_rng(0)
+    tree = {"layers": [{"w": rng.standard_normal((W, W), np.float32) / 8,
+                        "b": rng.standard_normal(W, np.float32) / 10}
+                       for _ in range(cfg.n_layers)],
+            "head": {"w": rng.standard_normal((W, 1), np.float32) / 8,
+                     "b": np.zeros(1, np.float32)}}
+    batch = {"features": torch.from_numpy(
+                 rng.standard_normal((64, W), np.float32)),
+             "click": torch.from_numpy(
+                 (rng.random(64) < 0.3).astype(np.float32))}
+    opt = AdamW(learning_rate=warmup_cosine(1e-2, 2, 10))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = mlp_params_from_numpy(tree, device=dev)
+        state = loop.TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=dev), None)
+        step = loop.build_train_step(cfg, opt)
+        ms = []
+        for _ in range(3):
+            state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            ms.append({k: v.item() for k, v in m.items()})
+        out[dev.type] = ([x.cpu() for x in tree_leaves(state.params)], ms)
+    (gp, gm), (cp, cm) = out["cuda"], out["cpu"]
+    for a, b in zip(gm, cm):
+        assert abs(a["loss"] - b["loss"]) < 1e-5 * abs(b["loss"])
+        assert abs(a["grad_norm"] - b["grad_norm"]) < 1e-5 * b["grad_norm"]
+    scale = max(x.abs().max().item() for x in cp)
+    assert max((a - b).abs().max().item() for a, b in zip(gp, cp)) \
+        < 1e-4 * scale
+
+
+def test_calibration_gemms_launch_the_f32_kernel(cuda):
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.measure import microbench
+    before = dict(blocked_matmul.launches_by_variant)
+    ms = microbench.matmul_benches((64, 256), repeats=1, device=cuda)
+    torch.cuda.synchronize()
+    assert [dict(m.meta)["via"] for m in ms] == ["ops", "ops"]
+    assert all(m.backend == torch.cuda.get_device_name(cuda) for m in ms)
+    # each bench: a probe call, 2 warmups and 1 timed call
+    assert blocked_matmul.launches_by_variant == {
+        **before, "f32": before["f32"] + 2 * 4}
+    assert bm.variant(256, 256, 256, torch.float32, True) == "f32"
