@@ -24,6 +24,13 @@ one.  Each mutant is a kernel source with one planted fault:
                     it while it is read
     skip_last_k     the last k-step's wgmma is skipped (its stage is still
                     waited for and released)
+  blocked_matmul.cu (the f32 kernel)
+    f32_release_early  four K tiles in flight in a ring of four stages: the
+                    stage of tile kt is refilled with tile kt + 4 right
+                    after the barrier, while tile kt is read from it
+    f32_skip_last_k    a ragged last K tile (K % 16 != 0) is never read
+    f32_edge_mask      A's rows are copied up to M - 1 only: the last output
+                    row misses A . B
 
 Each mutant is compiled from an edited copy of the source written under
 ``build/mutants/`` (the checkout's sources stay as they are; the copies
@@ -31,10 +38,12 @@ include ``csrc/sm90.cuh``) and swapped in for the real kernel, the real
 kernel first.  A flash mutant is held to the kernel alone at the
 smollm-135m prefill shape (8, 2048, 9/3 heads, dh 64, bf16) and to the
 whole prefill forward at (8, 2048) (``row_rel_err`` against FLASH_TOL and
-LM_TOL).  A GEMM mutant is held to the kernel alone
+LM_TOL).  An sm90 GEMM mutant is held to the kernel alone
 at the six main-path shapes (``rel_err`` against TOL) and to the logits of
 the dlrm-mlp forward at B = 256 and 4096 (LOGIT_TOL) and of the prefill
-forward at (8, 2048) with ``use_kernel_matmul`` (LM_TOL).
+forward at (8, 2048) with ``use_kernel_matmul`` (LM_TOL).  An f32 mutant is
+held to chip_smoke.py's fp32 checks: the fp32 parity shapes that take the
+f32 kernel and the calibration sizes (``rel_err`` against TOL).
 
 The same machinery builds design alternatives of the sm90 kernels, which
 the real ones were chosen over; each must pass the kernel check at the
@@ -56,10 +65,22 @@ shapes it is timed at, beside the real kernel with the same tiles
                     tiles alone fill few SMs; K a multiple of 64 * splits)
     act_switch      the epilogue switches on the activation per element, in
                     one instantiation, instead of one instantiation per act
+    (the f32 kernel, timed at the calibration sizes)
+    f32_tile_128x128, f32_tile_128x64, f32_tile_64x64
+                    another tile (64x64 at 4 rows a thread) in place of
+                    64x128, where the rule takes 64x128
+    f32_bk32        K stages of 32 (3 of them) instead of 4 of 16
+    f32_stages3, f32_stages6   3 or 6 stages of 16
+    f32_no_pad      A's rows unpadded in shared memory (64 bytes apart)
+    f32_split_k2/4/8   K split 2, 4 or 8 ways into an fp32 workspace the
+                    launcher allocates, a second kernel adding the parts,
+                    the bias and act (at 64^3-1024^3, where the rule's tiles
+                    number fewer than the SMs)
 
 Exits 0 when the real kernels pass every check, each flash mutant fails
-both of its checks (the ring race: either), each GEMM mutant fails the
-kernel check at some main-path shape, and each alternative passes.
+both of its checks (the ring race: either), each sm90 GEMM mutant fails the
+kernel check at some main-path shape, each f32 mutant fails an fp32 check,
+and each alternative passes.
 """
 from __future__ import annotations
 
@@ -72,6 +93,25 @@ import numpy as np
 import torch
 
 import chip_smoke as smoke     # also puts src/ on sys.path
+
+#: the f32 GEMM's planted faults (names start "f32_": they are held to the
+#: fp32 checks, the others to the sm90 ones)
+_F32_MUTANTS = {
+    # 4 tiles in flight in a ring of 4: tile kt + 4 is copied into the stage
+    # of tile kt right after the barrier, while tile kt is read from it
+    "f32_release_early": [
+        ("  for (int s = 0; s < S - 1; ++s) {\n    if (s < k_tiles)",
+         "  for (int s = 0; s < S; ++s) {\n    if (s < k_tiles)"),
+        ("cp_async_wait<S - 2>();", "cp_async_wait<S - 1>();"),
+        ("if (kt + S - 1 < k_tiles) load_tile(kt + S - 1);",
+         "if (kt + S < k_tiles) load_tile(kt + S);")],
+    # a ragged last K tile (K % 16 != 0) is never read
+    "f32_skip_last_k": [("  const int k_tiles = (K + BK - 1) / BK;\n",
+                         "  const int k_tiles = K / BK;\n")],
+    # A's rows are read up to M - 1: the last row of the output misses A . B
+    "f32_edge_mask": [("const bool in = m0 + r < M && k0 + kc < K;",
+                       "const bool in = m0 + r + 1 < M && k0 + kc < K;")],
+}
 
 #: source -> mutant name -> [(text of the kernel, its replacement), ...]
 MUTANTS = {
@@ -107,6 +147,7 @@ MUTANTS = {
         "skip_last_k": [("for (int kk = 0; kk < kSmBK / 16; ++kk)",
                          "for (int kk = 0; kk < (ks + 1 < k_steps ? kSmBK / 16"
                          " : 0); ++kk)")],
+        **_F32_MUTANTS,
     },
 }
 
@@ -200,6 +241,103 @@ def _split_k(n: int) -> list:
     ]
 
 
+_F32_SPLIT_FINISH = """// Adds the kSplits parts, the bias and act.  Four columns a thread.
+__global__ void ring_splitk_finish(const float* __restrict__ ws,
+                                   const float* __restrict__ bias,
+                                   float* __restrict__ C, int M, int N,
+                                   int act) {
+  const int64_t MN = (int64_t)M * N;
+  const int64_t i = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= MN) return;
+  float4 y = *reinterpret_cast<const float4*>(ws + i);
+  for (int s = 1; s < kSplits; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(ws + s * MN + i);
+    y.x += p.x; y.y += p.y; y.z += p.z; y.w += p.w;
+  }
+  const int col = static_cast<int>(i % N);
+  const float* bz = bias ? bias + col : nullptr;
+  y.x = apply_act(y.x + (bz ? bz[0] : 0.0f), act);
+  y.y = apply_act(y.y + (bz ? bz[1] : 0.0f), act);
+  y.z = apply_act(y.z + (bz ? bz[2] : 0.0f), act);
+  y.w = apply_act(y.w + (bz ? bz[3] : 0.0f), act);
+  *reinterpret_cast<float4*>(C + i) = y;
+}
+
+"""
+_F32_SPLIT_LAUNCH = """  static float* ws = nullptr;   // the parts' fp32 sums, grown as needed
+  static size_t ws_elems = 0;
+  if ((size_t)kSplits * M * N > ws_elems) {
+    cudaFree(ws);
+    ws_elems = (size_t)kSplits * M * N;
+    rc = cudaMalloc(&ws, ws_elems * sizeof(float));
+    if (rc != cudaSuccess) return rc;
+  }
+  gemm_f32_ring_kernel<BM, BN, TM>
+      <<<static_cast<int>(tiles) * kSplits, Cfg::kThreads, Cfg::kSmem,
+         stream>>>(a, b, bias, C, M, N, K, act, ws);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  ring_splitk_finish<<<((int64_t)M * N / 4 + 127) / 128, 128, 0, stream>>>(
+      ws, bias, C, M, N, act);
+  return cudaGetLastError();
+"""
+
+
+def _f32_split_k(n: int) -> list:
+    """The f32 kernel with K split ``n`` ways: CTA ``part * tiles + t``
+    sums its part of K's tiles for output tile t into an fp32 workspace the
+    launcher allocates, and a second kernel adds the parts, the bias and
+    act."""
+    return [
+        ("constexpr int kRingPadA = 4;",
+         f"constexpr int kRingPadA = 4;\nconstexpr int kSplits = {n};"),
+        ("                     int M, int N, int K, int act) {",
+         "                     int M, int N, int K, int act, float* ws) {"),
+        ("  const int m0 = (blockIdx.x / n_tiles) * BM, n0 = (blockIdx.x % "
+         "n_tiles) * BN;\n",
+         "  const int tiles = n_tiles * ((M + BM - 1) / BM);\n"
+         "  const int part = blockIdx.x / tiles, t = blockIdx.x % tiles;\n"
+         "  const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;\n"),
+        ("  const int k_tiles = (K + BK - 1) / BK;\n",
+         "  const int k_all = (K + BK - 1) / BK;\n"
+         "  const int k_per = (k_all + kSplits - 1) / kSplits;\n"
+         "  const int k_first = part * k_per;\n"
+         "  const int k_tiles = max(0, min(k_all - k_first, k_per));\n"),
+        ("    const int k0 = kt * BK;\n", "    const int k0 = (k_first + kt) * BK;\n"),
+        ("  const int row0 = m0 + wm, col0 = n0 + wn;\n  switch (act) {",
+         "  const int row0 = m0 + wm, col0 = n0 + wn;\n"
+         "  ring_store_tile<TM, kNone>(acc, row0, col0, M, N, nullptr,\n"
+         "                             ws + (int64_t)part * M * N);\n"
+         "  if (ws == nullptr) switch (act) {"),
+        ("bool aligned(const void* p, uintptr_t bytes) {",
+         _F32_SPLIT_FINISH + "bool aligned(const void* p, uintptr_t bytes) {"),
+        ("  gemm_f32_ring_kernel<BM, BN, TM>\n"
+         "      <<<static_cast<int>(tiles), Cfg::kThreads, Cfg::kSmem, stream>>>(\n"
+         "          a, b, bias, C, M, N, K, act);\n"
+         "  return cudaGetLastError();\n", _F32_SPLIT_LAUNCH),
+        ("  if (tiles > 0x7fffffff)", "  if (tiles * kSplits > 0x7fffffff)"),
+    ]
+
+
+#: the f32 GEMM's designs that lost.  A tile alternative runs in place of
+#: the 64x128 tile (it is launched with the 64x128 tile's arguments).
+_F32_ALTERNATIVES = {
+    **{f"f32_tile_{bm_}x{bn_}": [("launch_ring<64, 128, 8>(",
+                                  f"launch_ring<{bm_}, {bn_}, {tm}>(")]
+       for bm_, bn_, tm in ((128, 128, 8), (128, 64, 8), (64, 64, 4))},
+    "f32_bk32": [("constexpr int kRingBK = 16;", "constexpr int kRingBK = 32;"),
+                 ("constexpr int kRingStages = 4;",
+                  "constexpr int kRingStages = 3;")],
+    "f32_stages3": [("constexpr int kRingStages = 4;",
+                     "constexpr int kRingStages = 3;")],
+    "f32_stages6": [("constexpr int kRingStages = 4;",
+                     "constexpr int kRingStages = 6;")],
+    "f32_no_pad": [("constexpr int kRingPadA = 4;",
+                    "constexpr int kRingPadA = 0;")],
+    **{f"f32_split_k{n}": _f32_split_k(n) for n in (2, 4, 8)},
+}
+
+
 #: FlashAttention-3's ping-pong in the flash kernel's two-warpgroup block:
 #: each warpgroup waits for its turn (named barrier 1 + its index) before it
 #: issues its products and passes the turn on once they are issued;
@@ -267,6 +405,7 @@ ALTERNATIVES = {"flash_attention": {
          "act_rt(acc[4 * j + 2 * h + 1] + bz.y, act)"),
         ("      sm90_epilogue<BN>(acc,", "      sm90_store_tile<BN, kNone>(acc,"),
     ],
+    **_F32_ALTERNATIVES,
 }}
 
 
@@ -297,6 +436,90 @@ def build_mutants(_build, copies: dict = MUTANTS) -> dict:
         smoke.check(proc.returncode == 0, f"nvcc failed on {key}:\n{log}")
         libs[key] = ctypes.CDLL(str(so))
     return libs
+
+
+def f32_gemm(libs: dict, gen: torch.Generator, card: str) -> bool:
+    """The f32 GEMM's mutants against chip_smoke.py's fp32 checks, the
+    real kernel first: every fp32 ``PARITY_SHAPES`` entry that takes the f32
+    kernel (relu, with bias) and every calibration size (no act, no bias),
+    ``rel_err`` against TOL.  Then each alternative beside the real kernel
+    (``kernel_ms``: real, alternative, real) at the sizes where it competes:
+    a tile in place of 64x128 where the rule takes 64x128, a split of K
+    where no tile fills the SMs (32x64, and 64x128 at 768^3 and 1024^3),
+    the ring's shape at both tiles."""
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels.ref import ref_matmul
+    from repro_torch.measure.microbench import SMOKE_MATMUL_SIZES
+    from repro_torch.measure.timers import kernel_ms
+
+    f32 = torch.float32
+    dev = gen.device
+    cases = []
+    for M, K, N in smoke.PARITY_SHAPES:
+        if bm.variant(M, N, K, f32, True) == "f32":
+            a, b = (torch.randn(sh, generator=gen, device=dev)
+                    for sh in ((M, K), (K, N)))
+            bias = torch.randn((N,), generator=gen, device=dev)
+            cases.append(((M, K, N), a, b, bias, "relu",
+                          ref_matmul(a, b, bias=bias, act="relu")))
+    sizes = SMOKE_MATMUL_SIZES + smoke.CAL_BIG
+    squares = {}
+    for s_ in sizes:
+        a, b = (torch.randn((s_, s_), generator=gen, device=dev)
+                for _ in range(2))
+        squares[s_] = (a, b, ref_matmul(a, b))
+        cases.append(((s_, s_, s_), a, b, None, None, squares[s_][2]))
+
+    ok = True
+    real_launcher = bm._launcher
+    try:
+        kernels = {"real": bm._launcher(),
+                   **{n: bm.bind(lib) for (src, n), lib in libs.items()
+                      if n in _F32_MUTANTS}}
+        for name, fns in kernels.items():
+            bm._launcher = lambda fns=fns: fns
+            errs = []
+            for _, a, b, bias, act, want in cases:
+                before = bm.blocked_matmul.launches_by_variant["f32"]
+                got = bm.blocked_matmul(a, b, bias=bias, act=act)
+                smoke.check(bm.blocked_matmul.launches_by_variant["f32"]
+                            == before + 1, "an fp32 check shape left f32")
+                errs.append(smoke.rel_err(got, want))
+            row = {"kernel": name, "source": "blocked_matmul f32",
+                   "shapes": [list(c[0]) for c in cases],
+                   "kernel_rel_err": errs, "kernel_tol": smoke.TOL[f32],
+                   "card": card}
+            row["caught"] = max(errs) >= smoke.TOL[f32]
+            print(json.dumps(row), flush=True)
+            ok &= row["caught"] is (name != "real")
+    finally:
+        bm._launcher = real_launcher
+
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    real = bm._launcher().f32
+    big = [s_ for s_ in sizes if bm.f32_plan(s_, s_, s_, n_sms) == bm.F32_TILES[0]]
+    small = [s_ for s_ in sizes if s_ not in big]
+    for name in _F32_ALTERNATIVES:
+        alt = bm.bind(libs[("blocked_matmul", name)]).f32
+        at = (big if "tile" in name else small + big[:2] if "split" in name
+              else [small[-1], big[0], big[-1]])
+        for s_ in at:
+            a, b, want = squares[s_]
+            rule = bm.f32_plan(s_, s_, s_, n_sms)
+            tile = bm.F32_TILES[0] if "tile" in name else rule
+            err = smoke.rel_err(
+                smoke.f32_option(alt, a, b, None, None, tile), want)
+            ms = {k: kernel_ms(lambda i: smoke.f32_option(
+                fn, a, b, None, None, t), iters=20)
+                for k, fn, t in (("real_ms", real, rule), ("ms", alt, tile),
+                                 ("real_ms_again", real, rule))}
+            row = {"alternative": name, "shape": [s_] * 3,
+                   "real_tile": [rule.bm, rule.bn], **ms,
+                   "kernel_rel_err": err, "kernel_tol": smoke.TOL[f32],
+                   "card": card}
+            print(json.dumps(row), flush=True)
+            ok &= err < smoke.TOL[f32]
+    return ok
 
 
 def main() -> int:
@@ -429,7 +652,8 @@ def main() -> int:
     try:
         kernels = {"real": bm._launcher(),
                    **{n: bm.bind(lib) for (src, n), lib in libs.items()
-                      if src == "blocked_matmul" and n in MUTANTS[src]}}
+                      if src == "blocked_matmul" and n in MUTANTS[src]
+                      and not n.startswith("f32_")}}
         for name, fns in kernels.items():
             bm._launcher = lambda fns=fns: fns
             errs = []
@@ -469,9 +693,11 @@ def main() -> int:
                                              dev).multi_processor_count)]
                        for sh in shapes[2:5]},
     }
-    real_sm90 = bm._launcher()[1]
+    real_sm90 = bm._launcher().sm90
     for name in ALTERNATIVES["blocked_matmul"]:
-        alt_sm90 = bm.bind(libs[("blocked_matmul", name)])[1]
+        if name.startswith("f32_"):
+            continue
+        alt_sm90 = bm.bind(libs[("blocked_matmul", name)]).sm90
         kind = "split_k" if name.startswith("split_k") else name
         for sh, plans in timed_at[kind].items():
             a, b, bias, act, want = operands[shapes.index(sh)]
@@ -489,6 +715,8 @@ def main() -> int:
                        "kernel_tol": smoke.TOL[bf16], "card": card}
                 print(json.dumps(row), flush=True)
                 ok &= err < smoke.TOL[bf16]
+
+    ok &= f32_gemm(libs, gen, card)
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

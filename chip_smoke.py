@@ -25,24 +25,28 @@ after:
               It launches no kernel of the port (the blocked matmul is
               forward-only, as the JAX package's is);
   calibrate   the smoke calibration suite (fp32 GEMMs through the blocked
-              matmul's f32 kernel, saxpy streams, two train steps) and
-              fp32 GEMMs at 2048 and 4096, fitted into achievable ceilings
-              against h100_sxm_fp32 (a registry entry in a temporary
-              directory); the train steps placed on the datasheet and the
-              fitted plane.
+              matmul's f32 kernel: a cp.async K ring, 16-byte fragment
+              reads, the tile ``f32_plan`` picks; saxpy streams, two train
+              steps) and fp32 GEMMs at 2048 and 4096, fitted into
+              achievable ceilings against h100_sxm_fp32 (a registry entry
+              in a temporary directory); the train steps placed on the
+              datasheet and the fitted plane.
 
 Every blocked-matmul and flash-attention launch of the first two paths must
 take the sm90 variant, every calibration GEMM the f32 variant (the wrappers
 count launches by variant).  It times the paths, places them on the
 Ridgeline plane of the H100 datasheet spec, times the flash kernel's
-earlier mma design beside the sm90 kernel at every prefill shape and the
-sm90 GEMM's tile options at every main-path shape, and the host cost of a
-launch.  Any failed check exits nonzero
-(``chip_mutants.py`` shows that the parity and logits checks fail kernels
-with planted faults: late kv tiles and the K/V ring of the flash kernel,
-the ring and the last k-step of the sm90 GEMM).  The last two lines are a
-JSON summary of each kernel (its times are totals over its own launches on
-the main paths) and the device line ``{"ok": true, "device": {...}}``.
+earlier mma design beside the sm90 kernel at every prefill shape, the f32
+GEMM's earlier design (f32_edge) beside it at every calibration size, the
+sm90 GEMM's tile options at every main-path shape and the f32 GEMM's at
+every calibration size, and the host cost of a launch.  Any failed check
+exits nonzero (``chip_mutants.py`` shows that the parity and logits checks
+fail kernels with planted faults: late kv tiles and the K/V ring of the
+flash kernel, the ring and the last k-step of the sm90 GEMM, the ring, the
+last ragged K tile and an edge mask of the f32 GEMM).  The last two lines
+are a JSON summary of each kernel (its times are totals over its own
+launches on the main paths) and the device line ``{"ok": true, "device":
+{...}}``.
 Every number printed names the card and its power limit, as ``nvidia-smi``
 reports them.
 """
@@ -65,7 +69,11 @@ BATCHES = (256, 1024, 4096)
 #: 8, the wmma kernel at (300, 700, 520) and (1, 4100, 17).  The sm90 edges:
 #: ragged M (1000, 3000, 5000) and M = 1; N = 576 (BN 192) and N = 8; K = 64
 #: and K = 8 (one k-step, fewer than the ring's stages); 96 tiles (< 132
-#: SMs) and 320 (not a multiple of 132)
+#: SMs) and 320 (not a multiple of 132).  fp32 takes the f32 kernel but at
+#: (1, 4100, 17) (N % 4 != 0: f32_edge); its 64x128 tile at the first three,
+#: (1000, 576, 1536), (1000, 1536, 576) and the last two, its 32x64 tile at
+#: (300, 700, 520) (K 700: a ragged last K tile), (1, 4096, 4096), (300, 64,
+#: 8) (N narrower than a tile) and (130, 8, 520) (K shorter than one stage)
 PARITY_SHAPES = ((4096, 4096, 4096), (256, 4096, 4096), (1000, 4096, 3000),
                  (300, 700, 520), (1, 4100, 17), (1000, 576, 1536),
                  (1, 4096, 4096), (1000, 1536, 576), (300, 64, 8),
@@ -181,6 +189,31 @@ def sm90_option(sm90, a: torch.Tensor, b: torch.Tensor, bias, act, plan):
               M, N, K, _ACT_CODE[act], plan.bn, int(plan.n_fastest),
               torch.cuda.current_stream(a.device).cuda_stream)
     check(rc == 0, f"sm90 {plan} failed at ({M},{K},{N}): CUDA error {rc}")
+    return out
+
+
+def f32_option(f32, a: torch.Tensor, b: torch.Tensor, bias, act, tile):
+    """One launch of ``f32`` (``blocked_matmul.bind``'s entry point of the
+    f32 kernel) with ``tile``, past the wrapper and its counters."""
+    from repro_torch.kernels.blocked_matmul import _ACT_CODE
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    rc = f32(a.data_ptr(), b.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(),
+             M, N, K, _ACT_CODE[act], tile.bm, tile.bn,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    check(rc == 0, f"f32 {tile} failed at ({M},{K},{N}): CUDA error {rc}")
+    return out
+
+
+def edge_option(base, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One launch of the f32_edge kernel (the fp32 case of ``base``,
+    ``blocked_matmul.bind``'s first entry point), past the wrapper."""
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    rc = base(a.data_ptr(), b.data_ptr(), None, out.data_ptr(), M, N, K, 0, 0,
+              torch.cuda.current_stream(a.device).cuda_stream)
+    check(rc == 0, f"f32_edge failed at ({M},{K},{N}): CUDA error {rc}")
     return out
 
 
@@ -440,13 +473,15 @@ def calibrate(dev, say, card: str, placed: list, cfg) -> list:
     directory; then the train steps of ``placed`` on both planes.  Returns
     the blocked matmul's launches by variant in the suite (read before the
     per-launch timing below) and the f32 kernel's summary rows, each size's
-    launches counted from the suite's calls."""
+    launches counted from the suite's calls, with the earlier design's
+    time beside the kernel's."""
     import tempfile
     W, L = cfg.mlp_widths[0], len(cfg.mlp_widths)
 
     from repro_torch.core.hardware import (H100_SXM, H100_SXM_FP32,
                                            get_hardware)
     from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
     from repro_torch.kernels.blocked_matmul import blocked_matmul
     from repro_torch.kernels.ref import ref_matmul
     from repro_torch.measure import calibrate as cal
@@ -503,32 +538,44 @@ def calibrate(dev, say, card: str, placed: list, cfg) -> list:
                     f"{100 * a.runtime / host_s:.1f}% of the host median "
                     f"{host_s * 1e3:.4f} ms")
 
+    # per launch at each size: the kernel (f32_plan's tile), its earlier
+    # design f32_edge (the first fp32 kernel, called past the wrapper), the
+    # plain version and the library's one call
+    fns = bm._launcher()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for s in microbench.SMOKE_MATMUL_SIZES + CAL_BIG:
         gen = torch.Generator(device=dev).manual_seed(s)
         a_ = torch.randn((s, s), generator=gen, device=dev)
         b_ = torch.randn((s, s), generator=gen, device=dev)
         k_ms = kernel_ms(lambda i: blocked_matmul(a_, b_), iters=20)
+        e_ms = kernel_ms(lambda i: edge_option(fns.base, a_, b_), iters=20)
         p_ms = kernel_ms(lambda i: ref_matmul(a_, b_), iters=20)
         lib_ms = kernel_ms(lambda i: torch.mm(a_, b_), iters=20)
         got, want = blocked_matmul(a_, b_), ref_matmul(a_, b_)
         err_abs, err = max_abs(got, want), rel_err(got, want)
         check(err < TOL[torch.float32],
               f"f32 blocked matmul disagrees at {s}^3: {err}")
+        e_err = rel_err(edge_option(fns.base, a_, b_), want)
+        check(e_err < TOL[torch.float32],
+              f"f32_edge blocked matmul disagrees at {s}^3: {e_err}")
+        tile = bm.f32_plan(s, s, s, n_sms)
         flops, nbytes = 2.0 * s ** 3, 3.0 * 4 * s * s
         b_ms, b_by = bound_of(flops, nbytes, H100_SXM_FP32)
         rows.append({
             "path": "calibrate", "shape": [s, s, s], "dtype": "f32",
-            "act": None, "launches": calls[s], "kernel_ms": k_ms,
-            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err_abs, "flops": flops,
-            "bytes": nbytes})
-        say(f"  blocked_matmul f32 {s}^3 per launch: kernel {k_ms:.4f} ms "
-            f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
-            f"library torch.mm fp32 (TF32 off) {lib_ms:.4f} ms "
-            f"({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}, "
-            f"h100_sxm_fp32), kernel at {100 * b_ms / k_ms:.1f}% of bound; "
-            f"{calls[s]} calibration launches; rel_err {err:.3e}")
+            "act": None, "tile": [tile.bm, tile.bn], "launches": calls[s],
+            "kernel_ms": k_ms, "earlier_ms": e_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes})
+        say(f"  blocked_matmul f32 {s}^3 per launch: kernel ({tile.bm}x"
+            f"{tile.bn}) {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), "
+            f"earlier design f32_edge {e_ms:.4f} ms ({e_ms / k_ms:.2f}x the "
+            f"kernel), plain {p_ms:.4f} ms, library torch.mm fp32 (TF32 off) "
+            f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms "
+            f"({b_by}, h100_sxm_fp32), kernel at {100 * b_ms / k_ms:.1f}% of "
+            f"bound (f32_edge {100 * b_ms / e_ms:.1f}%); {calls[s]} "
+            f"calibration launches; rel_err {err:.3e} (f32_edge {e_err:.3e})")
     return launched, rows
 
 
@@ -615,6 +662,22 @@ def main() -> int:
             f"rel_err {err:.3e}")
         check(got.shape == (4, 300, 520) and err < TOL[dtype],
               f"ops.matmul leading dims {dtype}: {err}")
+    # an fp32 A 4 bytes past an aligned base: the 16-byte copies of the f32
+    # kernel cannot read it, so it takes f32_edge
+    flat = torch.randn(300 * 512 + 1, generator=gen, device=dev)
+    a = flat[1:].view(300, 512)
+    b = torch.randn((512, 520), generator=gen, device=dev)
+    bias = torch.randn((520,), generator=gen, device=dev)
+    var = bm.variant(300, 520, 512, torch.float32, bm.aligned(a, b, bias))
+    before = dict(blocked_matmul.launches_by_variant)
+    got = blocked_matmul(a, b, bias=bias, act="silu")
+    err = rel_err(got, ref_matmul(a, b, bias=bias, act="silu"))
+    say(f"  float32 (300,512,520) A at a 4-byte offset act=silu {var}: "
+        f"rel_err {err:.3e} (tol {TOL[torch.float32]:g})")
+    check(var == "f32_edge" and blocked_matmul.launches_by_variant
+          == {**before, var: before[var] + 1},
+          f"an unaligned fp32 A must take one f32_edge launch: {var}")
+    check(err < TOL[torch.float32], f"f32_edge disagrees off 16 bytes: {err}")
     say("worst rel_err: " + ", ".join(
         f"{str(d)[6:]} {var} {v:.3e}" for (d, var), v in worst.items()))
 
@@ -1051,7 +1114,7 @@ def main() -> int:
     # order, beside tile_plan's choice (PERF.md reads the rule off these);
     # each call takes the next of 8 weights, as a forward's layers do
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, sm90 = bm._launcher()
+    sm90 = bm._launcher().sm90
     for row in per_batch + ffn_rows:
         M, Kd, N = row["shape"]
         a_ = torch.randn((M, Kd), generator=gen, device=dev).to(bf16)
@@ -1074,7 +1137,25 @@ def main() -> int:
             + ", ".join(f"{tuple(p)} {t:.4f}" for t, p in timed))
     del a_, bs_
 
-    # ---- 10. microbench -------------------------------------------------------
+    # ---- 10. f32_options ------------------------------------------------------
+    phase("f32_options")
+    # the f32 kernel at every calibration size under each tile, beside
+    # f32_plan's choice (PERF.md reads the rule off these)
+    f32 = bm._launcher().f32
+    for row in f32_rows:
+        s_ = row["shape"][0]
+        a_, b_ = (torch.randn((s_, s_), generator=gen, device=dev)
+                  for _ in range(2))
+        rule = bm.f32_plan(s_, s_, s_, n_sms)
+        timed = {t: kernel_ms(lambda i: f32_option(f32, a_, b_, None, None, t),
+                              iters=20) for t in bm.F32_TILES}
+        best = min(timed, key=timed.get)
+        say(f"  {s_}^3: rule {rule.bm}x{rule.bn} {timed[rule]:.4f} ms; best "
+            f"{best.bm}x{best.bn} {timed[best]:.4f} ms; all: "
+            + ", ".join(f"{t.bm}x{t.bn} {ms:.4f}" for t, ms in timed.items()))
+    del a_, b_
+
+    # ---- 11. microbench -------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
     # tensor-map encoding, ctypes call), enqueue only, beside one torch call

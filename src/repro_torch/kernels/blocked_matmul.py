@@ -3,17 +3,17 @@
 The CUDA kernels replace ``src/repro/kernels/blocked_matmul.py::
 blocked_matmul`` (the Pallas TPU kernel); the source's header says what
 bounds them on an H100 and what their design does about that.  This wrapper
-checks its inputs, picks the kernel (``variant``) and, for the Hopper
-kernel, its tiles (``tile_plan``), allocates the output, launches on the
-current stream and counts launches, in total and by variant.  A tensor on
-the CPU takes the plain version, ``ref.ref_matmul``; a CUDA tensor launches
-a kernel or raises.
+checks its inputs, picks the kernel (``variant``) and, for the sm90 and f32
+kernels, their tiles (``tile_plan``, ``f32_plan``), allocates the output,
+launches on the current stream and counts launches, in total and by
+variant.  A tensor on the CPU takes the plain version, ``ref.ref_matmul``; a
+CUDA tensor launches a kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -26,7 +26,9 @@ _INT_MAX = 2 ** 31 - 1
 
 #: the kernels, in ``variant``'s words: the Hopper TMA + wgmma kernel, the
 #: wmma kernel for bf16 shapes TMA cannot read, IEEE fp32 on the CUDA cores
-VARIANTS = ("sm90", "wmma", "f32")
+#: through a cp.async ring, and the first fp32 design for fp32 calls a
+#: 16-byte copy cannot read
+VARIANTS = ("sm90", "wmma", "f32", "f32_edge")
 #: the sm90 kernel's tile rows (two consumer warpgroups of 64) and the tile
 #: widths it is compiled for
 SM90_BM = 128
@@ -41,16 +43,41 @@ class Plan(NamedTuple):
     n_fastest: bool    # tile order: the N tile fastest, else the M tile
 
 
-def bind(lib: ctypes.CDLL):
-    """The typed ``(blocked_matmul_launch, blocked_matmul_sm90_launch)`` of
-    a library built from ``csrc/blocked_matmul.cu`` (or an edited copy)."""
+class F32Tile(NamedTuple):
+    """One tile the f32 kernel is compiled for (``RingCfg`` in the source):
+    BM x BN outputs, ``tm`` rows x 8 columns a thread, warps of 4·tm x 64;
+    128 threads either way."""
+
+    bm: int
+    bn: int
+    tm: int
+
+
+#: the f32 kernel's two tiles, the larger first
+F32_TILES = (F32Tile(64, 128, 8), F32Tile(32, 64, 2))
+
+
+class Launchers(NamedTuple):
+    """The typed entry points of a library built from
+    ``csrc/blocked_matmul.cu`` (or an edited copy)."""
+
+    base: Callable[..., int]   # f32_edge (dtype 0) and wmma (dtype 1)
+    sm90: Callable[..., int]
+    f32: Callable[..., int]
+
+
+def bind(lib: ctypes.CDLL) -> Launchers:
+    """``blocked_matmul_launch``, ``blocked_matmul_sm90_launch`` and
+    ``blocked_matmul_f32_launch`` of ``lib``, typed."""
     base = lib.blocked_matmul_launch
     base.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    base.restype = ctypes.c_int
     sm90 = lib.blocked_matmul_sm90_launch
     sm90.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    sm90.restype = ctypes.c_int
-    return base, sm90
+    f32 = lib.blocked_matmul_f32_launch
+    f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for fn in (base, sm90, f32):
+        fn.restype = ctypes.c_int
+    return Launchers(base, sm90, f32)
 
 
 @functools.cache
@@ -65,9 +92,11 @@ def _num_sms(index: int) -> int:
 
 def aligned(a: torch.Tensor, b: torch.Tensor,
             bias: Optional[torch.Tensor]) -> bool:
-    """Whether the bases meet the sm90 kernel's rules: A and B 16-byte
-    aligned (TMA), the bias 4-byte aligned (the epilogue reads it in bf16
-    pairs at even columns)."""
+    """Whether the bases meet the rules of the sm90 and f32 kernels: A and B
+    16-byte aligned (TMA, 16-byte cp.async), the bias 4-byte aligned (sm90
+    reads it in bf16 pairs at even columns; f32 one float at a time, which
+    any fp32 tensor meets).  The output is the wrapper's own allocation,
+    aligned to far more."""
     return (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
             and (bias is None or bias.data_ptr() % 4 == 0))
 
@@ -76,12 +105,14 @@ def variant(M: int, N: int, K: int, dtype: torch.dtype,
             is_aligned: bool) -> str:
     """The kernel that takes a call, by dtype, shape and alignment alone.
 
-    sm90 reads A and B through TMA, which needs 16-byte row strides (K and
-    N multiples of 8 bf16 values) and bases as ``aligned`` says
-    (``is_aligned``).  Other bf16 calls go to wmma; fp32 to f32.
+    sm90 reads A and B through TMA, f32 through 16-byte cp.async copies;
+    both need 16-byte row strides (K and N multiples of 8 bf16 or 4 fp32
+    values) and bases as ``aligned`` says (``is_aligned``).  Other bf16
+    calls go to wmma, other fp32 calls to f32_edge.
     """
     if dtype == torch.float32:
-        return "f32"
+        return "f32" if K % 4 == 0 and N % 4 == 0 and is_aligned \
+            else "f32_edge"
     if K % 8 == 0 and N % 8 == 0 and is_aligned:
         return "sm90"
     return "wmma"
@@ -110,6 +141,20 @@ def tile_plan(M: int, N: int, K: int, num_sms: int) -> Plan:
     while bn > 64 and 2 * m_tiles * -(-N // bn) <= num_sms:
         bn = 64 if bn == 192 else bn // 2
     return Plan(bn, M >= N)
+
+
+@functools.lru_cache(maxsize=1024)
+def f32_plan(M: int, N: int, K: int, num_sms: int) -> F32Tile:
+    """The f32 kernel's tile for an (M, K) @ (K, N) product: 64x128 where
+    its grid (one CTA per tile, 2-3 share an SM) covers at least half the
+    SMs, else 32x64, which has 4x the CTAs and a quarter of the work a
+    thread.  On 132 SMs the square calibration products take 64x128 from
+    768^3 (72 CTAs) up and 32x64 at 512^3 (128 CTAs) and below.  K does not
+    enter: every tile runs the whole of K.  ``chip_smoke.py``'s
+    ``f32_options`` times both tiles at every calibration size.
+    """
+    big, small = F32_TILES
+    return big if 2 * -(-M // big.bm) * -(-N // big.bn) >= num_sms else small
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
@@ -143,23 +188,27 @@ def _check(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
 
 def _launch(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
             act: Optional[str], kind: str) -> torch.Tensor:
-    """Launch the ``kind`` kernel (sm90 with ``tile_plan``'s tiles) on CUDA
-    tensors that passed ``_check``; count it."""
+    """Launch the ``kind`` kernel (sm90 with ``tile_plan``'s tiles, f32 with
+    ``f32_plan``'s) on CUDA tensors that passed ``_check``; count it."""
     (M, K), N = a.shape, b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    base, sm90 = _launcher()
-    bias_ptr = None if bias is None else bias.data_ptr()
+    fns = _launcher()
+    ptrs = (a.data_ptr(), b.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr())
     plan = None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         if kind == "sm90":
             plan = tile_plan(M, N, K, _num_sms(a.device.index))
-            rc = sm90(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
-                      M, N, K, _ACT_CODE[act], plan.bn, int(plan.n_fastest),
-                      stream)
+            rc = fns.sm90(*ptrs, M, N, K, _ACT_CODE[act], plan.bn,
+                          int(plan.n_fastest), stream)
+        elif kind == "f32":
+            plan = f32_plan(M, N, K, _num_sms(a.device.index))
+            rc = fns.f32(*ptrs, M, N, K, _ACT_CODE[act], plan.bm, plan.bn,
+                         stream)
         else:
-            rc = base(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
-                      M, N, K, _DTYPE_CODE[a.dtype], _ACT_CODE[act], stream)
+            rc = fns.base(*ptrs, M, N, K, _DTYPE_CODE[a.dtype],
+                          _ACT_CODE[act], stream)
     if rc != 0:
         raise RuntimeError(f"blocked_matmul {kind} kernel launch failed: "
                            f"CUDA error {rc} at M={M} N={N} K={K} {a.dtype}"

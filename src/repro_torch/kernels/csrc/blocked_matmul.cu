@@ -24,7 +24,7 @@
 // The FFN products write (or read) a 50 MB activation, so their byte time
 // (21 us) is close behind the operations.
 //
-// Three kernels; blocked_matmul.py::variant picks one by dtype, shape and
+// Four kernels; blocked_matmul.py::variant picks one by dtype, shape and
 // alignment alone.
 //
 // sm90 (bf16, K % 8 == 0, N % 8 == 0, A and B 16-byte aligned: TMA's rules
@@ -57,9 +57,49 @@
 // 128 x 128 tile per block, element-wise masked loads staged through
 // registers into double-buffered shared memory.  PARITY_SHAPES in
 // chip_smoke.py has two such shapes: (300, 700, 520) and (1, 4100, 17).
-// f32: plain IEEE fp32 FMAs on the CUDA cores (no TF32; 67 TFLOP/s, so
-// compute-bound at all but tiny shapes), 8x8 outputs per thread, the same
-// tiling and staging as wmma.
+// f32 (fp32 with K % 4 == 0, N % 4 == 0, A, B and out 16-byte aligned: the
+// rules of a 16-byte cp.async; the bias is read one float at a time).  IEEE
+// fp32 FMAs on the CUDA cores: no TF32, no 3xTF32 split, so the bound is the
+// 67 TFLOP/s of h100_sxm_fp32 (ridge 20 FLOP/byte: a square s^3 product is
+// bound by its operations from s = 120 up; 64^3 by its bytes).  What bounds
+// the inner loop is the instruction rate: an SM sub-partition dispatches one
+// warp instruction a clock and its 32 FP32 lanes take one FFMA a clock, so
+// every shared load, address or barrier takes a slot from an FFMA, and a
+// warp waiting on global memory dispatches nothing.  The first design (f32_edge below) read 16 scalar
+// LDS per 64 FFMAs, staged 8-deep K tiles through registers one tile ahead,
+// and ran 128 x 128 tiles at every size (one CTA at 128^3, 16 at 512^3):
+// 0.1-34% of its bound.  This design:
+//   * A ring of 4 K stages of 16 in shared memory, filled by 16-byte
+//     cp.async.cg copies under commit_group / wait_group, 3 tiles ahead of
+//     the one read; zero-fill (src-size 0) covers ragged M, N and K.  One
+//     __syncthreads a stage both publishes the landed tile and retires the
+//     reads of the stage the next copy overwrites.  cp.async, not TMA: every
+//     thread computes, so no producer warp or mbarrier is needed, and a
+//     thread's copies cost 2-4 instructions a stage.
+//   * 16-byte fragment reads: a thread holds TM rows x 8 columns (two
+//     groups of 4, 32 apart) and reads, for 4 k at a time, one float4 of A
+//     per row (A is row-major in shared memory, rows padded by 4 floats:
+//     the four quarter-warps read four rows 80 bytes apart, distinct banks;
+//     the 8 lanes of a quarter-warp read one address) and two float4 of B
+//     per k (the 8 lanes read 128 contiguous bytes): 16 LDS.128 per 256
+//     FFMAs at TM = 8.
+//   * Two tiles of 4 warps (a warp: 4*TM rows x 64 columns): 64x128 at
+//     TM = 8 and 32x64 at TM = 2.  blocked_matmul.py::f32_plan takes 64x128
+//     where its grid covers half the SMs (768^3 and up) and 32x64 below,
+//     where no tile fills the card and a thread's K loop sets the time.
+//     128 threads and a ring of 52 KB (64x128) or 26 KB (32x64) let 3 or 7
+//     CTAs share an SM (registers set the count).  chip_mutants.py keeps
+//     the designs that lost or tied as alternatives: 128x128, 128x64 and
+//     64x64 (TM = 4) tiles; K stages of 32, 3 or 6 stages; unpadded A rows;
+//     a split of K into a workspace and a second pass.  The split won where
+//     the grid is far below the SMs (256^3, 768^3) and lost at 64^3 and
+//     1024^3; it is not in the rule (PERF.md).
+//   * The epilogue adds the bias, applies act (accurate expf / tanhf: the
+//     1e-5 parity leaves no room for tanh.approx) in one instantiation per
+//     act, and stores each group of 4 columns as one float4, guarded per row
+//     and group.
+// f32_edge (the other fp32 calls): the first fp32 design, 8x8 outputs per
+// thread, the same tiling and staging as wmma, element-wise masked loads.
 //
 // Build (plain C interface, loaded with ctypes; no -lcuda: the tensor-map
 // encoder is found through cudaGetDriverEntryPoint):
@@ -471,7 +511,8 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: IEEE FMAs on the CUDA cores, 8x8 outputs per thread.
+// f32_edge: IEEE FMAs on the CUDA cores, 8x8 outputs per thread, any fp32
+// shape and base.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32TileK = 8;
@@ -556,6 +597,185 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: cp.async K ring, 16-byte fragment reads, f32_plan's tile.
+// ---------------------------------------------------------------------------
+
+constexpr int kRingBK = 16;      // K depth of a stage
+constexpr int kRingStages = 4;   // 3 tiles in flight beside the one read
+constexpr int kRingPadA = 4;     // A rows 80 bytes apart in shared memory
+
+template <int BM, int BN, int TM>
+struct RingCfg {
+  static constexpr int kWarpsN = BN / 64;             // a warp: 4*TM x 64
+  static constexpr int kThreads = 32 * (BM / (4 * TM)) * kWarpsN;
+  static constexpr int kAStride = kRingBK + kRingPadA;   // floats
+  static constexpr int kAFloats = BM * kAStride;
+  static constexpr int kStageFloats = kAFloats + kRingBK * BN;
+  static constexpr int kSmem = kRingStages * kStageFloats * 4;
+  // 16-byte chunks of a stage, per thread
+  static constexpr int kAChunks = BM * kRingBK / 4 / kThreads;
+  static constexpr int kBChunks = kRingBK * BN / 4 / kThreads;
+  static_assert(BM % (4 * TM) == 0 && BN % 64 == 0, "warp tiles");
+  static_assert(kAChunks * kThreads * 4 == BM * kRingBK &&
+                kBChunks * kThreads * 4 == kRingBK * BN, "whole chunks");
+};
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The tile's epilogue for one act: thread rows row0 + 4i (i < TM), columns
+// col0 + {0..3} (acc[i][0..3]) and col0 + 32 + {0..3} (acc[i][4..7]);
+// N % 4 == 0, so a group of 4 is in or out whole.
+template <int TM, int ACT>
+__device__ __forceinline__ void ring_store_tile(
+    const float (*acc)[8], int row0, int col0, int M, int N,
+    const float* __restrict__ bias, float* __restrict__ C) {
+  float bz[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = col0 + (j / 4) * 32 + j % 4;
+    bz[j] = (bias != nullptr && col < N) ? bias[col] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + 4 * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = col0 + 32 * h;
+      if (col >= N) continue;
+      float4 y;
+      y.x = apply_act(acc[i][4 * h] + bz[4 * h], ACT);
+      y.y = apply_act(acc[i][4 * h + 1] + bz[4 * h + 1], ACT);
+      y.z = apply_act(acc[i][4 * h + 2] + bz[4 * h + 2], ACT);
+      y.w = apply_act(acc[i][4 * h + 3] + bz[4 * h + 3], ACT);
+      *reinterpret_cast<float4*>(C + (int64_t)row * N + col) = y;
+    }
+  }
+}
+
+// One CTA per BM x BN output tile, the N tile fastest.  Warp w covers rows
+// (w / kWarpsN) * 4TM .. +4TM and columns (w % kWarpsN) * 64 .. +64 of the
+// tile; lane l (lm = l / 8, ln = l % 8) rows lm + 4i, columns 4ln + {0..3}
+// and 32 + 4ln + {0..3}.
+template <int BM, int BN, int TM>
+__global__ void __launch_bounds__(RingCfg<BM, BN, TM>::kThreads)
+gemm_f32_ring_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                     const float* __restrict__ bias, float* __restrict__ C,
+                     int M, int N, int K, int act) {
+  using Cfg = RingCfg<BM, BN, TM>;
+  constexpr int S = kRingStages, BK = kRingBK;
+  extern __shared__ __align__(16) float ring_smem[];
+  const int n_tiles = (N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / n_tiles) * BM, n0 = (blockIdx.x % n_tiles) * BN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = (warp / Cfg::kWarpsN) * 4 * TM + lane / 8;
+  const int wn = (warp % Cfg::kWarpsN) * 64 + 4 * (lane % 8);
+
+  // copies of K tile kt into stage kt % S; chunks past an edge read nothing
+  const int k_tiles = (K + BK - 1) / BK;
+  auto load_tile = [&](int kt) {
+    float* As = ring_smem + (kt % S) * Cfg::kStageFloats;
+    float* Bs = As + Cfg::kAFloats;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = 0; i < Cfg::kAChunks; ++i) {
+      const int c = tid + i * Cfg::kThreads;
+      const int r = c / (BK / 4), kc = 4 * (c % (BK / 4));
+      const bool in = m0 + r < M && k0 + kc < K;
+      cp_async16(smem_u32(As + r * Cfg::kAStride + kc),
+                 in ? A + (int64_t)(m0 + r) * K + k0 + kc : A, in ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < Cfg::kBChunks; ++i) {
+      const int c = tid + i * Cfg::kThreads;
+      const int r = c / (BN / 4), nc = 4 * (c % (BN / 4));
+      const bool in = k0 + r < K && n0 + nc < N;
+      cp_async16(smem_u32(Bs + r * BN + nc),
+                 in ? B + (int64_t)(k0 + r) * N + n0 + nc : B, in ? 16 : 0);
+    }
+  };
+
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < k_tiles) load_tile(s);
+    cp_async_commit();   // one group per tile, empty past the end
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<S - 2>();   // this thread's copies of tile kt have landed
+    __syncthreads();          // every thread's have, and every warp is done
+                              // with tile kt - 1, whose stage is refilled:
+    if (kt + S - 1 < k_tiles) load_tile(kt + S - 1);
+    cp_async_commit();
+    const float* As = ring_smem + (kt % S) * Cfg::kStageFloats;
+    const float* Bs = As + Cfg::kAFloats;
+#pragma unroll
+    for (int kc = 0; kc < BK; kc += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            As + (wm + 4 * i) * Cfg::kAStride + kc);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float* brow = Bs + (kc + k) * BN + wn;
+        const float4 b0 = *reinterpret_cast<const float4*>(brow);
+        const float4 b1 = *reinterpret_cast<const float4*>(brow + 32);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = k == 0 ? a[i].x : k == 1 ? a[i].y
+                           : k == 2 ? a[i].z : a[i].w;
+          acc[i][0] = fmaf(av, b0.x, acc[i][0]);
+          acc[i][1] = fmaf(av, b0.y, acc[i][1]);
+          acc[i][2] = fmaf(av, b0.z, acc[i][2]);
+          acc[i][3] = fmaf(av, b0.w, acc[i][3]);
+          acc[i][4] = fmaf(av, b1.x, acc[i][4]);
+          acc[i][5] = fmaf(av, b1.y, acc[i][5]);
+          acc[i][6] = fmaf(av, b1.z, acc[i][6]);
+          acc[i][7] = fmaf(av, b1.w, acc[i][7]);
+        }
+      }
+    }
+  }
+
+  const int row0 = m0 + wm, col0 = n0 + wn;
+  switch (act) {
+    case kRelu:
+      ring_store_tile<TM, kRelu>(acc, row0, col0, M, N, bias, C);
+      break;
+    case kRelu2:
+      ring_store_tile<TM, kRelu2>(acc, row0, col0, M, N, bias, C);
+      break;
+    case kSilu:
+      ring_store_tile<TM, kSilu>(acc, row0, col0, M, N, bias, C);
+      break;
+    case kGelu:
+      ring_store_tile<TM, kGelu>(acc, row0, col0, M, N, bias, C);
+      break;
+    default:
+      ring_store_tile<TM, kNone>(acc, row0, col0, M, N, bias, C);
+  }
+}
+
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
@@ -609,12 +829,40 @@ cudaError_t launch_sm90(const CUtensorMap& ta, const CUtensorMap& tb,
   return cudaGetLastError();
 }
 
+// One CTA per output tile.
+template <int BM, int BN, int TM>
+cudaError_t launch_ring(const float* a, const float* b, const float* bias,
+                        float* C, int M, int N, int K, int act,
+                        cudaStream_t stream) {
+  using Cfg = RingCfg<BM, BN, TM>;
+  // the shared-memory limit, set once per device (above 48 KB it must be)
+  static bool set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!set[dev]) {
+    rc = cudaFuncSetAttribute(gemm_f32_ring_kernel<BM, BN, TM>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Cfg::kSmem);
+    if (rc != cudaSuccess) return rc;
+    set[dev] = true;
+  }
+  const int64_t tiles =
+      ((int64_t)M + BM - 1) / BM * (((int64_t)N + BN - 1) / BN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  gemm_f32_ring_kernel<BM, BN, TM>
+      <<<static_cast<int>(tiles), Cfg::kThreads, Cfg::kSmem, stream>>>(
+          a, b, bias, C, M, N, K, act);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The f32 and wmma kernels.  dtype: 0 = fp32, 1 = bf16 (the wmma kernel;
-// blocked_matmul.py sends bf16 here only where the sm90 kernel does not
-// apply).  act: 0 none, 1 relu, 2 relu2, 3 silu, 4 gelu.  bias may be null.
-// Launches on `stream` and returns cudaGetLastError().
+// The f32_edge and wmma kernels.  dtype: 0 = fp32 (f32_edge), 1 = bf16
+// (wmma); blocked_matmul.py sends a call here only where the f32 or sm90
+// kernel does not apply.  act: 0 none, 1 relu, 2 relu2, 3 silu, 4 gelu.
+// bias may be null.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int blocked_matmul_launch(const void* a, const void* b,
                                      const void* bias, void* out, int M,
                                      int N, int K, int dtype, int act,
@@ -676,5 +924,29 @@ extern "C" int blocked_matmul_sm90_launch(const void* a, const void* b,
     default:
       rc = launch_sm90<256>(ta, tb, bz, C, M, N, K, act, n_fastest, s);
   }
+  return static_cast<int>(rc);
+}
+
+// The f32 kernel, fp32 only, with the tile (bm, bn) that
+// blocked_matmul.py::f32_plan chose, 64x128 or 32x64, one CTA per tile.
+// Needs K % 4 == 0, N % 4 == 0 and 16-byte aligned a, b and out; bias may be
+// null.  Returns cudaGetLastError().
+extern "C" int blocked_matmul_f32_launch(const void* a, const void* b,
+                                         const void* bias, void* out, int M,
+                                         int N, int K, int act, int bm, int bn,
+                                         void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % 4 || K % 4 || act < kNone ||
+      act > kGelu || !aligned(a, 16) || !aligned(b, 16) || !aligned(out, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* A = static_cast<const float*>(a);
+  const auto* B = static_cast<const float*>(b);
+  const auto* bz = static_cast<const float*>(bias);
+  auto* C = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (bm == 64 && bn == 128)
+    rc = launch_ring<64, 128, 8>(A, B, bz, C, M, N, K, act, s);
+  else if (bm == 32 && bn == 64)
+    rc = launch_ring<32, 64, 2>(A, B, bz, C, M, N, K, act, s);
   return static_cast<int>(rc);
 }

@@ -35,6 +35,7 @@ def _rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-6)).item()
 
 
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
 @pytest.mark.parametrize("act", [None, "relu", "relu2", "silu", "gelu"])
 @pytest.mark.parametrize("mkn", [(256, 4096, 4096), (300, 700, 520),
                                  (1, 4100, 17), (129, 64, 136),
@@ -43,17 +44,28 @@ def _rel_err(got, want):
                                  (1000, 576, 1536), (1, 4096, 4096),
                                  (1000, 1536, 576), (300, 64, 8),
                                  (130, 8, 520), (3000, 1024, 1000),
-                                 (5000, 512, 2048)])
+                                 (5000, 512, 2048),
+                                 # fp32: K % 4 != 0 (f32_edge); 768^3
+                                 (64, 702, 128), (768, 768, 768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_kernel_matches_plain_version(cuda, dtype, mkn, act):
+def test_kernel_matches_plain_version(cuda, dtype, mkn, act, with_bias):
+    """Every kernel and, in fp32, both tiles of ``f32_plan``: 64x128 at
+    (256, 4096, 4096), (1000, 576, 1536), (1000, 1536, 576), the last
+    three sm90 edges and 768^3; 32x64 at the others that f32 takes."""
+    from repro_torch.kernels.blocked_matmul import aligned, variant
     M, K, N = mkn
     gen = torch.Generator(device=cuda).manual_seed(M * 7 + N)
     a = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
     b = torch.randn((K, N), generator=gen, device=cuda).to(dtype)
-    bias = torch.randn((N,), generator=gen, device=cuda).to(dtype)
+    bias = (torch.randn((N,), generator=gen, device=cuda).to(dtype)
+            if with_bias else None)
+    kind = variant(M, N, K, dtype, aligned(a, b, bias))
+    before = dict(blocked_matmul.launches_by_variant)
     got = blocked_matmul(a, b, bias=bias, act=act)
     torch.cuda.synchronize()
+    assert blocked_matmul.launches_by_variant == {
+        **before, kind: before[kind] + 1}
     assert got.shape == (M, N) and got.dtype == dtype
     assert _rel_err(got, ref_matmul(a, b, bias=bias, act=act)) < TOL[dtype]
 
@@ -65,7 +77,8 @@ def test_variant_counters_follow_the_rule(cuda):
     b = torch.randn((64, 128), generator=gen, device=cuda)
     cases = [(flat[:4096].view(64, 64).bfloat16(), b.bfloat16(), "sm90"),
              (flat.bfloat16()[1:].view(64, 64), b.bfloat16(), "wmma"),
-             (flat[:4096].view(64, 64), b, "f32")]
+             (flat[:4096].view(64, 64), b, "f32"),
+             (flat[1:].view(64, 64), b, "f32_edge")]
     for a, b_, kind in cases:
         aligned = a.data_ptr() % 16 == 0
         assert variant(64, 128, 64, a.dtype, aligned) == kind
@@ -82,13 +95,47 @@ def test_sm90_rejects_a_plan_it_was_not_built_for(cuda):
     a = torch.ones((128, 64), device=cuda, dtype=torch.bfloat16)
     b = a.t().contiguous()
     out = torch.empty((128, 128), device=cuda, dtype=torch.bfloat16)
-    _, sm90 = bm._launcher()
+    sm90 = bm._launcher().sm90
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for bn, bias in ((96, None), (128, out.view(-1)[1:129])):  # bias off 2 B
         rc = sm90(a.data_ptr(), b.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   128, 128, 64, 0, bn, 1, stream)
         assert rc == 1   # cudaErrorInvalidValue
+
+
+def test_f32_rejects_what_it_was_not_built_for(cuda):
+    from repro_torch.kernels import blocked_matmul as bm
+    flat = torch.ones(128 * 64 + 4, device=cuda)
+    a = flat[:128 * 64].view(128, 64)
+    out = torch.empty((128, 128), device=cuda)
+    f32 = bm._launcher().f32
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for a_ptr, n, tile in ((a.data_ptr(), 128, (128, 128)),   # not built
+                           (a.data_ptr(), 126, (64, 128)),    # N % 4 != 0
+                           (flat[1:].data_ptr(), 128, (64, 128))):  # off 4 B
+        rc = f32(a_ptr, a.data_ptr(), None, out.data_ptr(), 128, n, 64, 0,
+                 *tile, stream)
+        assert rc == 1   # cudaErrorInvalidValue
+
+
+def test_f32_takes_an_unaligned_base_to_the_edge_kernel(cuda):
+    from repro_torch.kernels.blocked_matmul import aligned, variant
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    flat = torch.randn(300 * 512 + 1, generator=gen, device=cuda)
+    a = flat[1:].view(300, 512)
+    assert a.data_ptr() % 16 == 4
+    b = torch.randn((512, 520), generator=gen, device=cuda)
+    bias = torch.randn((520,), generator=gen, device=cuda)
+    assert variant(300, 520, 512, torch.float32,
+                   aligned(a, b, bias)) == "f32_edge"
+    before = dict(blocked_matmul.launches_by_variant)
+    got = blocked_matmul(a, b, bias=bias, act="gelu")
+    torch.cuda.synchronize()
+    assert blocked_matmul.launches_by_variant == {
+        **before, "f32_edge": before["f32_edge"] + 1}
+    assert _rel_err(got, ref_matmul(a, b, bias=bias, act="gelu")) \
+        < TOL[torch.float32]
 
 
 def test_sm90_takes_a_bias_at_a_4_byte_offset(cuda):

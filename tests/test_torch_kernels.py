@@ -174,7 +174,12 @@ def test_ref_rejects_unknown_activation():
     ((1, 17, 4100, torch.bfloat16, True), "wmma"),       # N % 8 != 0
     ((256, 4096, 4096, torch.bfloat16, False), "wmma"),  # a base off 16 B
     ((256, 4096, 4096, torch.float32, True), "f32"),
-    ((300, 520, 700, torch.float32, False), "f32"),
+    ((300, 520, 700, torch.float32, False), "f32_edge"),  # a base off 16 B
+    ((300, 520, 700, torch.float32, True), "f32"),        # K % 4 == 0
+    ((1, 17, 4100, torch.float32, True), "f32_edge"),     # N % 4 != 0
+    ((300, 520, 702, torch.float32, True), "f32_edge"),   # K % 4 != 0
+    ((300, 8, 64, torch.float32, True), "f32"),           # N below a tile
+    ((130, 520, 8, torch.float32, True), "f32"),          # K below a stage
 ], ids=lambda c: "-".join(map(str, c[0])).replace("torch.", "")
    if isinstance(c[0], tuple) else str(c))
 def test_variant_rule(case):
@@ -223,14 +228,63 @@ def test_aligned_rule(case):
     assert aligned(a, b, bias) is want
 
 
+@pytest.mark.parametrize("case", [
+    # (M, K, N) on 132 SMs -> f32 tile (BM, BN): the calibration sizes
+    # (64x128 from 768^3 up, where its grid covers half the SMs), then
+    # ragged shapes
+    ((64, 64, 64), (32, 64)), ((128, 128, 128), (32, 64)),
+    ((256, 256, 256), (32, 64)), ((512, 512, 512), (32, 64)),
+    ((768, 768, 768), (64, 128)), ((1024, 1024, 1024), (64, 128)),
+    ((2048, 2048, 2048), (64, 128)), ((4096, 4096, 4096), (64, 128)),
+    ((300, 700, 520), (32, 64)),          # 45 tiles of 64x128
+    ((1000, 1536, 576), (64, 128)),       # 80 tiles of 64x128
+    ((1, 4096, 4096), (32, 64)),
+    ((300, 64, 8), (32, 64)),
+    ((1000, 4096, 3000), (64, 128)),
+    ((4100, 100, 4), (32, 64)),           # 65 tiles of 64x128: under half
+    ((4200, 100, 4), (64, 128)),          # 66: half
+], ids=lambda c: "x".join(map(str, c[0])) if isinstance(c[0], tuple) else "")
+def test_f32_plan_rule(case):
+    from repro_torch.kernels.blocked_matmul import F32_TILES, f32_plan
+    (M, K, N), want = case
+    tile = f32_plan(M, N, K, num_sms=132)
+    assert (tile.bm, tile.bn) == want and tile in F32_TILES
+
+    def grid(bm, bn):
+        return -(-M // bm) * -(-N // bn)
+    # never fewer CTAs than f32_edge's 128 x 128 tiles
+    assert grid(tile.bm, tile.bn) >= grid(128, 128)
+    # whole warps of 4·tm rows x 64 columns (RingCfg in the source), 128
+    # threads: 255 registers each fit the SM's 65,536
+    assert tile.bm % (4 * tile.tm) == 0 and tile.bn % 64 == 0
+    threads = 32 * (tile.bm // (4 * tile.tm)) * (tile.bn // 64)
+    assert threads == 128 and threads * 255 <= 65536
+    # the ring: 4 stages of A (bm rows of 16 + 4 pad floats) and B (16 rows
+    # of bn floats) in 227 KB; live floats a thread in the inner loop (tm x 8
+    # accumulators, a float4 of A a row, two of B) within 128 registers
+    assert 4 * 4 * (tile.bm * 20 + 16 * tile.bn) <= 232448
+    assert 8 * tile.tm + 4 * tile.tm + 8 <= 128
+
+
+def test_f32_plan_fills_half_the_sms_where_it_can():
+    from repro_torch.kernels.blocked_matmul import F32_TILES, f32_plan
+    big, small = F32_TILES
+    for sms in (66, 114, 132):
+        for s in (64, 256, 600, 768, 1000, 4096):
+            tile = f32_plan(s, s, s, num_sms=sms)
+            assert tile == (big if 2 * (-(-s // 64) * -(-s // 128)) >= sms
+                            else small)
+
+
 def test_cpu_calls_count_no_launch_by_variant():
     rng = np.random.default_rng(9)
     a, b = (torch.from_numpy(_normal(rng, s)).to(torch.bfloat16)
             for s in ((64, 64), (64, 128)))
     before = dict(blocked_matmul.launches_by_variant)
-    assert set(before) == {"sm90", "wmma", "f32"}
+    assert set(before) == {"sm90", "wmma", "f32", "f32_edge"}
     blocked_matmul(a, b, act="relu")
     blocked_matmul(a.float(), b.float())
+    blocked_matmul(a.float(), b.float()[:, :17].contiguous())  # f32_edge's
     assert blocked_matmul.launches_by_variant == before
 
 
