@@ -30,7 +30,21 @@ after:
               steps) and fp32 GEMMs at 2048 and 4096, fitted into
               achievable ceilings against h100_sxm_fp32 (a registry entry
               in a temporary directory); the train steps placed on the
-              datasheet and the fitted plane.
+              datasheet and the fitted plane;
+  calibrate_cli
+              the calibrate entry point (``measure/calibrate.main``) at its
+              full sizes (GEMMs 64^3 to 2048^3 through the f32 kernel),
+              traced by the port's span tracer: its registry entry loads
+              back, one measured cell per validation step, the calibrated
+              plane's SVG and ASCII figures, a valid trace with a span per
+              bench and the fit's spans;
+  ridgeline   every measured point of the paths above (the tower's forwards,
+              the prefill, the train steps counted and in the paper's
+              6BW^2L accounting with the grads' all-reduce, the CLI's
+              measurements) as a cell report on h100_sxm and on the CLI's
+              fitted spec, its host median attached; the paper's quadrant
+              construction must classify each point as the times do on the
+              spec's bandwidth-only plane; the tables and the plane printed.
 
 Every blocked-matmul and flash-attention launch of the first two paths must
 take the sm90 variant, every calibration GEMM the f32 variant (the wrappers
@@ -53,9 +67,11 @@ reports them.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -466,7 +482,52 @@ def mlp_train(dev, say, cfg, rng: np.random.Generator) -> list:
     return placed
 
 
-def calibrate(dev, say, card: str, placed: list, cfg) -> list:
+def f32_row(dev, say, s: int, launches: int, path: str) -> dict:
+    """The f32 kernel at ``s``^3 per launch (``f32_plan``'s tile) beside its
+    earlier design f32_edge (called past the wrapper), the plain version and
+    the library's one call, each checked against the plain version: one row
+    of the summary line, ``launches`` the main path's launches at ``s``."""
+    from repro_torch.core.hardware import H100_SXM_FP32
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels.blocked_matmul import blocked_matmul
+    from repro_torch.kernels.ref import ref_matmul
+    from repro_torch.measure.timers import kernel_ms
+
+    fns = bm._launcher()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(s)
+    a_ = torch.randn((s, s), generator=gen, device=dev)
+    b_ = torch.randn((s, s), generator=gen, device=dev)
+    k_ms = kernel_ms(lambda i: blocked_matmul(a_, b_), iters=20)
+    e_ms = kernel_ms(lambda i: edge_option(fns.base, a_, b_), iters=20)
+    p_ms = kernel_ms(lambda i: ref_matmul(a_, b_), iters=20)
+    lib_ms = kernel_ms(lambda i: torch.mm(a_, b_), iters=20)
+    got, want = blocked_matmul(a_, b_), ref_matmul(a_, b_)
+    err_abs, err = max_abs(got, want), rel_err(got, want)
+    check(err < TOL[torch.float32],
+          f"f32 blocked matmul disagrees at {s}^3: {err}")
+    e_err = rel_err(edge_option(fns.base, a_, b_), want)
+    check(e_err < TOL[torch.float32],
+          f"f32_edge blocked matmul disagrees at {s}^3: {e_err}")
+    tile = bm.f32_plan(s, s, s, n_sms)
+    flops, nbytes = 2.0 * s ** 3, 3.0 * 4 * s * s
+    b_ms, b_by = bound_of(flops, nbytes, H100_SXM_FP32)
+    say(f"  blocked_matmul f32 {s}^3 per launch: kernel ({tile.bm}x"
+        f"{tile.bn}) {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), "
+        f"earlier design f32_edge {e_ms:.4f} ms ({e_ms / k_ms:.2f}x the "
+        f"kernel), plain {p_ms:.4f} ms, library torch.mm fp32 (TF32 off) "
+        f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms "
+        f"({b_by}, h100_sxm_fp32), kernel at {100 * b_ms / k_ms:.1f}% of "
+        f"bound (f32_edge {100 * b_ms / e_ms:.1f}%); {launches} {path} "
+        f"launches; rel_err {err:.3e} (f32_edge {e_err:.3e})")
+    return {"path": path, "shape": [s, s, s], "dtype": "f32", "act": None,
+            "tile": [tile.bm, tile.bn], "launches": launches,
+            "kernel_ms": k_ms, "earlier_ms": e_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes}
+
+
+def calibrate(dev, say, card: str, placed: list, cfg) -> tuple:
     """The calibration path: ``default_suite(smoke=True)`` and the fp32
     GEMMs at ``CAL_BIG``, all through the blocked matmul's f32 kernel,
     fitted against ``h100_sxm_fp32`` into a registry entry in a temporary
@@ -474,20 +535,16 @@ def calibrate(dev, say, card: str, placed: list, cfg) -> list:
     the blocked matmul's launches by variant in the suite (read before the
     per-launch timing below) and the f32 kernel's summary rows, each size's
     launches counted from the suite's calls, with the earlier design's
-    time beside the kernel's."""
-    import tempfile
+    time beside the kernel's, and the calibration."""
     W, L = cfg.mlp_widths[0], len(cfg.mlp_widths)
 
     from repro_torch.core.hardware import (H100_SXM, H100_SXM_FP32,
                                            get_hardware)
     from repro_torch.core.ridgeline import WorkUnit, analyze
-    from repro_torch.kernels import blocked_matmul as bm
     from repro_torch.kernels.blocked_matmul import blocked_matmul
-    from repro_torch.kernels.ref import ref_matmul
     from repro_torch.measure import calibrate as cal
     from repro_torch.models.mlp_dlrm import analytic_work_unit
     from repro_torch.measure import microbench
-    from repro_torch.measure.timers import kernel_ms
 
     passes, r = 3, 9
     suite = microbench.default_suite(smoke=True, passes=passes, repeats=r,
@@ -541,42 +598,205 @@ def calibrate(dev, say, card: str, placed: list, cfg) -> list:
     # per launch at each size: the kernel (f32_plan's tile), its earlier
     # design f32_edge (the first fp32 kernel, called past the wrapper), the
     # plain version and the library's one call
-    fns = bm._launcher()
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = []
-    for s in microbench.SMOKE_MATMUL_SIZES + CAL_BIG:
-        gen = torch.Generator(device=dev).manual_seed(s)
-        a_ = torch.randn((s, s), generator=gen, device=dev)
-        b_ = torch.randn((s, s), generator=gen, device=dev)
-        k_ms = kernel_ms(lambda i: blocked_matmul(a_, b_), iters=20)
-        e_ms = kernel_ms(lambda i: edge_option(fns.base, a_, b_), iters=20)
-        p_ms = kernel_ms(lambda i: ref_matmul(a_, b_), iters=20)
-        lib_ms = kernel_ms(lambda i: torch.mm(a_, b_), iters=20)
-        got, want = blocked_matmul(a_, b_), ref_matmul(a_, b_)
-        err_abs, err = max_abs(got, want), rel_err(got, want)
-        check(err < TOL[torch.float32],
-              f"f32 blocked matmul disagrees at {s}^3: {err}")
-        e_err = rel_err(edge_option(fns.base, a_, b_), want)
-        check(e_err < TOL[torch.float32],
-              f"f32_edge blocked matmul disagrees at {s}^3: {e_err}")
-        tile = bm.f32_plan(s, s, s, n_sms)
-        flops, nbytes = 2.0 * s ** 3, 3.0 * 4 * s * s
-        b_ms, b_by = bound_of(flops, nbytes, H100_SXM_FP32)
-        rows.append({
-            "path": "calibrate", "shape": [s, s, s], "dtype": "f32",
-            "act": None, "tile": [tile.bm, tile.bn], "launches": calls[s],
-            "kernel_ms": k_ms, "earlier_ms": e_ms, "plain_ms": p_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes})
-        say(f"  blocked_matmul f32 {s}^3 per launch: kernel ({tile.bm}x"
-            f"{tile.bn}) {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), "
-            f"earlier design f32_edge {e_ms:.4f} ms ({e_ms / k_ms:.2f}x the "
-            f"kernel), plain {p_ms:.4f} ms, library torch.mm fp32 (TF32 off) "
-            f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms "
-            f"({b_by}, h100_sxm_fp32), kernel at {100 * b_ms / k_ms:.1f}% of "
-            f"bound (f32_edge {100 * b_ms / e_ms:.1f}%); {calls[s]} "
-            f"calibration launches; rel_err {err:.3e} (f32_edge {e_err:.3e})")
-    return launched, rows
+    rows = [f32_row(dev, say, s, calls[s], "calibrate")
+            for s in microbench.SMOKE_MATMUL_SIZES + CAL_BIG]
+    return launched, rows, calib
+
+
+def calibrate_cli(dev, say, tmp: str, phase_calib) -> tuple:
+    """The calibrate entry point at its full sizes on the card, traced:
+    ``repro_torch.measure.calibrate.main(["--out", <tmp>/calibration_torch,
+    "--figures", <tmp>/figures_torch])``, then its entry, cells, figures and
+    trace checked.  Every calibration GEMM must take one f32 launch; the
+    launches are counted from the trace's ``bench.matmul_*`` spans (a probe,
+    2 warmups and the timed repeats each).  Returns the launches by
+    variant, the f32 kernel's rows at the CLI's sizes, the fitted spec and
+    the entry's measurements."""
+    import xml.etree.ElementTree as ET
+
+    from repro_torch.core.hardware import H100_SXM_FP32, get_hardware
+    from repro_torch.core.report import load_reports
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels.blocked_matmul import blocked_matmul
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.measure import calibrate as cal
+    from repro_torch.measure.microbench import Measurement
+    from repro_torch.obs import trace
+
+    reg = os.path.join(tmp, "calibration_torch")
+    figs = os.path.join(tmp, "figures_torch")
+    tpath = os.path.join(tmp, "calibrate_trace.json")
+    tracer = trace.enable(tpath)
+    t0 = time.perf_counter()
+    try:
+        rc = cal.main(["--out", reg, "--figures", figs])
+    finally:
+        wall = time.perf_counter() - t0
+        trace.disable()
+    tracer.write()
+    check(rc == 0, f"the calibrate CLI returned {rc}")
+    launched = dict(blocked_matmul.launches_by_variant)
+
+    # the entry loads back, and refitting its measurements gives its spec
+    entry = cal.load_calibration_dict(H100_SXM_FP32.name + "_cal", reg)
+    fit = [Measurement.from_dict(d) for d in entry["measurements"]]
+    val = [Measurement.from_dict(d) for d in entry["validation_measurements"]]
+    calib = cal.fit_ceilings(fit, H100_SXM_FP32, validation=val)
+    spec = get_hardware(H100_SXM_FP32.name, calibrated=True,
+                        registry_dir=reg)
+    check(spec == calib.spec(), "the CLI's entry does not load back")
+
+    # the trace: valid, a bench span for every measurement, the fit's spans
+    summary = trace.validate_chrome_trace(tpath)
+    with open(tpath) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    names = {e["name"] for e in spans}
+    want = {"calibrate.suite", "calibrate.fit", "calibrate.fit.compute",
+            "calibrate.fit.memory", "calibrate.fit.efficiency"}
+    want |= {f"bench.{m.work.name}" for m in fit + val}
+    check(want <= names, f"trace lacks spans {sorted(want - names)}")
+    check(not summary["counters"].get("bench.retries"),
+          f"the CLI retried a bench: {summary['counters']}")
+    dur = {n: sum(e["dur"] for e in spans if e["name"] == n) / 1e3
+           for n in ("calibrate.suite", "calibrate.fit")}
+
+    # one f32 launch per GEMM call: probe + 2 warmups + repeats, per pass
+    calls = {}
+    for e in spans:
+        if e["name"].startswith("bench.matmul_"):
+            s = int(e["name"].split("_")[1].split("x")[0])
+            a = e["args"]
+            calls[s] = calls.get(s, 0) + 3 + a.get("repeats_clamped",
+                                                   a["repeats"])
+    check(launched == {**dict.fromkeys(bm.VARIANTS, 0),
+                       "f32": sum(calls.values())}
+          and flash_attention_bhsd.launches == 0,
+          f"the CLI's GEMMs must each launch the f32 kernel once: {launched}"
+          f" for {calls}")
+
+    # one measured cell per validation step, its error the calibration's
+    cells = {c.shape: c for c in load_reports(os.path.join(reg, "cells"))}
+    check(sorted(cells) == sorted(m.work.name for m in val),
+          f"cells {sorted(cells)} for steps {[m.work.name for m in val]}")
+    for m in val:
+        check(cells[m.work.name].measured_rel_error == calib.rel_error(m),
+              f"cell {m.work.name}: rel error differs from the calibration's")
+
+    # the figures: the SVG parses; a marker and a legend line for every
+    # measurement the plane can place (finite x = B_M / B_N: on one card no
+    # bench has wire bytes, so every point sits at x = inf, off the plane)
+    base = os.path.join(figs, f"calibration_{calib.name}")
+    with open(base + ".svg") as f:
+        svg = f.read()
+    root = ET.fromstring(svg)
+    ns = "{http://www.w3.org/2000/svg}"
+    marks = [c for c in root.iter(ns + "circle")
+             if c.get("class") == "measured"]
+    with open(base + ".txt") as f:
+        txt = f.read()
+    legend = [ln for ln in txt.splitlines() if ln.startswith("  [")]
+    placeable = [m for m in fit + val if m.work.net_bytes > 0]
+    check(len(marks) == len(legend) == len(placeable),
+          f"{len(marks)} markers, {len(legend)} legend lines for "
+          f"{len(placeable)} points on the plane")
+    check(len(root.findall(ns + "rect")) == 1 + 64 * 48
+          and len(root.findall(ns + "line")) == 2,
+          "the SVG lacks the plane's regions or ridges")
+    check(txt.endswith(calib.summary() + "\n"),
+          "the ASCII figure lacks the calibration summary")
+
+    say(f"calibrate CLI (full sizes, traced): rc {rc}, wall {wall:.2f} s; "
+        f"spans: calibrate.suite {dur['calibrate.suite']:.1f} ms, "
+        f"calibrate.fit {dur['calibrate.fit']:.3f} ms; "
+        f"{summary['n_spans']} spans, depth {summary['max_depth']}")
+    say(f"  fit: PEAK {calib.peak_flops / 1e12:.2f} TFLOP/s, HBM "
+        f"{calib.hbm_bw / 1e12:.3f} TB/s (the calibrate phase's, with 4096^3: "
+        f"PEAK {phase_calib.peak_flops / 1e12:.2f}, HBM "
+        f"{phase_calib.hbm_bw / 1e12:.3f}); validation "
+        + ", ".join(f"{n} {100 * e:+.1f}%"
+                    for n, e in calib.errors("validation").items()))
+    say(f"  wrote {sorted(os.listdir(reg))} + cells {sorted(cells)}; figures "
+        f"{sorted(os.listdir(figs))}: {len(placeable)} of "
+        f"{len(fit) + len(val)} measurements on the plane, the rest at "
+        f"x = inf (no wire bytes on one card)")
+    say(f"  f32 launches by GEMM size: {dict(sorted(calls.items()))}")
+    rows = [f32_row(dev, say, s, n, "calibrate_cli")
+            for s, n in sorted(calls.items())]
+    return launched, rows, calib, fit + val
+
+
+def ridgeline(say, tmp: str, points: list, fitted) -> None:
+    """Every measured point of the earlier phases as a ``CellReport`` on
+    ``h100_sxm`` and on the CLI's fitted spec, its host median attached.
+    At each point the paper's quadrant construction must classify as the
+    argmax of the times does on the spec's bandwidth-only plane (α = 0,
+    eff = 1: the theorem's premise; the datasheet spec is its own plane).
+    With the fitted α and eff(F) the times are the physical definition: the
+    points where they disagree with the plane are printed, not failed."""
+    import dataclasses
+    import xml.etree.ElementTree as ET
+
+    from repro_torch.core.hardware import H100_SXM, EfficiencyModel
+    from repro_torch.core.report import (StepCosts, make_cell_report,
+                                         roofline_table)
+    from repro_torch.core.ridgeline import (WorkUnit, ascii_plot,
+                                            classify_by_quadrant,
+                                            classify_by_times, svg_plot)
+    from repro_torch.measure.overlay import attach_measurement, measured_table
+
+    for spec in (H100_SXM, fitted):
+        plane = dataclasses.replace(
+            spec, alpha_compute=0.0, alpha_memory=0.0, alpha_network=0.0,
+            link_alphas={}, compute_eff=EfficiencyModel())
+        reports, off = [], []
+        for p in points:
+            costs = StepCosts(flops=p["flops"], mem_bytes=p["mem_bytes"],
+                              wire_bytes=p["wire_bytes"],
+                              wire_bytes_by_kind=p["by_kind"],
+                              peak_memory_per_device=p["peak"], num_devices=1)
+            rep = make_cell_report(
+                arch=p["arch"], shape=p["shape"], mesh=p["mesh"],
+                step_kind=p["kind"], costs=costs, hw=spec,
+                model_flops=p["flops"], params_total=p["params"],
+                params_active=p["params"], tokens_per_step=p["tokens"],
+                variant=p["variant"], notes=p["notes"])
+            attach_measurement(rep, p["seconds"], source=p["source"])
+            check(math.isfinite(rep.measured_rel_error) and rep.runtime > 0,
+                  f"{p['shape']} on {spec.name}: runtime {rep.runtime}")
+            w = WorkUnit(p["shape"], p["flops"], p["mem_bytes"],
+                         p["wire_bytes"])
+            q, t = classify_by_quadrant(w, plane), classify_by_times(w, plane)
+            check(q == t, f"{p['shape']} on {spec.name}'s plane: quadrant "
+                          f"{q.value}, times {t.value}")
+            if rep.bottleneck != q.value:
+                off.append(f"{p['shape']} ({p['variant']}): plane {q.value}, "
+                           f"times {rep.bottleneck}")
+            reports.append(rep)
+        say(f"{len(reports)} points on {spec.name}: classify_by_quadrant == "
+            f"classify_by_times on its plane at every point; the alpha-aware "
+            f"times disagree with the plane at {len(off)}"
+            + (": " + "; ".join(off) if off else ""))
+        print(roofline_table(reports))
+        print(measured_table(reports))
+        main_paths = [r for r, p in zip(reports, points) if p["main"]]
+        analyses = [r.analysis(spec) for r in main_paths]
+        notes = {a.work.name: f"meas {r.measured_runtime * 1e3:.3f}ms "
+                              f"({r.measured_rel_error:+.0%})"
+                 for a, r in zip(analyses, main_paths)}
+        print(ascii_plot(analyses, spec, point_notes=notes))
+        on_plane = [a for a in analyses if 0 < a.x < math.inf]
+        svg = svg_plot(analyses, spec, width=880, height=560,
+                       point_notes=notes)
+        path = os.path.join(tmp, f"ridgeline_{spec.name}.svg")
+        with open(path, "w") as f:
+            f.write(svg)
+        marks = [c for c in ET.fromstring(svg).iter(
+            "{http://www.w3.org/2000/svg}circle")]
+        check(len(marks) == len(on_plane),
+              f"{len(marks)} markers for {len(on_plane)} points on the plane")
+        say(f"wrote {os.path.basename(path)}: {len(on_plane)} of "
+            f"{len(analyses)} main-path points on the plane (the forwards "
+            f"have no wire bytes: x = inf)")
 
 
 def main() -> int:
@@ -748,6 +968,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.convert import mlp_params_from_numpy
     from repro_torch.models import mlp_dlrm
+    from repro_torch.tree import tree_leaves
 
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_config("dlrm-mlp").replace(use_kernel_matmul=True)
@@ -801,6 +1022,8 @@ def main() -> int:
 
     cast_ms = kernel_ms(casts, iters=10)
     per_batch = []
+    # every measured point of the main paths, for the ridgeline phase
+    points = []
     for B in BATCHES:
         h = feats[B].to(dt)
         # rotate through the 8 layers' weights, as the forward does, so no
@@ -831,6 +1054,13 @@ def main() -> int:
         fwd_bytes = L * layer_bytes + L * 6.0 * (W * W + W)  # + fp32->bf16 casts
         whole = analyze(WorkUnit(f"forward_b{B}", fwd_flops, fwd_bytes, 0.0),
                         H100_SXM)
+        points.append({
+            "arch": "dlrm-mlp", "shape": f"serve_b{B}", "mesh": "1",
+            "kind": "serve_step", "variant": "kernel", "flops": fwd_flops,
+            "mem_bytes": fwd_bytes, "wire_bytes": 0.0, "by_kind": {},
+            "tokens": float(B), "seconds": fwd.median, "main": True,
+            "source": "chip_smoke mlp_serve host median",
+            "notes": "the forward through the sm90 kernel"})
         per_batch.append({
             "path": "mlp_serve", "shape": [B, W, W], "act": "relu",
             "launches": L, "kernel_ms": k_ms, "plain_ms": p_ms,
@@ -854,6 +1084,9 @@ def main() -> int:
             f"of bound; weight cast {cast_ms:.4f} ms = "
             f"{100 * cast_ms / fwd_ev:.1f}% of the forward")
     peak = torch.cuda.max_memory_allocated(dev)
+    mlp_params = float(sum(x.numel() for x in tree_leaves(params)))
+    for p in points:
+        p.update(peak=float(peak), params=mlp_params)
     say(f"peak memory allocated {peak / 1e9:.3f} GB; weight casts "
         f"{cast_ms:.4f} ms per forward (bound "
         f"{L * 6.0 * (W * W + W) / H100_SXM.hbm_bw * 1e3:.4f} ms)")
@@ -959,6 +1192,14 @@ def main() -> int:
     lm_bytes = 4.0 * n_params + 2.0 * T * V + 8.0 * T
     lm_bound = analyze(WorkUnit(f"smollm_prefill_b{B0}_s{S0}", lm_flops,
                                 lm_bytes, 0.0), H100_SXM)
+    points.append({
+        "arch": "smollm-135m", "shape": f"prefill_b{B0}_s{S0}", "mesh": "1",
+        "kind": "prefill", "variant": "use_flash", "flops": lm_flops,
+        "mem_bytes": lm_bytes, "wire_bytes": 0.0, "by_kind": {},
+        "peak": float(lm_peak), "params": float(n_params), "tokens": float(T),
+        "seconds": lm_fwd.median, "main": True,
+        "source": "chip_smoke lm_prefill host median",
+        "notes": "least bytes: params once, logits written"})
     say(f"  B={B0} S={S0} forward (use_flash): host median "
         f"{lm_fwd.median * 1e3:.4f} ms, p90 {lm_p90 * 1e3:.4f} ms "
         f"(n={len(lm_fwd.samples)}), {T / lm_fwd.median:.0f} tokens/s; card "
@@ -1093,13 +1334,35 @@ def main() -> int:
     check(blocked_matmul.launches == 0 and flash_attention_bhsd.launches == 0,
           "the train step reached a forward-only kernel")
 
+    # the steps on the paper's data-parallel plane: the grads' ring
+    # all-reduce at the paper's large-n asymptote (2 x their bytes, as
+    # benchmarks/paper_case_study.py prices it); the step measured on one
+    # card runs without it
+    from repro_torch.distributed import collectives
+    from repro_torch.models.mlp_dlrm import analytic_work_unit
+    wire = float(collectives.all_reduce(4.0 * mlp_params, math.inf,
+                                        "ring").wire_bytes)
+    for B, work, host_s in placed:
+        for variant, f_, m_, n_ in (
+                ("counted", work.flops, work.mem_bytes, wire),
+                ("paper_6bw2l", *analytic_work_unit(B, W, L))):
+            points.append({
+                "arch": "dlrm-mlp", "mesh": "dp",
+                "shape": f"train_b{B}" + ("" if variant == "counted" else "_paper"),
+                "kind": "train_step", "variant": variant, "flops": f_,
+                "mem_bytes": m_, "wire_bytes": n_,
+                "by_kind": {"all-reduce": n_}, "peak": 0.0,
+                "params": mlp_params, "tokens": float(B), "seconds": host_s,
+                "main": True, "source": "chip_smoke mlp_train host median",
+                "notes": "one card, no all-reduce in the measured step"})
+
     # ---- 8. calibrate: the fourth main path -------------------------------------
     phase("calibrate")
     blocked_matmul.launches = 0
     blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
     flash_attention_bhsd.launches = 0
-    cal_variants, f32_rows = calibrate(dev, say, card, placed,
-                                       get_config("dlrm-mlp"))
+    cal_variants, f32_rows, cal_calib = calibrate(dev, say, card, placed,
+                                                  get_config("dlrm-mlp"))
     cal_launches = sum(r["launches"] for r in f32_rows)
     say(f"blocked_matmul launches during calibrate, by variant: "
         f"{cal_variants} (the suite's GEMMs: {cal_launches})")
@@ -1108,7 +1371,32 @@ def main() -> int:
           f"the calibration GEMMs must each launch the f32 kernel once: "
           f"{cal_variants}")
 
-    # ---- 9. tile_options ------------------------------------------------------
+    # ---- 9. calibrate_cli: the fifth main path ---------------------------------
+    phase("calibrate_cli")
+    tmp = tempfile.TemporaryDirectory()
+    blocked_matmul.launches = 0
+    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
+    flash_attention_bhsd.launches = 0
+    cli_variants, cli_rows, cli_calib, cli_ms = calibrate_cli(
+        dev, say, tmp.name, cal_calib)
+    cli_launches = sum(r["launches"] for r in cli_rows)
+
+    # ---- 10. ridgeline: every main path's points on the plane -------------------
+    phase("ridgeline")
+    for m in cli_ms:
+        points.append({
+            "arch": dict(m.meta).get("arch", "microbench"),
+            "shape": m.work.name, "mesh": "1", "kind": m.category,
+            "variant": "measured", "flops": m.work.flops,
+            "mem_bytes": m.work.mem_bytes, "wire_bytes": m.work.net_bytes,
+            "by_kind": {}, "peak": 0.0, "params": 0.0, "tokens": 0.0,
+            "seconds": m.seconds, "main": False,
+            "source": "calibrate_cli host median",
+            "notes": "calibration measurement"})
+    ridgeline(say, tmp.name, points, cli_calib.spec())
+    tmp.cleanup()
+
+    # ---- 11. tile_options -----------------------------------------------------
     phase("tile_options")
     # the sm90 kernel at every main-path shape under each tile width and
     # order, beside tile_plan's choice (PERF.md reads the rule off these);
@@ -1137,7 +1425,7 @@ def main() -> int:
             + ", ".join(f"{tuple(p)} {t:.4f}" for t, p in timed))
     del a_, bs_
 
-    # ---- 10. f32_options ------------------------------------------------------
+    # ---- 12. f32_options ------------------------------------------------------
     phase("f32_options")
     # the f32 kernel at every calibration size under each tile, beside
     # f32_plan's choice (PERF.md reads the rule off these)
@@ -1155,7 +1443,7 @@ def main() -> int:
             + ", ".join(f"{t.bm}x{t.bn} {ms:.4f}" for t, ms in timed.items()))
     del a_, b_
 
-    # ---- 11. microbench -------------------------------------------------------
+    # ---- 13. microbench -------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
     # tensor-map encoding, ctypes call), enqueue only, beside one torch call
@@ -1223,10 +1511,11 @@ def main() -> int:
         entry("blocked_matmul",
               "src/repro_torch/kernels/csrc/blocked_matmul.cu",
               "src/repro/kernels/blocked_matmul.py:57",
-              main_launches + lm_launches["blocked_matmul"] + cal_launches,
-              per_batch + ffn_rows + f32_rows,
+              main_launches + lm_launches["blocked_matmul"] + cal_launches
+              + cli_launches,
+              per_batch + ffn_rows + f32_rows + cli_rows,
               {v: mlp_variants[v] + lm_variants[v] + cal_variants[v]
-               for v in bm.VARIANTS}),
+               + cli_variants[v] for v in bm.VARIANTS}),
         entry("flash_attention_bhsd",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",

@@ -29,8 +29,13 @@ CLI (the card; ``--device cpu`` runs the plain versions on the CPU)::
     python -m repro_torch.measure.calibrate --smoke --device cpu --out DIR
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank measures, the
-all-reduces included, and rank 0 fits and writes.  The overlay figures
-and per-cell reports of the reference wait for a later slice.
+all-reduces included, and rank 0 fits and writes.  As the reference's, the
+CLI then writes one measured ``CellReport`` per validation step under
+``<registry dir>/cells/`` and, when ``--figures`` is given or ``--out`` is
+not, the calibrated plane's figures ``calibration_<name>.svg`` and
+``.txt`` (``measure/overlay``; default directory ``figures_torch/`` beside
+the registry: ``artifacts/figures_torch/``).  The suite and the fit run
+under the reference's trace spans (``obs/trace``; ``REPRO_TORCH_TRACE``).
 """
 from __future__ import annotations
 
@@ -39,12 +44,7 @@ import functools
 import json
 import math
 import os
-import platform
-import socket
-import subprocess
 import sys
-from datetime import datetime, timezone
-from importlib import metadata
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -55,43 +55,8 @@ from repro_torch.core.hardware import (CALIBRATED_SUFFIX, CALIBRATION_SCHEMA,
                                        calibration_dir, get_hardware)
 from repro_torch.core.ridgeline import resource_times
 from repro_torch.measure.microbench import Measurement
-
-
-def _git_sha() -> Optional[str]:
-    try:
-        out = subprocess.run(
-            ["git", "rev-parse", "HEAD"],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=5)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    sha = out.stdout.strip()
-    return sha if out.returncode == 0 and sha else None
-
-
-def _dist_version(name: str) -> Optional[str]:
-    try:
-        return metadata.version(name)
-    except metadata.PackageNotFoundError:
-        return None
-
-
-def provenance() -> Dict[str, Optional[str]]:
-    """Who, what and when produced a calibration: the reference's record
-    with ``torch`` and the device in place of ``jax``."""
-    return {
-        "git_sha": _git_sha(),
-        "hostname": socket.gethostname(),
-        "wall_clock_utc": datetime.now(timezone.utc).isoformat(
-            timespec="seconds"),
-        "python": platform.python_version(),
-        "platform": platform.platform(),
-        "numpy": _dist_version("numpy"),
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "device": (torch.cuda.get_device_name(0)
-                   if torch.cuda.is_available() else "cpu"),
-    }
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import provenance
 
 
 _RESOURCES = ("peak_flops", "hbm_bw", "net_bw")
@@ -557,8 +522,10 @@ def fit_ceilings(measurements: Sequence[Measurement],
                for m in measurements if groups.get(m.category) == r]
         by_resource[r] = pts
         if pts:
-            params.alphas[r], params.peaks[r] = \
-                _fit_alpha_beta(pts, params.peaks[r])
+            with trace.span(f"calibrate.fit.{('compute', 'memory')[r]}",
+                            n_points=len(pts)):
+                params.alphas[r], params.peaks[r] = \
+                    _fit_alpha_beta(pts, params.peaks[r])
             fitted[r] = True
     # compute only: also try the size-dependent efficiency ceiling and keep
     # whichever model (constant intercept vs saturating curve) prices the
@@ -566,7 +533,11 @@ def fit_ceilings(measurements: Sequence[Measurement],
     # synthetic α–β suites — and any spec that is genuinely latency-plus-
     # constant-ceiling — are reproduced unchanged
     cpts = by_resource[0]
-    eff_fit = _fit_efficiency(cpts) if cpts else None
+    if cpts:
+        with trace.span("calibrate.fit.efficiency", n_points=len(cpts)):
+            eff_fit = _fit_efficiency(cpts)
+    else:
+        eff_fit = None
     if eff_fit is not None:
         peak_eff, eff_model = eff_fit
         sse_ab = _sse(cpts, lambda u, q, a=params.alphas[0],
@@ -586,16 +557,18 @@ def fit_ceilings(measurements: Sequence[Measurement],
         by_link.setdefault(tag, []).append(
             (m.work.net_steps, m.work.net_bytes, _observed(m, estimator)))
     for tag, pts in by_link.items():
-        if tag is None:
-            params.alphas[2], params.peaks[2] = \
-                _fit_alpha_beta(pts, params.peaks[2])
-            fitted[2] = True
-        else:
-            prior = params.link_bws.get(tag, params.peaks[2])
-            alpha, bw = _fit_alpha_beta(pts, prior)
-            params.link_alphas[tag] = alpha
-            params.link_bws[tag] = bw
-            measured_links.add(tag)
+        with trace.span("calibrate.fit.network",
+                        link=tag or "primary", n_points=len(pts)):
+            if tag is None:
+                params.alphas[2], params.peaks[2] = \
+                    _fit_alpha_beta(pts, params.peaks[2])
+                fitted[2] = True
+            else:
+                prior = params.link_bws.get(tag, params.peaks[2])
+                alpha, bw = _fit_alpha_beta(pts, prior)
+                params.link_alphas[tag] = alpha
+                params.link_bws[tag] = bw
+                measured_links.add(tag)
     iterations = 1
     sources = {res: ("measured" if fitted[r] else "datasheet")
                for r, res in enumerate(_RESOURCES)}
@@ -671,6 +644,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="registry directory (default "
                          "$REPRO_TORCH_CALIBRATION_DIR, else "
                          "artifacts/calibration_torch)")
+    ap.add_argument("--figures", default=None,
+                    help="also write overlay figures to this directory "
+                         "(written anyway without --out, to figures_torch/ "
+                         "beside the registry)")
     args = ap.parse_args(argv)
 
     try:
@@ -686,10 +663,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from repro_torch.measure import microbench
     device = _init_ranks(args.device)
     rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
     try:
-        suite = microbench.default_suite(
-            smoke=args.smoke, repeats=args.repeats, steps=not args.no_steps,
-            device=device)
+        with trace.span("calibrate.suite", smoke=args.smoke, devices=world):
+            suite = microbench.default_suite(
+                smoke=args.smoke, repeats=args.repeats,
+                steps=not args.no_steps, device=device)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -701,13 +680,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("note: one rank -> no collective benches; NET ceiling stays "
               "datasheet (run under torchrun with 2+ ranks)",
               file=sys.stderr)
-    calib = fit_ceilings(fit, base, name=args.name, validation=steps,
-                         estimator=args.estimator)
+    with trace.span("calibrate.fit", n_fit=len(fit),
+                    n_validation=len(steps)):
+        calib = fit_ceilings(fit, base, name=args.name, validation=steps,
+                             estimator=args.estimator)
     path = calib.save(args.out)
     print(calib.summary())
     print(f"wrote {path}")
-    print("no figures written: the overlay figures and cell reports wait for "
-          "a later slice (ROADMAP Queue 1 item 5)")
+
+    from repro_torch.measure import overlay
+    for p in overlay.write_measured_cells(calib, registry_dir=args.out):
+        print(f"wrote {p}")
+    if args.figures or not args.out:
+        # the port's own sibling of the registry: the reference's default,
+        # figures/, is the JAX package's committed artifacts/figures/
+        figdir = args.figures or os.path.join(
+            os.path.dirname(calibration_dir(args.out)), "figures_torch")
+        for p in overlay.write_calibration_figs(figdir, calib):
+            print(f"wrote {p}")
     return 0
 
 

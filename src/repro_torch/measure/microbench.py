@@ -39,6 +39,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.measure.timers import (TimingStats, _synchronizer,
                                         time_callable)
+from repro_torch.obs import trace
 
 #: bench categories, as in the reference (calibration splits on them)
 CATEGORIES = ("compute", "memory", "network", "step")
@@ -146,13 +147,16 @@ _TRANSIENT = (RuntimeError, OSError, MemoryError)
 
 def _guarded_stats(name: str, fn, dev: torch.device, *, repeats: int,
                    warmup: int, retries: int = _BENCH_RETRIES,
-                   timeout_s: float = _BENCH_TIMEOUT_S) -> TimingStats:
+                   timeout_s: float = _BENCH_TIMEOUT_S,
+                   span=None) -> TimingStats:
     """``time_callable`` with bounded retry and a per-bench budget.
 
     A timed probe call (synchronised; it doubles as warmup) projects the
     cost of the ``warmup + repeats`` run, and the repeats are clamped so
     the bench fits ``timeout_s``.  The guard cannot interrupt a hung
-    kernel.
+    kernel.  A clamp or a retry bumps the trace counters
+    ``bench.repeats_clamped`` / ``bench.retries``, and a clamp is noted on
+    the bench's ``span``.
     """
     sync = _synchronizer(dev)
     for attempt in range(retries + 1):
@@ -164,10 +168,14 @@ def _guarded_stats(name: str, fn, dev: torch.device, *, repeats: int,
             r = repeats
             if timeout_s > 0 and probe_s * (warmup + repeats) > timeout_s:
                 r = max(1, int(timeout_s / probe_s) - warmup)
+                trace.count("bench.repeats_clamped", 1)
+                if span is not None:
+                    span.set(repeats_clamped=r, probe_s=probe_s)
             return time_callable(fn, device=dev, repeats=r, warmup=warmup)
         except _TRANSIENT:  # noqa: PERF203
             if attempt >= retries:
                 raise
+            trace.count("bench.retries", 1)
             jitter = 1.0 + 0.1 * ((zlib.crc32(name.encode()) % 256) / 255.0
                                   - 0.5)
             time.sleep(_BENCH_BACKOFF_S * 2.0 ** attempt * jitter)
@@ -177,8 +185,13 @@ def _guarded_stats(name: str, fn, dev: torch.device, *, repeats: int,
 def _measure(fn, work: WorkUnit, category: str, dev: torch.device, *,
              repeats: int, meta: Tuple[Tuple[str, str], ...] = (),
              **guard) -> Measurement:
-    stats = _guarded_stats(work.name, fn, dev, repeats=repeats, warmup=2,
-                           **guard)
+    # one span a bench (never a repeat): meta keys ("link", "via") become
+    # span args, so a calibration trace shows where the suite spent time
+    with trace.span(f"bench.{work.name}", category=category,
+                    repeats=repeats, **dict(meta)) as sp:
+        stats = _guarded_stats(work.name, fn, dev, repeats=repeats, warmup=2,
+                               span=sp, **guard)
+        sp.set(median_s=stats.median, best_s=stats.best)
     return Measurement(work=work, seconds=stats.median,
                        best_seconds=stats.best, category=category,
                        rel_spread=stats.rel_spread, backend=backend_name(dev),
@@ -313,8 +326,10 @@ def train_step_bench(batch: int = 64, width: int = 256, layers: int = 3, *,
     name = f"train_step_mlp_b{batch}_w{width}x{layers}"
     with _ieee_fp32():
         flops, mem_bytes = counters.count(step, state, batch_arrs)
-        stats = _guarded_stats(name, lambda: step(state, batch_arrs), dev,
-                               repeats=repeats, warmup=2)
+        with trace.span(f"bench.{name}", category="step",
+                        kind="train_step", repeats=repeats) as sp:
+            stats = _guarded_stats(name, lambda: step(state, batch_arrs),
+                                   dev, repeats=repeats, warmup=2, span=sp)
     return Measurement(work=WorkUnit(name, flops, mem_bytes, 0.0),
                        seconds=stats.median, category="step",
                        rel_spread=stats.rel_spread, backend=backend_name(dev),
@@ -395,4 +410,8 @@ def default_suite(*, smoke: bool = True, repeats: Optional[int] = None,
             repeats=r, device=dev)
         return out
 
-    return merge_passes([one_pass() for _ in range(max(passes, 1))])
+    results = []
+    for p in range(max(passes, 1)):
+        with trace.span("bench.suite_pass", index=p, smoke=smoke):
+            results.append(one_pass())
+    return merge_passes(results)

@@ -28,6 +28,7 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike
 from repro_torch.models import mlp_dlrm as mlp_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import trace
 from repro_torch.optim.optimizer import apply_updates, global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -140,11 +141,13 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
     """Params from ``generator`` (``init_mlp``), a fresh optimizer state and
     step 0 on ``device`` (None: the card)."""
     _mlp_only(cfg, "the train state")
-    params = mlp_mod.init_mlp(cfg, generator, device=device)
-    return TrainState(params=params, opt_state=optimizer.init(params),
-                      step=torch.zeros((), dtype=torch.int32,
-                                       device=tree_leaves(params)[0].device),
-                      rng=generator)
+    with trace.span("train.init_state", arch=cfg.name, family=cfg.family):
+        params = mlp_mod.init_mlp(cfg, generator, device=device)
+        return TrainState(
+            params=params, opt_state=optimizer.init(params),
+            step=torch.zeros((), dtype=torch.int32,
+                             device=tree_leaves(params)[0].device),
+            rng=generator)
 
 
 def model_param_specs(cfg: ModelConfig):

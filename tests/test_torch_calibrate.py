@@ -215,14 +215,23 @@ def test_cli_fits_and_writes(tmp_path, monkeypatch, capsys):
         microbench, "default_suite",
         lambda **kw: [microbench.Measurement.from_dict(r) for r in recs])
     assert calibrate.main(["--device", "cpu", "--smoke", "--out",
-                           str(tmp_path)]) == 0
+                           str(tmp_path), "--figures",
+                           str(tmp_path / "figs")]) == 0
     out = capsys.readouterr()
-    assert "h100_sxm_fp32_cal" in out.out and "no figures written" in out.out
     assert "NET ceiling stays datasheet" in out.err
     d = json.loads((tmp_path / "h100_sxm_fp32_cal.json").read_text())
     assert d["base"] == "h100_sxm_fp32"
     assert d["sources"]["net_bw"] == "datasheet"
     assert d["validation"]["n"] == 2
+    cells = sorted((tmp_path / "cells").iterdir())
+    figs = sorted((tmp_path / "figs").iterdir())
+    assert [p.name for p in cells] == [
+        "train_step_a__train_step_a__1__measured.json",
+        "train_step_b__train_step_b__1__measured.json"]
+    assert [p.name for p in figs] == ["calibration_h100_sxm_fp32_cal.svg",
+                                      "calibration_h100_sxm_fp32_cal.txt"]
+    for p in [tmp_path / "h100_sxm_fp32_cal.json"] + cells + figs:
+        assert f"wrote {p}" in out.out
     assert calibrate.main(["--hardware", "tpu_v5e", "--out",
                            str(tmp_path)]) == 2
     assert calibrate.main(["--name", "h100_sxm", "--out",

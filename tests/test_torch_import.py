@@ -43,7 +43,12 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
     assert {"repro_torch.tree", "repro_torch.optim.optimizer",
             "repro_torch.train.loop", "repro_torch.distributed.collectives",
             "repro_torch.measure.counters",
-            "repro_torch.measure.calibrate"} <= set(probe["names"])
+            "repro_torch.measure.calibrate", "repro_torch.measure.overlay",
+            "repro_torch.obs", "repro_torch.obs.trace",
+            "repro_torch.obs.metrics", "repro_torch.obs.__main__",
+            "repro_torch.core.ridgeline", "repro_torch.core.roofline",
+            "repro_torch.core.report",
+            "repro_torch.core.sweep"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 
