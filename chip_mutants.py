@@ -39,9 +39,11 @@ kernel first.  A flash mutant is held to the kernel alone at the
 smollm-135m prefill shape (8, 2048, 9/3 heads, dh 64, bf16) and to the
 whole prefill forward at (8, 2048) (``row_rel_err`` against FLASH_TOL and
 LM_TOL).  An sm90 GEMM mutant is held to the kernel alone
-at the six main-path shapes (``rel_err`` against TOL) and to the logits of
-the dlrm-mlp forward at B = 256 and 4096 (LOGIT_TOL) and of the prefill
-forward at (8, 2048) with ``use_kernel_matmul`` (LM_TOL).  An f32 mutant is
+at the ten main-path shapes, the decode's four included (``rel_err``
+against TOL), and to the logits of the dlrm-mlp forward at B = 256 and 4096
+(LOGIT_TOL), of the prefill forward at (8, 2048) with ``use_kernel_matmul``
+(LM_TOL) and of DECODE_STEPS teacher-forced decode steps at B = 8 with it
+(DECODE_TOL).  An f32 mutant is
 held to chip_smoke.py's fp32 checks: the fp32 parity shapes that take the
 f32 kernel and the calibration sizes (``rel_err`` against TOL).
 
@@ -93,6 +95,10 @@ import numpy as np
 import torch
 
 import chip_smoke as smoke     # also puts src/ on sys.path
+
+#: teacher-forced decode steps (B = 8, cache 2048) an sm90 GEMM mutant's
+#: logits are held to the prefill's over (DECODE_TOL)
+DECODE_STEPS = 32
 
 #: the f32 GEMM's planted faults (names start "f32_": they are held to the
 #: fp32 checks, the others to the sm90 ones)
@@ -624,13 +630,15 @@ def main() -> int:
             print(json.dumps(row), flush=True)
             ok &= err < smoke.FLASH_TOL[bf16]
 
-    # the sm90 GEMM: its six main-path shapes (M, K, N, act, bias), the
-    # dlrm-mlp forward and the prefill forward with use_kernel_matmul
+    # the sm90 GEMM: its ten main-path shapes (M, K, N, act, bias), the
+    # dlrm-mlp forward, the prefill forward and decode with use_kernel_matmul
     W = 4096
     d, f = cfg.d_model, cfg.d_ff
     shapes = [(256, W, W, "relu", True), (1024, W, W, "relu", True),
               (4096, W, W, "relu", True), (B * S, d, f, "silu", False),
-              (B * S, d, f, None, False), (B * S, f, d, None, False)]
+              (B * S, d, f, None, False), (B * S, f, d, None, False),
+              *((M, K, N, act, False) for M in smoke.DECODE_TIMED
+                for K, N, act in ((d, f, "silu"), (f, d, None)))]
     operands = []
     for M, K, N, act, has_bias in shapes:
         a = torch.randn((M, K), generator=gen, device=dev).to(bf16)
@@ -647,6 +655,16 @@ def main() -> int:
                                     mlp_cfg.replace(use_kernel_matmul=False))
                 for n, x in feats.items()}
     lm_kmm = cfg.replace(use_kernel_matmul=True)
+
+    def decode_logits() -> torch.Tensor:
+        """DECODE_STEPS teacher-forced decode steps of the token batch
+        through lm_kmm, the logits of each (B, steps, V)."""
+        cache = transformer.init_cache(lm_kmm, B, smoke.DECODE_MAX,
+                                       device=dev)
+        with torch.no_grad():
+            return torch.cat([transformer.decode_step(
+                params, tokens[:, t:t + 1], cache, t, lm_kmm)[0]
+                for t in range(DECODE_STEPS)], dim=1)
 
     real_launcher = bm._launcher
     try:
@@ -666,18 +684,24 @@ def main() -> int:
             mlp_errs = [smoke.rel_err(mlp_dlrm.forward(mlp_params, x, mlp_cfg),
                                       want_mlp[n]) for n, x in feats.items()]
             logits = transformer.forward(params, tokens, lm_kmm)[0]
+            dec_err = smoke.row_rel_err(decode_logits(),
+                                        want_lm[:, :DECODE_STEPS])
             row = {
                 "kernel": name, "source": "blocked_matmul",
                 "shapes": [list(sh[:4]) for sh in shapes],
                 "kernel_rel_err": errs, "kernel_tol": smoke.TOL[bf16],
                 "mlp_logits_rel_err": mlp_errs, "mlp_tol": smoke.LOGIT_TOL,
                 "lm_logits_row_rel_err": smoke.row_rel_err(logits, want_lm),
-                "lm_tol": smoke.LM_TOL, "card": card}
+                "lm_tol": smoke.LM_TOL,
+                "decode_logits_row_rel_err": dec_err,
+                "decode_tol": smoke.DECODE_TOL[bf16],
+                "decode_steps": DECODE_STEPS, "card": card}
             row["caught"] = [max(errs) >= smoke.TOL[bf16],
                              max(mlp_errs) >= smoke.LOGIT_TOL,
-                             row["lm_logits_row_rel_err"] >= smoke.LM_TOL]
+                             row["lm_logits_row_rel_err"] >= smoke.LM_TOL,
+                             dec_err >= smoke.DECODE_TOL[bf16]]
             print(json.dumps(row), flush=True)
-            ok &= (row["caught"] == [False] * 3 if name == "real"
+            ok &= (row["caught"] == [False] * 4 if name == "real"
                    else row["caught"][0])
             del got, logits
     finally:

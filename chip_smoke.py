@@ -17,6 +17,15 @@ after:
               (its Hopper variant, sm90: TMA K/V ring, wgmma, the softmax
               under the products), and (8, 2048) once more with the FFN
               products in the blocked matmul kernel too;
+  lm_decode   the same smollm-135m serving the (8, 2048) batch one token a
+              step against a KV cache of 2048 (``decode_step``), the FFN
+              products of every step in the blocked matmul (sm90 at 8 and 64
+              rows): 512 steps teacher-forced against the prefill's logits,
+              greedy generation through ``serve.engine.greedy_generate``
+              with every generated token held to the plain path's logits,
+              and the step timed, profiled and counted at B = 8 and 64;
+              then, as a path of its own (lm_decode_fp32), 64 of the steps
+              again in fp32 (the f32 kernel);
   mlp_train   the full tower trained (bf16 compute, fp32 params, AdamW with
               warmup-cosine): the loss falls over 20 steps at B = 1024,
               bf16 grads agree with fp32 grads, three fp32 steps on the card
@@ -27,28 +36,32 @@ after:
   calibrate   the smoke calibration suite (fp32 GEMMs through the blocked
               matmul's f32 kernel: a cp.async K ring, 16-byte fragment
               reads, the tile ``f32_plan`` picks; saxpy streams, two train
-              steps) and fp32 GEMMs at 2048 and 4096, fitted into
+              steps and a reduced smollm decode step, the validation points)
+              and fp32 GEMMs at 2048 and 4096, fitted into
               achievable ceilings against h100_sxm_fp32 (a registry entry
               in a temporary directory); the train steps placed on the
               datasheet and the fitted plane;
   calibrate_cli
               the calibrate entry point (``measure/calibrate.main``) at its
-              full sizes (GEMMs 64^3 to 2048^3 through the f32 kernel),
+              full sizes (GEMMs 64^3 to 2048^3 through the f32 kernel,
+              four validation points),
               traced by the port's span tracer: its registry entry loads
               back, one measured cell per validation step, the calibrated
               plane's SVG and ASCII figures, a valid trace with a span per
               bench and the fit's spans;
   ridgeline   every measured point of the paths above (the tower's forwards,
-              the prefill, the train steps counted and in the paper's
+              the prefill, the decode steps, the train steps counted and in
+              the paper's
               6BW^2L accounting with the grads' all-reduce, the CLI's
               measurements) as a cell report on h100_sxm and on the CLI's
               fitted spec, its host median attached; the paper's quadrant
               construction must classify each point as the times do on the
               spec's bandwidth-only plane; the tables and the plane printed.
 
-Every blocked-matmul and flash-attention launch of the first two paths must
-take the sm90 variant, every calibration GEMM the f32 variant (the wrappers
-count launches by variant).  It times the paths, places them on the
+Every blocked-matmul and flash-attention launch of the first three paths
+must take the sm90 variant (the decode's fp32 check the f32 variant, and no
+decode step any flash launch), every calibration GEMM the f32 variant (the
+wrappers count launches by variant).  It times the paths, places them on the
 Ridgeline plane of the H100 datasheet spec, times the flash kernel's
 earlier mma design beside the sm90 kernel at every prefill shape, the f32
 GEMM's earlier design (f32_edge) beside it at every calibration size, the
@@ -87,13 +100,18 @@ BATCHES = (256, 1024, 4096)
 #: and K = 8 (one k-step, fewer than the ring's stages); 96 tiles (< 132
 #: SMs) and 320 (not a multiple of 132).  fp32 takes the f32 kernel but at
 #: (1, 4100, 17) (N % 4 != 0: f32_edge); its 64x128 tile at the first three,
-#: (1000, 576, 1536), (1000, 1536, 576) and the last two, its 32x64 tile at
+#: (1000, 576, 1536), (1000, 1536, 576), (3000, 1024, 1000) and (5000, 512,
+#: 2048), its 32x64 tile at
 #: (300, 700, 520) (K 700: a ragged last K tile), (1, 4096, 4096), (300, 64,
-#: 8) (N narrower than a tile) and (130, 8, 520) (K shorter than one stage)
+#: 8) (N narrower than a tile) and (130, 8, 520) (K shorter than one stage).
+#: The last four are the smollm-135m decode's FFN products at B = 8 and 64:
+#: one M tile of 8 or 64 rows (sm90; f32's 32x64 tile)
 PARITY_SHAPES = ((4096, 4096, 4096), (256, 4096, 4096), (1000, 4096, 3000),
                  (300, 700, 520), (1, 4100, 17), (1000, 576, 1536),
                  (1, 4096, 4096), (1000, 1536, 576), (300, 64, 8),
-                 (130, 8, 520), (3000, 1024, 1000), (5000, 512, 2048))
+                 (130, 8, 520), (3000, 1024, 1000), (5000, 512, 2048),
+                 (8, 576, 1536), (8, 1536, 576), (64, 576, 1536),
+                 (64, 1536, 576))
 ACTS = (None, "relu", "relu2", "silu", "gelu")
 #: rel error = max|got - want| / max|want|.  fp32: IEEE FMAs in another
 #: summation order than cuBLAS; bf16: one rounding of the output (the
@@ -132,6 +150,26 @@ PREFILL = ((8, 2048), (1, 2048), (4, 1000))
 #: planted faults in the kernel's late kv tiles read 0.58-0.80
 #: (chip_mutants.py; PERF.md): 6e-2 is twice the worst reading.
 LM_TOL = 6e-2
+#: smollm-135m decode: the first DECODE_B sequences of the prefill's token
+#: batch against a cache of DECODE_MAX (SmolLM-135M's trained context);
+#: DECODE_TF steps teacher-forced and held to the plain forward, the first
+#: DECODE_F32 of them again in fp32; greedy generation from a GEN_PROMPT
+#: prompt for GEN_NEW tokens; the step timed at DECODE_TIMED batches at the
+#: cache's last position
+DECODE_B, DECODE_MAX, DECODE_TF, DECODE_F32 = 8, 2048, 512, 64
+GEN_PROMPT, GEN_NEW = 128, 128
+DECODE_TIMED = (8, 64)
+#: decode logits against the plain forward's rows, by ``row_rel_err``.
+#: bf16, 30 layers: the paths round apart as in LM_TOL (the kernel rounds
+#: each FFN product once after its epilogue, the plain path after each op;
+#: cuBLAS sums the 8-row products in other orders than the 4096-row ones;
+#: the decode softmax spans 2048 keys, masked ones adding exact zeros).
+#: On an H100 the 512 steps read 2.456e-2, and 32 steps (chip_mutants.py)
+#: 2.456e-2 with the real kernel and 0.80 with the sm90 GEMM's last k-step
+#: skipped; its ring race (release_early) does not fire at M <= 64 and
+#: reads as the real kernel (PERF.md).  6e-2 is 2.4x the sound reading.
+#: fp32 (TF32 off): orders of summation only, as FLASH_TOL's 1e-4.
+DECODE_TOL = {torch.bfloat16: 6e-2, torch.float32: 1e-4}
 #: the dlrm-mlp train step: 20 AdamW steps on one fixed batch of 1024, the
 #: step timed at three batches (256 below the bf16 ridge, 1024 and 4096
 #: above it)
@@ -330,17 +368,24 @@ def click_batch(rng: np.random.Generator, B: int, W: int, dev) -> dict:
                 (rng.random(B) < 0.3).astype(np.float32)).to(dev)}
 
 
-def profile_kernels(fn) -> list:
-    """(name, launches, ms) of every kernel the profiler saw in one ``fn()``
-    (the device's rows only: a CPU op's row counts its kernels too)."""
-    from torch.autograd import DeviceType
+def profile_rows(fn) -> list:
+    """The profiler's ``key_averages()`` rows of one ``fn()``: a kernel's row
+    has the CUDA device type, and a CPU op's row counts its kernels' time
+    as its own."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def profile_kernels(fn) -> list:
+    """(name, launches, ms) of every kernel the profiler saw in one ``fn()``
+    (the device's rows only)."""
+    from torch.autograd import DeviceType
     return [(r.key, r.count, r.self_device_time_total / 1e3)
-            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+            for r in profile_rows(fn) if r.device_type == DeviceType.CUDA]
 
 
 def is_gemm(kernel_name: str) -> bool:
@@ -480,6 +525,340 @@ def mlp_train(dev, say, cfg, rng: np.random.Generator) -> list:
                 f"{name[:110]}")
         del g, b_
     return placed
+
+
+#: the blocked matmul's kernels, by the names the profiler shows
+OUR_GEMMS = ("gemm_sm90_kernel", "gemm_bf16_kernel", "gemm_f32_kernel",
+             "gemm_f32_ring_kernel")
+
+
+def op_split(fn) -> dict:
+    """Card ms of one ``fn()`` by the profiler, split into the blocked
+    matmul (device rows whose name holds one of ``OUR_GEMMS``), cuBLAS products (the
+    kernels ``aten::mm`` and ``aten::addmm`` launch themselves), attention
+    contractions and softmax (``aten::bmm``, ``aten::_softmax``) and the
+    rest (elementwise ops, casts, the copies ``einsum`` makes, the gather);
+    ``total`` and the launches with it."""
+    from torch.autograd import DeviceType
+    rows = profile_rows(fn)
+    kern = [r for r in rows if r.device_type == DeviceType.CUDA]
+    total = sum(r.self_device_time_total for r in kern) / 1e3
+
+    def by_op(*names):
+        return sum(r.self_device_time_total for r in rows
+                   if r.device_type == DeviceType.CPU and r.key in names) / 1e3
+
+    out = {"total": total, "launches": sum(r.count for r in kern),
+           "kernel": sum(r.self_device_time_total for r in kern
+                         if any(o in r.key for o in OUR_GEMMS)) / 1e3,
+           "cublas_products": by_op("aten::mm", "aten::addmm"),
+           "attention": by_op("aten::bmm", "aten::_softmax")}
+    out["rest"] = total - out["kernel"] - out["cublas_products"] \
+        - out["attention"]
+    out["top"] = sorted(((r.key, r.count, r.self_device_time_total / 1e3)
+                         for r in kern), key=lambda x: -x[2])[:12]
+    return out
+
+
+def ffn_row(say, path: str, a: torch.Tensor, ws: list, act, launches: int,
+            hw) -> dict:
+    """The blocked matmul at one FFN shape per launch: ``a`` against each of
+    ``ws`` in turn (at decode's sizes one layer's weight after another, so
+    no launch finds its weight in L2 from the launch before, as in the
+    step), beside the plain version and ``torch.mm`` (+ silu), checked
+    against the plain version: one row of the summary line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.blocked_matmul import blocked_matmul
+    from repro_torch.kernels.ref import ref_matmul
+    from repro_torch.measure.timers import kernel_ms
+    n = len(ws)
+    (M, K), N = a.shape, ws[0].shape[1]
+    k_ms = kernel_ms(lambda i: blocked_matmul(a, ws[i % n], act=act), iters=60)
+    p_ms = kernel_ms(lambda i: ref_matmul(a, ws[i % n], act=act), iters=60)
+    lib_ms = kernel_ms(
+        (lambda i: F.silu(torch.mm(a, ws[i % n]))) if act
+        else (lambda i: torch.mm(a, ws[i % n])), iters=60)
+    got, want = blocked_matmul(a, ws[0], act=act), ref_matmul(a, ws[0], act=act)
+    err_abs, err = max_abs(got, want), rel_err(got, want)
+    check(err < TOL[a.dtype],
+          f"blocked matmul disagrees at {path}'s ({M},{K},{N}): {err}")
+    elem = a.element_size()
+    flops, nbytes = 2.0 * M * K * N, float(elem) * (M * K + K * N + M * N)
+    b_ms, b_by = bound_of(flops, nbytes, hw)
+    dt = "f32" if a.dtype == torch.float32 else "bf16"
+    say(f"  blocked_matmul {dt} ({M},{K},{N}) act={act} per launch: kernel "
+        f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{nbytes / k_ms / 1e6:.1f} GB/s, "
+        f"{100 * b_ms / k_ms:.1f}% of the bound {b_ms:.5f} ms, {b_by}, "
+        f"{hw.name}), plain {p_ms:.4f} ms, library mm{'+silu' if act else ''}"
+        f" {lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); {launches} {path} "
+        f"launches; max_abs_err {err_abs:.3e}, rel_err {err:.3e}")
+    return {"path": path, "shape": [M, K, N], "act": act, "dtype": dt,
+            "launches": launches, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes}
+
+
+@torch.no_grad()
+def lm_decode(dev, say, params, cfg, tokens) -> tuple:
+    """The smollm-135m serving path, full width and depth, bf16, the FFN
+    products in the blocked matmul (``use_kernel_matmul``; ``use_flash``
+    stays on and must launch nothing): (a) ``DECODE_TF`` teacher-forced
+    steps of ``tokens``' first ``DECODE_B`` rows, each step's logits held to
+    the plain forward's row; (b) ``serve.engine.greedy_generate`` from
+    their first ``GEN_PROMPT`` tokens, every generated token held to the
+    plain path's logits; (c) one step at each ``DECODE_TIMED`` batch at the
+    cache's last position.  These are the main path: the counts are set to
+    0 before (a) and read after (c).  Then (d) the first ``DECODE_F32``
+    steps again in fp32 (the ``f32`` kernel), a path of its own, its counts
+    set to 0 before it and read after; (e) the step at each batch timed,
+    profiled and counted; (f) each FFN shape per launch.  Returns the
+    blocked matmul's launches by variant on each path (``lm_decode``,
+    ``lm_decode_fp32``), the summary rows and the decode steps for the
+    Ridgeline placement."""
+    from repro_torch.core.hardware import H100_SXM, H100_SXM_FP32
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels.blocked_matmul import blocked_matmul
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import cuda_event_ms, time_callable
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve import engine
+
+    NL, V = cfg.n_layers, cfg.vocab_size
+    dcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    B, toks = DECODE_B, tokens[:DECODE_B]
+    per_step = 3 * NL
+    say(f"smollm-135m decode: B={B}, cache {DECODE_MAX}, compute "
+        f"{str(cfg.compute_dtype)[6:]}, use_kernel_matmul and use_flash on; "
+        f"{DECODE_TF} teacher-forced steps, greedy {GEN_PROMPT} + {GEN_NEW}, "
+        f"the step at B={DECODE_TIMED} at pos {DECODE_MAX - 1}")
+    want = transformer.forward(params, toks[:, :DECODE_TF], plain)[0]
+    rng = np.random.default_rng(3)
+    step_toks = {b: toks[:, DECODE_MAX - 1:] if b == B else torch.from_numpy(
+        rng.integers(0, V, (b, 1))).to(dev) for b in DECODE_TIMED}
+    caches = {b: transformer.init_cache(dcfg, b, DECODE_MAX, device=dev)
+              for b in DECODE_TIMED}
+
+    # ---- the main path: (a), (b), (c) -----------------------------------------
+    blocked_matmul.launches = 0
+    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
+    flash_attention_bhsd.launches = 0
+    cache = transformer.init_cache(dcfg, B, DECODE_MAX, device=dev)
+    steps_seen, tf_rel, tf_abs = set(), 0.0, 0.0
+    for t in range(DECODE_TF):
+        m0, f0 = blocked_matmul.launches, flash_attention_bhsd.launches
+        lg, out = transformer.decode_step(params, toks[:, t:t + 1], cache, t,
+                                          dcfg)
+        steps_seen.add((blocked_matmul.launches - m0,
+                        flash_attention_bhsd.launches - f0))
+        check(out is cache and lg.shape == (B, 1, V)
+              and torch.isfinite(lg).all().item(),
+              f"decode step {t}: logits malformed or the cache replaced")
+        tf_rel = max(tf_rel, row_rel_err(lg[:, 0], want[:, t]))
+        tf_abs = max(tf_abs, max_abs(lg[:, 0], want[:, t]))
+    del want, cache
+    REGISTRY.reset()
+    prompt = toks[:, :GEN_PROMPT]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_k = engine.greedy_generate(params, dcfg, prompt, steps=GEN_NEW,
+                                   max_len=DECODE_MAX)
+    gen_s = time.perf_counter() - t0
+    hist = REGISTRY.snapshot()["histograms"]["serve.step_seconds"]
+    for b in DECODE_TIMED:
+        transformer.decode_step(params, step_toks[b], caches[b],
+                                DECODE_MAX - 1, dcfg)
+    torch.cuda.synchronize()
+    n_steps = DECODE_TF + GEN_PROMPT + GEN_NEW - 1 + len(DECODE_TIMED)
+    launched = dict(blocked_matmul.launches_by_variant)
+    say(f"(blocked_matmul, flash) launches per teacher-forced step "
+        f"{sorted(steps_seen)}; main path ({n_steps} steps): blocked_matmul "
+        f"by variant {launched}, flash {flash_attention_bhsd.launches}")
+    check(steps_seen == {(per_step, 0)},
+          f"expected {per_step} blocked-matmul launches and no flash launch "
+          f"a step, got {steps_seen}")
+    check(launched == {**dict.fromkeys(bm.VARIANTS, 0),
+                       "sm90": per_step * n_steps}
+          and flash_attention_bhsd.launches == 0,
+          f"every decode launch must take the sm90 kernel and none the flash "
+          f"kernel: {launched}, flash {flash_attention_bhsd.launches}")
+    say(f"  (a) teacher-forced logits vs the plain forward over {DECODE_TF} "
+        f"steps: row_rel_err {tf_rel:.3e} (tol "
+        f"{DECODE_TOL[torch.bfloat16]:g}), max_abs_err {tf_abs:.4f}")
+    check(tf_rel < DECODE_TOL[torch.bfloat16],
+          f"decode logits disagree with the prefill's: {tf_rel}")
+
+    # (b) the plain decode_step teacher-forced on greedy_generate's own
+    # tokens.  Each path's logits lie within tf_abs of the other's, so at
+    # every generated step the kernel path's token has a plain logit within
+    # 2 x tf_abs of the plain maximum.  Up to a sequence's first near-tie
+    # (plain top-2 gap within 2 x tf_abs) its token is the plain argmax, so
+    # up to there it is the plain path's own greedy generation (the rows of
+    # a batch never meet)
+    check(gen_k.shape == (B, GEN_PROMPT + GEN_NEW)
+          and torch.equal(gen_k[:, :GEN_PROMPT], prompt),
+          f"greedy_generate gave {tuple(gen_k.shape)}")
+    cache = transformer.init_cache(plain, B, DECODE_MAX, device=dev)
+    gaps, short, argmax = [], [], []
+    for t in range(GEN_PROMPT + GEN_NEW - 1):
+        lg, cache = transformer.decode_step(params, gen_k[:, t:t + 1], cache,
+                                            t, plain)
+        if t + 1 >= GEN_PROMPT:
+            row = lg[:, -1].float()
+            top2 = row.topk(2, dim=-1)
+            chosen = row.gather(1, gen_k[:, t + 1:t + 2].long())[:, 0]
+            gaps.append(top2.values[:, 0] - top2.values[:, 1])
+            short.append(top2.values[:, 0] - chosen)
+            argmax.append(top2.indices[:, 0] == gen_k[:, t + 1])
+    del cache
+    near = (torch.stack(gaps, dim=1) <= 2 * tf_abs).cpu()
+    short = torch.stack(short, dim=1).cpu()
+    same = torch.stack(argmax, dim=1).cpu()
+    ties = [int(r.nonzero()[0]) if r.any() else None for r in near]
+    upto = [GEN_NEW if j is None else j for j in ties]
+    say(f"  (b) greedy_generate B={B}, prompt {GEN_PROMPT}, +{GEN_NEW} "
+        f"tokens: {B * GEN_NEW / gen_s:.1f} tokens/s ({gen_s:.3f} s for "
+        f"{GEN_PROMPT + GEN_NEW - 1} steps); serve.step_seconds p50 "
+        f"{hist['p50'] * 1e3:.4f} ms, p90 {hist['p90'] * 1e3:.4f} ms "
+        f"(n={hist['count']})")
+    say(f"  (b) the plain path teacher-forced on the generated tokens: "
+        f"all {short.numel()} generated steps held; the chosen token's "
+        f"plain logit below the plain maximum by at most "
+        f"{float(short.max()):.4f} (limit 2 x {tf_abs:.4f}); the chosen "
+        f"token is the plain argmax at {int(same.sum())} steps; first "
+        f"near-tie (top-2 gap <= 2 x {tf_abs:.4f}) per sequence: "
+        + ", ".join("none" if j is None else f"step {j}" for j in ties)
+        + f" ({int(near.sum())} of {near.numel()} steps near-ties); the "
+        f"plain path's own generation up to there")
+    check(hist["count"] == GEN_PROMPT + GEN_NEW - 1,
+          f"serve.step_seconds counted {hist['count']} steps")
+    for r in range(B):
+        check(bool(same[r, :upto[r]].all()),
+              f"sequence {r}: a greedy token differs from the plain argmax "
+              f"before its first near-tie (step {ties[r]})")
+    check(float(short.max()) <= 2 * tf_abs,
+          f"a generated token's plain logit is {float(short.max())} below "
+          f"the plain maximum (limit 2 x {tf_abs})")
+
+    # (d) fp32: the f32 kernel, a path of its own
+    c32 = dcfg.replace(compute_dtype=torch.float32)
+    want = transformer.forward(params, toks[:, :DECODE_F32],
+                               plain.replace(compute_dtype=torch.float32))[0]
+    cache = transformer.init_cache(c32, B, DECODE_MAX, device=dev)
+    blocked_matmul.launches = 0
+    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
+    flash_attention_bhsd.launches = 0
+    f32_rel = 0.0
+    for t in range(DECODE_F32):
+        lg, cache = transformer.decode_step(params, toks[:, t:t + 1], cache,
+                                            t, c32)
+        f32_rel = max(f32_rel, row_rel_err(lg[:, 0], want[:, t]))
+    torch.cuda.synchronize()
+    del want, cache
+    f32_launched = dict(blocked_matmul.launches_by_variant)
+    say(f"  (d) fp32 (TF32 off), {DECODE_F32} steps: row_rel_err "
+        f"{f32_rel:.3e} (tol {DECODE_TOL[torch.float32]:g}); launches by "
+        f"variant (path lm_decode_fp32) {f32_launched}, flash "
+        f"{flash_attention_bhsd.launches}")
+    check(f32_rel < DECODE_TOL[torch.float32],
+          f"fp32 decode logits disagree with the fp32 forward: {f32_rel}")
+    check(f32_launched == {**dict.fromkeys(bm.VARIANTS, 0),
+                           "f32": per_step * DECODE_F32}
+          and flash_attention_bhsd.launches == 0,
+          f"every fp32 decode launch must take the f32 kernel: {f32_launched}")
+
+    # (e) the step timed at each batch, at the cache's last position (the
+    # masked form reads the whole S_max at any position: every step's cost)
+    n_params = count_params(params)
+    placed = []
+    for b in DECODE_TIMED:
+        tok, cache = step_toks[b], caches[b]
+        pos = DECODE_MAX - 1
+        host = time_callable(transformer.decode_step, params, tok, cache,
+                             pos, dcfg, device=dev, repeats=30, warmup=3)
+        p90 = float(np.percentile(host.samples, 90))
+        plain_host = time_callable(transformer.decode_step, params, tok,
+                                   cache, pos, plain, device=dev, repeats=10,
+                                   warmup=2)
+        card = cuda_event_ms(lambda i: transformer.decode_step(
+            params, tok, cache, pos, dcfg), iters=10)
+        m0 = blocked_matmul.launches
+        transformer.decode_step(params, tok, cache, pos, dcfg)
+        n_launch = blocked_matmul.launches - m0
+        split = op_split(lambda: transformer.decode_step(
+            params, tok, cache, pos, dcfg))
+        # F and B_M counted on the plain path: the counters see aten ops,
+        # not the kernel's launches; the products are the same
+        check(split["total"] > 0 and split["kernel"] > 0,
+              f"the profiler saw no kernel time at B={b}: {split}")
+        flops, nbytes = counters.count(transformer.decode_step, params, tok,
+                                       cache, pos, plain)
+        cache_bytes = 2.0 * cache["k"].numel() * cache["k"].element_size()
+        least = 4.0 * n_params + cache_bytes + 2.0 * b * V
+        a = analyze(WorkUnit(f"decode_b{b}", flops, nbytes, 0.0), H100_SXM)
+        a_least = analyze(WorkUnit(f"decode_b{b}_least", flops, least, 0.0),
+                          H100_SXM)
+        placed.append({"batch": b, "flops": flops, "mem_bytes": nbytes,
+                       "seconds": host.median, "params": float(n_params)})
+        say(f"  (e) B={b} step at pos {pos}: host median "
+            f"{host.median * 1e3:.4f} ms, p90 {p90 * 1e3:.4f} ms "
+            f"(n={len(host.samples)}), {b / host.median:.1f} tokens/s; card "
+            f"{card:.4f} ms; plain path host {plain_host.median * 1e3:.4f} ms;"
+            f" {n_launch} blocked-matmul launches a step; counted F "
+            f"{flops:.6g}, B_M {nbytes:.6g} (plain path, eager ops; the KV "
+            f"cache {cache_bytes:.6g}); h100_sxm: {a.summary()}, bound "
+            f"{a.runtime * 1e3:.4f} ms = {100 * a.runtime / host.median:.1f}% "
+            f"of the host median; least bytes (fp32 params and the cache "
+            f"read once, logits written) {least:.6g}: bound "
+            f"{a_least.runtime * 1e3:.4f} ms")
+        say(f"  (e) B={b} profile of one step: {split['launches']} launches, "
+            f"{split['total']:.4f} ms of kernels ({100 * split['total'] / card:.1f}"
+            f"% of the card time); blocked matmul {split['kernel']:.4f} ms, "
+            f"cuBLAS products (q/k/v/o, lm head) "
+            f"{split['cublas_products']:.4f} ms, attention contractions and "
+            f"softmax {split['attention']:.4f} ms, elementwise, casts and "
+            f"copies {split['rest']:.4f} ms; by name, most first:")
+        for name, n, ms in split["top"]:
+            say(f"    {ms:9.4f} ms {100 * ms / split['total']:5.1f}% x{n:<4d} "
+                f"{name[:110]}")
+    del caches
+
+    # (f) each FFN shape per launch, every layer's weights in turn
+    rows = []
+    for dtype, hw in ((torch.bfloat16, H100_SXM),
+                      (torch.float32, H100_SXM_FP32)):
+        ws = {n: [blk["ffn"][n].to(dtype) for blk in params["blocks"]]
+              for n in ("w_gate", "w_up", "w_down")}
+        batches = DECODE_TIMED if dtype == torch.bfloat16 else (B,)
+        path = "lm_decode" if dtype == torch.bfloat16 else "lm_decode_fp32"
+        for b in batches:
+            if dtype == torch.float32:
+                n = NL * DECODE_F32
+            else:
+                n = NL * (DECODE_TF + GEN_PROMPT + GEN_NEW - 1 if b == B
+                          else 0) + NL
+            x_in = torch.from_numpy(rng.standard_normal(
+                (b, cfg.d_model), np.float32)).to(dev, dtype)
+            x_mid = torch.from_numpy(rng.standard_normal(
+                (b, cfg.d_ff), np.float32)).to(dev, dtype)
+            for a_, w, act in ((x_in, ws["w_gate"], "silu"),
+                               (x_in, ws["w_up"], None),
+                               (x_mid, ws["w_down"], None)):
+                rows.append(ffn_row(say, path, a_, w, act, n, hw))
+        del ws
+    paths = {"lm_decode": launched, "lm_decode_fp32": f32_launched}
+    for path, made in paths.items():
+        covered = sum(r["launches"] for r in rows if r["path"] == path)
+        check(covered == sum(made.values()),
+              f"the {path} rows cover {covered} launches, the path made "
+              f"{made}")
+    return paths, rows, placed
 
 
 def f32_row(dev, say, s: int, launches: int, path: str) -> dict:
@@ -1216,18 +1595,11 @@ def main() -> int:
     # name, summed; their total against the unprofiled card time (a row of
     # a CPU op also counts its kernels' time as its own, so only the
     # device's rows are summed)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for label, c, card_ms in (
             ("use_flash", lm_cfg, lm_ev),
             ("use_flash + use_kernel_matmul", lm_kmm, kmm_ev)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            transformer.forward(lm_params, toks, c)
-            torch.cuda.synchronize()
-        kern = [(r.key, r.count, r.self_device_time_total / 1e3)
-                for r in prof.key_averages()
-                if r.device_type == DeviceType.CUDA]
+        kern = profile_kernels(
+            lambda: transformer.forward(lm_params, toks, c))
         kern_ms = sum(ms for _, _, ms in kern)
         check(kern_ms > 0, "the profiler saw no kernel time on the card")
         say(f"  B={B0} S={S0} profile of one forward ({label}): {len(kern)} "
@@ -1292,37 +1664,32 @@ def main() -> int:
            for n in ("w_gate", "w_up", "w_down")}
     x_in = torch.randn((T, d), generator=gen, device=dev).to(bf16)
     x_mid = torch.randn((T, f), generator=gen, device=dev).to(bf16)
-    ffn_rows = []
-    for a_, b_, act in ((x_in, ffn["w_gate"], "silu"), (x_in, ffn["w_up"], None),
-                        (x_mid, ffn["w_down"], None)):
-        M, Kd = a_.shape
-        N = b_.shape[1]
-        k_ms = kernel_ms(lambda i: blocked_matmul(a_, b_, act=act), iters=20)
-        p_ms = kernel_ms(lambda i: ref_matmul(a_, b_, act=act), iters=20)
-        lib_ms = kernel_ms(
-            (lambda i: F.silu(torch.mm(a_, b_))) if act
-            else (lambda i: torch.mm(a_, b_)), iters=20)
-        got, want = blocked_matmul(a_, b_, act=act), ref_matmul(a_, b_, act=act)
-        err_abs, err = max_abs(got, want), rel_err(got, want)
-        check(err < TOL[bf16],
-              f"blocked matmul disagrees at the FFN's ({M},{Kd},{N}): {err}")
-        flops, nbytes = 2.0 * M * Kd * N, 2.0 * (M * Kd + Kd * N + M * N)
-        b_ms, b_by = bound_of(flops, nbytes, H100_SXM)
-        ffn_rows.append({
-            "path": "lm_prefill", "shape": [M, Kd, N], "act": act,
-            "launches": NL, "kernel_ms": k_ms, "plain_ms": p_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes})
-        say(f"  blocked_matmul ({M},{Kd},{N}) act={act} per launch: kernel "
-            f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
-            f"{p_ms:.4f} ms, library mm{'+silu' if act else ''} "
-            f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); bound "
-            f"{b_ms:.4f} ms "
-            f"({b_by}); max_abs_err {err_abs:.3e}, rel_err {err:.3e} "
-            f"(tol {TOL[bf16]:g})")
-    del got, want
+    ffn_rows = [ffn_row(say, "lm_prefill", a_, [b_], act, NL, H100_SXM)
+                for a_, b_, act in ((x_in, ffn["w_gate"], "silu"),
+                                    (x_in, ffn["w_up"], None),
+                                    (x_mid, ffn["w_down"], None))]
 
-    # ---- 7. mlp_train: the third main path --------------------------------------
+    # ---- 7. lm_decode: the third main path ---------------------------------------
+    phase("lm_decode")
+    dec_paths, dec_rows, dec_placed = lm_decode(
+        dev, say, lm_params, lm_cfg, tokens[PREFILL[0]])
+    dec_variants = {v: sum(made[v] for made in dec_paths.values())
+                    for v in bm.VARIANTS}
+    dec_launches = sum(dec_variants.values())
+    for p in dec_placed:
+        b = p["batch"]
+        points.append({
+            "arch": "smollm-135m", "shape": f"decode_b{b}_s{DECODE_MAX}",
+            "mesh": "1", "kind": "decode", "variant": "use_kernel_matmul",
+            "flops": p["flops"], "mem_bytes": p["mem_bytes"],
+            "wire_bytes": 0.0, "by_kind": {}, "peak": 0.0,
+            "params": p["params"], "tokens": float(b),
+            "seconds": p["seconds"], "main": True,
+            "source": "chip_smoke lm_decode host median",
+            "notes": "one step at the cache's last position; F and B_M "
+                     "counted on the plain path"})
+
+    # ---- 8. mlp_train: the fourth main path -------------------------------------
     phase("mlp_train")
     for counted in (blocked_matmul, flash_attention_bhsd):
         counted.launches = 0
@@ -1356,7 +1723,7 @@ def main() -> int:
                 "main": True, "source": "chip_smoke mlp_train host median",
                 "notes": "one card, no all-reduce in the measured step"})
 
-    # ---- 8. calibrate: the fourth main path -------------------------------------
+    # ---- 9. calibrate: the fifth main path -------------------------------------
     phase("calibrate")
     blocked_matmul.launches = 0
     blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
@@ -1371,7 +1738,7 @@ def main() -> int:
           f"the calibration GEMMs must each launch the f32 kernel once: "
           f"{cal_variants}")
 
-    # ---- 9. calibrate_cli: the fifth main path ---------------------------------
+    # ---- 10. calibrate_cli: the sixth main path ---------------------------------
     phase("calibrate_cli")
     tmp = tempfile.TemporaryDirectory()
     blocked_matmul.launches = 0
@@ -1381,7 +1748,7 @@ def main() -> int:
         dev, say, tmp.name, cal_calib)
     cli_launches = sum(r["launches"] for r in cli_rows)
 
-    # ---- 10. ridgeline: every main path's points on the plane -------------------
+    # ---- 11. ridgeline: every main path's points on the plane -------------------
     phase("ridgeline")
     for m in cli_ms:
         points.append({
@@ -1396,14 +1763,15 @@ def main() -> int:
     ridgeline(say, tmp.name, points, cli_calib.spec())
     tmp.cleanup()
 
-    # ---- 11. tile_options -----------------------------------------------------
+    # ---- 12. tile_options -----------------------------------------------------
     phase("tile_options")
     # the sm90 kernel at every main-path shape under each tile width and
     # order, beside tile_plan's choice (PERF.md reads the rule off these);
     # each call takes the next of 8 weights, as a forward's layers do
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sm90 = bm._launcher().sm90
-    for row in per_batch + ffn_rows:
+    for row in per_batch + ffn_rows + [r for r in dec_rows
+                                       if r["dtype"] == "bf16"]:
         M, Kd, N = row["shape"]
         a_ = torch.randn((M, Kd), generator=gen, device=dev).to(bf16)
         bs_ = [(torch.randn((Kd, N), generator=gen, device=dev)
@@ -1425,7 +1793,7 @@ def main() -> int:
             + ", ".join(f"{tuple(p)} {t:.4f}" for t, p in timed))
     del a_, bs_
 
-    # ---- 12. f32_options ------------------------------------------------------
+    # ---- 13. f32_options ------------------------------------------------------
     phase("f32_options")
     # the f32 kernel at every calibration size under each tile, beside
     # f32_plan's choice (PERF.md reads the rule off these)
@@ -1443,7 +1811,7 @@ def main() -> int:
             + ", ".join(f"{t.bm}x{t.bn} {ms:.4f}" for t, ms in timed.items()))
     del a_, b_
 
-    # ---- 13. microbench -------------------------------------------------------
+    # ---- 14. microbench -------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
     # tensor-map encoding, ctypes call), enqueue only, beside one torch call
@@ -1511,11 +1879,11 @@ def main() -> int:
         entry("blocked_matmul",
               "src/repro_torch/kernels/csrc/blocked_matmul.cu",
               "src/repro/kernels/blocked_matmul.py:57",
-              main_launches + lm_launches["blocked_matmul"] + cal_launches
-              + cli_launches,
-              per_batch + ffn_rows + f32_rows + cli_rows,
-              {v: mlp_variants[v] + lm_variants[v] + cal_variants[v]
-               + cli_variants[v] for v in bm.VARIANTS}),
+              main_launches + lm_launches["blocked_matmul"] + dec_launches
+              + cal_launches + cli_launches,
+              per_batch + ffn_rows + dec_rows + f32_rows + cli_rows,
+              {v: mlp_variants[v] + lm_variants[v] + dec_variants[v]
+               + cal_variants[v] + cli_variants[v] for v in bm.VARIANTS}),
         entry("flash_attention_bhsd",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",

@@ -5,11 +5,12 @@ The layouts are the same (weights ``(d_in, d_out)``, as ``dense_init``
 makes them), so nothing is transposed: each leaf becomes a tensor of the
 same dtype on the target device.  ``opt_state_from_numpy`` and
 ``train_state_from_numpy`` carry a run over mid-way, so both packages can
-go on from one state at a step where the bias correction matters.
+go on from one state at a step where the bias correction matters;
+``kv_cache_from_numpy`` does the same for a decode's KV cache.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -22,7 +23,13 @@ from repro_torch.tree import tree_map
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x), device=dev)
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own (JAX's arrays bring ml_dtypes'); the
+        # widening to fp32 and back is exact
+        return torch.tensor(x.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(x, device=dev)
 
 
 def mlp_params_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
@@ -107,3 +114,12 @@ def lm_params_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
     out = {k: _tree(v, dev) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [_tree(blk, dev) for blk in blocks]
     return out
+
+
+def kv_cache_from_numpy(cache: Mapping, device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's dense KV cache (``init_kv_cache``, or one a run of
+    its ``decode_step`` filled), as numpy: ``{"k", "v"}`` of (L, B, S_max,
+    K, dh), fp32 or bf16 -> the port's, same layout and dtype."""
+    dev = resolve_device(device)
+    return {"k": _tensor(cache["k"], dev), "v": _tensor(cache["v"], dev)}

@@ -186,6 +186,19 @@ def _check(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
                 f"{bias.device}")
 
 
+def refuse_autograd(name: str, *xs: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would record a call: the kernels write a fresh
+    tensor through ctypes, so their output has no ``grad_fn`` and a
+    gradient would stop there without a word."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernels are forward-only (no backward, as the "
+            f"JAX package's Pallas kernels have none); call it under "
+            f"torch.no_grad() or on the plain path (a CPU tensor, or "
+            f"use_kernel_matmul / use_flash off)")
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
             act: Optional[str], kind: str) -> torch.Tensor:
     """Launch the ``kind`` kernel (sm90 with ``tile_plan``'s tiles, f32 with
@@ -225,12 +238,15 @@ def blocked_matmul(a: torch.Tensor, b: torch.Tensor,
 
     fp32 accumulation; the bias is added and ``act`` (None, relu, relu2,
     silu, gelu-tanh) applied in fp32 before one cast.  Any M, N, K >= 1.
+    Forward only: a CUDA input that requires grad while grad mode is on
+    raises (the CPU's plain version stays differentiable).
     """
     _check(a, b, bias, act)
     if a.device.type == "cpu":
         return ref_matmul(a, b, bias=bias, act=act)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
+    refuse_autograd("blocked_matmul", a, b, bias)
     (M, K), N = a.shape, b.shape[1]
     return _launch(a, b, bias, act,
                    variant(M, N, K, a.dtype, aligned(a, b, bias)))

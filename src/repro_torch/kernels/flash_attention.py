@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.blocked_matmul import refuse_autograd
 from repro_torch.kernels.ref import ref_flash_attention
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -127,6 +128,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32.  Any S >= 1, no padding; the CUDA kernel takes dh 64 or 128 and
     any strides that keep dh contiguous, so transposed views of the model
     layout (B,S,H,dh) are read in place.  The output has ``q``'s strides.
+    Forward only: a CUDA input that requires grad while grad mode is on
+    raises (the CPU's plain version stays differentiable).
     """
     _check(q, k, v, window, seq_len)
     B, H, S, dh = q.shape
@@ -139,6 +142,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda(q, k, v)
+    refuse_autograd("flash_attention_bhsd", q, k, v)
     kind = variant(q.dtype, dh, tma_readable(q, k, v))
     out = torch.empty_like(q)
     rc = launch(_launcher(), kind, q, k, v, out, causal, window, seq_len)

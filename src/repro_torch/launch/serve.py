@@ -1,0 +1,66 @@
+"""Serving launcher: batched greedy decoding against the KV-cache engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --reduced --batch 4 --prompt-len 8 --new-tokens 32 [--device cpu]
+
+The port of ``repro.launch.serve``: random params from ``--seed`` and a
+random prompt from ``--seed + 1`` (``torch.Generator`` streams, not JAX's),
+then ``serve.engine.greedy_generate``.  ``--device`` defaults to the card;
+the CPU runs only when asked.  A mesh other than ``1x1`` waits for the
+port's sharding (ROADMAP Queue 1, item 12).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_lm
+from repro_torch.serve.engine import greedy_generate
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "1x1":
+        print(f"--mesh {args.mesh}: serving over a mesh is not ported yet "
+              f"(ROADMAP Queue 1, item 12: mesh and sharding); use 1x1",
+              file=sys.stderr)
+        return 2
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.replace(compute_dtype=torch.float32)
+    dev = resolve_device(args.device)
+
+    params = init_lm(cfg, torch.Generator().manual_seed(args.seed),
+                     device=dev)
+    prompt = torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len),
+        generator=torch.Generator().manual_seed(args.seed + 1)).to(dev)
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompt, steps=args.new_tokens,
+                          max_len=args.prompt_len + args.new_tokens)
+    dt = time.perf_counter() - t0
+    tok_s = args.batch * args.new_tokens / dt
+    print(f"{args.arch}: batch={args.batch} +{args.new_tokens} tokens "
+          f"in {dt:.2f}s ({tok_s:.0f} tok/s)")
+    print("first sequence:", out[0].tolist())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

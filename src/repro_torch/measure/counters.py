@@ -8,7 +8,9 @@ compiled program.
     step, where the products dominate.
   * B_M sums, over every aten op the call dispatches, the bytes of its
     tensor inputs and outputs (each read or written once per op); views
-    move nothing and count 0.
+    move nothing and count 0, and so does ``_unsafe_view``, the reshape
+    ``einsum`` and ``matmul`` apply to a tensor they made, which aliases its
+    input but is not marked a view.  A gather counts its whole table.
 
 B_M is the traffic of the *eager, unfused* program: every elementwise op
 reads and writes its operands through device memory.  It is more than
@@ -30,6 +32,10 @@ def _nbytes(x) -> int:
     return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
 
 
+#: ops that alias their input without being marked views in their schema
+_ALIASES = (torch.ops.aten._unsafe_view.default,)
+
+
 class _ByteCounter(TorchDispatchMode):
     """Adds up the bytes of every non-view aten op's tensors."""
 
@@ -39,7 +45,7 @@ class _ByteCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not func.is_view:
+        if not (func.is_view or func in _ALIASES):
             self.bytes += sum(_nbytes(x) for x in tree_leaves(
                 [list(args), dict(kwargs or {}), out]))
         return out

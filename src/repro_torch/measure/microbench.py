@@ -16,11 +16,10 @@ measurement files read alike; ``measure/calibrate`` fits ceilings on them.
   * ``collective_benches`` — ``dist.all_reduce`` over the default process
     group (NCCL on cards, gloo on the CPU), ring-priced by
     ``distributed/collectives``; ``[]`` without a group of 2 or more.
-  * ``step_benches`` — whole dlrm-mlp train steps (``train/loop``) in fp32,
-    F and B_M counted while they run (``measure/counters``): validation
-    points, which the fit does not see.  The reference's third point, a
-    reduced smollm decode step (``serve_step_bench``), waits for the
-    decode port (ROADMAP Queue 1 item 7).
+  * ``step_benches`` — whole dlrm-mlp train steps (``train/loop``) in fp32
+    and reduced smollm-135m decode steps (``serve/engine``) in bf16, F and
+    B_M counted while they run (``measure/counters``): validation points,
+    which the fit does not see.
 """
 from __future__ import annotations
 
@@ -336,20 +335,59 @@ def train_step_bench(batch: int = 64, width: int = 256, layers: int = 3, *,
                        meta=(("kind", "train_step"), ("arch", "dlrm-mlp")))
 
 
-def step_benches(*, repeats: int = 3, passes: int = 2,
+def serve_step_bench(batch: int = 8, max_len: int = 64, *,
+                     repeats: int = 3,
+                     device: DeviceLike = None) -> Measurement:
+    """One-token decode (``serve.engine.build_serve_step``) on the reduced
+    smollm-135m config in its bf16 compute, at position 1 of a ``max_len``
+    cache; F and B_M counted while it runs (``measure/counters``).  The
+    reduced config takes no kernel path.  The step writes the same row each
+    call, so every call does the same work."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.measure import counters
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import build_serve_step, init_cache
+
+    dev = resolve_device(device)
+    cfg = get_reduced("smollm-135m")
+    params = init_lm(cfg, torch.Generator().manual_seed(0), device=dev)
+    cache = init_cache(params, cfg, batch, max_len)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+    pos = 1
+    step = build_serve_step(cfg)
+    name = f"serve_step_smollm_b{batch}"
+    with torch.no_grad():
+        flops, mem_bytes = counters.count(step, params, tok, cache, pos)
+        with trace.span(f"bench.{name}", category="step",
+                        kind="serve_step", repeats=repeats) as sp:
+            stats = _guarded_stats(name,
+                                   lambda: step(params, tok, cache, pos),
+                                   dev, repeats=repeats, warmup=2, span=sp)
+    return Measurement(work=WorkUnit(name, flops, mem_bytes, 0.0),
+                       seconds=stats.median, category="step",
+                       rel_spread=stats.rel_spread, backend=backend_name(dev),
+                       meta=(("kind", "serve_step"), ("arch", "smollm-135m")))
+
+
+def step_benches(*, smoke: bool = True, repeats: int = 3, passes: int = 2,
                  device: DeviceLike = None) -> List[Measurement]:
-    """Whole-step validation points: the reference's two train points
-    (``b64_w256x3``, ``b256_w512x4``).  Its decode points
-    (``serve_step_bench``, one more in a full suite) wait for the decode
-    port, ROADMAP Queue 1 item 7.
+    """Whole-step validation points, the reference's: two train points
+    (``b64_w256x3``, ``b256_w512x4``) and a decode point
+    (``serve_step_smollm_b8``), plus ``serve_step_smollm_b16`` (a 128-token
+    cache) when not ``smoke``.
 
     Each bench runs ``passes`` times and keeps the pass with the fastest
     best-sample (:func:`merge_passes`).
     """
     def one_pass() -> List[Measurement]:
-        return [train_step_bench(repeats=repeats, device=device),
-                train_step_bench(batch=256, width=512, layers=4,
-                                 repeats=repeats, device=device)]
+        out = [train_step_bench(repeats=repeats, device=device),
+               train_step_bench(batch=256, width=512, layers=4,
+                                repeats=repeats, device=device),
+               serve_step_bench(repeats=repeats, device=device)]
+        if not smoke:
+            out.append(serve_step_bench(batch=16, max_len=128,
+                                        repeats=repeats, device=device))
+        return out
 
     return merge_passes([one_pass() for _ in range(max(passes, 1))])
 
@@ -396,7 +434,8 @@ def default_suite(*, smoke: bool = True, repeats: Optional[int] = None,
         # against
         out: List[Measurement] = []
         if steps:
-            out += step_benches(repeats=r, passes=1, device=dev)
+            out += step_benches(smoke=smoke, repeats=r, passes=1,
+                                device=dev)
         out += matmul_benches(
             SMOKE_MATMUL_SIZES if smoke else FULL_MATMUL_SIZES, repeats=r,
             device=dev)

@@ -1,22 +1,24 @@
-"""Grouped-query attention: init and full-sequence apply (train / prefill).
+"""Grouped-query attention: init, full-sequence apply, single-token decode.
 
-The port of ``src/repro/models/attention.py``'s full-sequence path: GQA
-(kv heads < q heads), optional QKV bias (Qwen2), per-head QK RMS-norm
-(Qwen3), RoPE, causal or bidirectional, sliding-window masks, and the
-flash-attention kernel path (``cfg.use_flash``).  The reference's
-``shard_hint`` calls constrain sharding under a mesh and do nothing without
-one, so they are left out.  The chunked ``_blockwise_sdpa`` and the decode
-functions come with later slices (ROADMAP Queue 1, item 7).
+The port of ``src/repro/models/attention.py``: GQA (kv heads < q heads),
+optional QKV bias (Qwen2), per-head QK RMS-norm (Qwen3), RoPE, causal or
+bidirectional, sliding-window masks, the flash-attention kernel path
+(``cfg.use_flash``), the chunked ``_blockwise_sdpa``
+(``cfg.attn_impl == "chunked"``) and one-token decode against a KV cache.
+The reference's ``shard_hint`` calls constrain sharding under a mesh and do
+nothing without one, so they are left out; so are the specs functions,
+which have no reader in the port until its mesh (ROADMAP Queue 1, item 12).
 
-Shapes: activations (B, S, D); per-head tensors (B, S, H, dh).
+Shapes: activations (B, S, D); per-head tensors (B, S, H, dh).  KV cache:
+dict(k=(L, B, S_max, K, dh), v=...), one layer's view (B, S_max, K, dh).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (apply_rope, dense_init, init_rng, ones,
                                        rms_norm_head, zeros)
@@ -88,6 +90,11 @@ def _mask_bias(sq: int, skv: int, causal: bool, window: int, offset: int = 0,
     return torch.where(ok, 0.0, NEG_INF).float()
 
 
+def _scale(dh: int, dtype: torch.dtype) -> torch.Tensor:
+    """sqrt(dh) in the compute dtype, as the reference divides by it."""
+    return torch.sqrt(torch.tensor(float(dh))).to(dtype)   # 0-dim, on the CPU
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           bias: Optional[torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
     """Plain dot-product attention with GQA by kv-head repetition.
@@ -103,8 +110,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         reps = H // K
         k = k.repeat_interleave(reps, dim=2)
         v = v.repeat_interleave(reps, dim=2)
-    scale = torch.sqrt(torch.tensor(float(dh))).to(q.dtype)  # 0-dim, on the CPU
-    scores = torch.einsum("bqhd,bshd->bhqs", q, k) / scale
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k) / _scale(dh, q.dtype)
     scores = scores.float()
     if bias is not None:
         scores = scores + bias
@@ -134,12 +140,130 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     elif cfg.attn_impl == "chunked" and not cross \
             and q.shape[1] == k.shape[1] and q.shape[1] > cfg.attn_block_q:
-        raise NotImplementedError(
-            "attn_impl='chunked' (_blockwise_sdpa) is not ported yet: "
-            "ROADMAP Queue 1, item 7")
+        out = _blockwise_sdpa(q, k, v, cfg, causal, window)
     else:
         bias = _mask_bias(q.shape[1], k.shape[1], causal, window,
                           device=x.device)
         out = _sdpa(q, k, v, bias, cfg)
     out = out.reshape(B, S, cfg.q_dim)
     return out @ p["wo"].to(dt)
+
+
+def _blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: ModelConfig, causal: bool,
+                    window: int) -> torch.Tensor:
+    """Chunked attention: a loop over q blocks of ``cfg.attn_block_q`` rows,
+    each against all keys, so the (S x S) scores are never formed at once.
+
+    The loop takes the place of the reference's ``lax.scan``; the arithmetic
+    is its: kv heads repeated up to H, scores scaled in the compute dtype,
+    masked with ``NEG_INF`` by absolute position, softmax in fp32.  The q
+    rows padded up to a whole block are computed and sliced off.
+    """
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    if K != H:
+        k = k.repeat_interleave(H // K, dim=2)
+        v = v.repeat_interleave(H // K, dim=2)
+    bq = cfg.attn_block_q
+    Sp = -(-S // bq) * bq
+    if Sp != S:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    scale = _scale(dh, q.dtype)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    outs = []
+    for i in range(Sp // bq):
+        qi = q[:, i * bq:(i + 1) * bq]
+        s = (torch.einsum("bqhd,bshd->bhqs", qi, k) / scale).float()
+        qpos = i * bq + torch.arange(bq, device=q.device)[:, None]
+        ok = torch.ones((bq, S), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window > 0:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok[None, None], s, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhqs,bshd->bqhd", w, v))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+# --- decode with KV cache ----------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zeroed k and v of (L, batch, max_len, K, dh) in the compute dtype on
+    ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+
+
+def decode_attention(p: Params, x: torch.Tensor,
+                     layer_cache: Dict[str, torch.Tensor], pos: int,
+                     cfg: ModelConfig, *, window: int = 0
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode: write this token's k and v at ``pos``, attend over
+    the cache.
+
+    x (B, 1, D); ``layer_cache`` k/v (B, S_max, K, dh), one layer's view of
+    the stacked cache; ``pos`` an int.  **The cache is updated in place**:
+    the new row is written into ``layer_cache``'s tensors (and so into the
+    stacked cache they view), which are returned, so a caller that kept
+    them sees them change.  The reference builds a new cache with a select
+    over the whole sequence axis, a form its comment keeps for GSPMD's
+    partitioning; here that would read and write the whole cache every step.
+    The values are the same.  Keys at ``kpos <= pos`` (and, with a window,
+    ``kpos > pos - window``) are visible; the rest get an additive fp32
+    ``NEG_INF`` over the whole ``S_max``, as in the reference.
+    """
+    dt = cfg.compute_dtype
+    x = x.to(dt)
+    B = x.shape[0]
+    pos = int(pos)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg)
+    if cfg.pos_emb == "rope":
+        pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos_arr, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
+    k, v = layer_cache["k"], layer_cache["v"]
+    k[:, pos] = k_new[:, 0]
+    v[:, pos] = v_new[:, 0]
+    bias = _decode_bias(k.shape[1], pos, window, x.device)
+    out = _sdpa_grouped(q, k, v, bias, cfg)
+    out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(dt)
+    return out, {"k": k, "v": v}
+
+
+def _decode_bias(s_max: int, pos: int, window: int,
+                 device: torch.device) -> torch.Tensor:
+    """(1, s_max) additive fp32 mask of the token at ``pos``: keys at
+    ``kpos <= pos`` and, with a window, ``kpos > pos - window`` see 0, the
+    rest ``NEG_INF``."""
+    kpos = torch.arange(s_max, device=device)
+    ok = kpos <= pos
+    if window > 0:
+        ok = ok & (kpos > pos - window)
+    return torch.where(ok, 0.0, NEG_INF).float()[None, :]
+
+
+def _sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor], cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """Decode-path attention in the grouped (K, G) form, no kv repetition:
+    query head h reads kv head h // G.
+
+    q (B, Sq, H, dh), k/v (B, S, K, dh) -> (B, Sq, H, dh).  Scores scaled
+    in the compute dtype, softmax in fp32, weights cast to ``v.dtype``, as
+    the reference's ``_sdpa_grouped``.
+    """
+    B, Sq, H, dh = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / _scale(dh, q.dtype)
+    scores = scores.float()
+    if bias is not None:
+        scores = scores + bias
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(B, Sq, H, dh)

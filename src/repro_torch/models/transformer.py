@@ -1,23 +1,30 @@
-"""Decoder-only LM, dense family: the train / prefill forward.
+"""Decoder-only LM, dense family: the train / prefill forward and decode.
 
 The port of ``src/repro/models/transformer.py`` for ``family == "dense"``
 (GQA attention + SwiGLU FFN, llama/qwen style).  ``forward`` returns
 ``(logits, aux)`` as the reference does; aux is the MoE load-balance loss,
-0 for a dense model.  Parameters are nested dicts with ``blocks`` a list of
-per-layer dicts, and a Python loop over it takes the place of
-``lax.scan`` (``convert.lm_params_from_numpy`` unstacks the reference's
-scanned layout).  With ``cfg.use_flash`` every layer's attention runs the
-flash-attention CUDA kernel.
+0 for a dense model.  ``decode_step`` performs one-token decode against the
+KV cache ``init_cache`` builds, which it updates in place.  Parameters are
+nested dicts with ``blocks`` a list of per-layer dicts, and a Python loop
+over it takes the place of ``lax.scan`` (``convert.lm_params_from_numpy``
+unstacks the reference's scanned layout).  With ``cfg.use_flash`` every
+layer's prefill attention runs the flash-attention CUDA kernel, with
+``cfg.use_kernel_matmul`` every FFN product the blocked-matmul kernel.
+``cfg.remat`` recomputes each block in the backward: ``"full"`` keeps only
+the block's input, ``"dots"`` also the products' outputs.
 
-The MoE, hybrid and ssm families, rematerialisation and decode come with
-later slices (ROADMAP Queue 1, items 7-9): they raise here.
+The MoE, hybrid and ssm families come with later slices (ROADMAP Queue 1,
+items 8-9): they raise here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn_mod
@@ -28,19 +35,17 @@ from repro_torch.models.config import ModelConfig, Params
 
 #: where each family the port does not run yet stands in ROADMAP Queue 1
 _NOT_PORTED = {"moe": "item 8 (MoE)", "hybrid": "item 9 (recurrent families)",
-               "ssm": "item 9 (recurrent families)"}
+               "ssm": "item 9 (recurrent families)",
+               "encdec": "item 10 (enc-dec and VLM)",
+               "vlm": "item 10 (enc-dec and VLM)"}
 
 
 def _require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
-        where = _NOT_PORTED.get(cfg.family, "items 7-10")
+        where = _NOT_PORTED.get(cfg.family, "items 8-10")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP Queue 1, "
             f"{where}")
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (the forward has no "
-            f"backward in the port): ROADMAP Queue 1, item 3")
 
 
 def init_block(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -95,15 +100,92 @@ def _apply_dense_block(blk: Params, x: torch.Tensor,
     return x + ffn_mod.apply_ffn(blk["ffn"], h, cfg)
 
 
+#: the products whose outputs ``remat="dots"`` saves: the counterpart of
+#: ``checkpoint_dots_with_no_batch_dims``, which would recompute the
+#: attention's batched product too (the saved set changes memory, not values)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under activation checkpointing as ``cfg.remat`` asks: "full"
+    saves the inputs only, "dots" the products' outputs too; "none" is
+    ``fn``.  Remat changes memory, not values."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _DOTS))
+    if cfg.remat == "none":
+        return fn
+    raise ValueError(f"remat must be none, dots or full, got {cfg.remat!r}")
+
+
+def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The final norm, then the logits ``x @ head`` in the compute dtype."""
+    x = apply_norm(params["final_norm"], x, cfg)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(cfg.compute_dtype)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (logits (B, S, V) in compute dtype, aux fp32 0)."""
     _require_dense(cfg)
     x = _embed(params, tokens, cfg)
+    block = _maybe_remat(_apply_dense_block, cfg)
     for blk in params["blocks"]:
-        x = _apply_dense_block(blk, x, cfg)
+        x = block(blk, x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = apply_norm(params["final_norm"], x, cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(cfg.compute_dtype)
-    return logits, aux
+    return _head(params, x, cfg), aux
+
+
+# --- decode ------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The dense family's KV cache (``attention.init_kv_cache``) on
+    ``device`` (None: the card)."""
+    _require_dense(cfg)
+    return attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
+
+
+def _embed_decode(params: Params, tokens: torch.Tensor, pos: int,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The token rows in the compute dtype, plus the learned position row
+    at ``pos``."""
+    dt = cfg.compute_dtype
+    x = F.embedding(tokens, params["embed"]).to(dt)
+    if cfg.pos_emb == "learned":
+        x = x + params["pos_embed"][pos:pos + 1].to(dt)
+    return x
+
+
+def decode_step(params: Params, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: int, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens (B, 1) + cache + int pos -> (logits (B, 1, V), cache).
+
+    Each layer writes its k and v row at ``pos`` into its view of the
+    stacked cache, **in place** (``attention.decode_attention``), and the
+    same dict is returned: a caller that kept the cache sees it change.
+    The attention is the plain grouped contraction over the whole
+    ``S_max``, as in the reference (which takes the flash kernel only when
+    the query and key lengths agree, so ``use_flash`` launches nothing
+    here); with ``use_kernel_matmul`` the FFN products run the
+    blocked-matmul kernel.
+    """
+    _require_dense(cfg)
+    pos = int(pos)
+    x = _embed_decode(params, tokens, pos, cfg)
+    for i, blk in enumerate(params["blocks"]):
+        h = apply_norm(blk["attn_norm"], x, cfg)
+        a, _ = attn_mod.decode_attention(
+            blk["attn"], h, {"k": cache["k"][i], "v": cache["v"][i]}, pos,
+            cfg, window=cfg.sliding_window)
+        x = x + a
+        h = apply_norm(blk["ffn_norm"], x, cfg)
+        x = x + ffn_mod.apply_ffn(blk["ffn"], h, cfg)
+    return _head(params, x, cfg), cache

@@ -1,0 +1,76 @@
+"""Serving: prefill + batched single-token decode (``serve_step``).
+
+The port of ``src/repro/serve/engine.py`` for the dense family.
+``build_serve_step(cfg)`` returns the one-token decode function: given the
+params, the KV cache of the context so far, the current token batch and
+its position, it gives the logits and the cache, which it updates in place
+(``transformer.decode_step``).  ``greedy_generate`` prefills token by token
+through it and then decodes greedily.  The step runs eagerly, as
+``decode_step`` does: no ``torch.compile`` and no CUDA graph.
+
+Every other family raises through ``transformer``, naming its ROADMAP
+Queue 1 item (8-10).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.measure.timers import _synchronizer
+from repro_torch.models import transformer as lm_mod
+from repro_torch.models.config import ModelConfig, Params
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import REGISTRY
+
+
+def build_serve_step(cfg: ModelConfig) -> Callable:
+    """``serve_step(params, tokens (B, 1), cache, pos) -> (logits (B, 1, V),
+    cache)``."""
+    lm_mod._require_dense(cfg)
+
+    def serve_step(params, tokens, cache, pos):
+        return lm_mod.decode_step(params, tokens, cache, pos, cfg)
+
+    return serve_step
+
+
+def init_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int
+               ) -> Dict[str, torch.Tensor]:
+    """A zeroed cache for ``batch`` sequences of up to ``max_len`` tokens,
+    on the device of ``params``."""
+    lm_mod._require_dense(cfg)
+    return lm_mod.init_cache(cfg, batch, max_len,
+                             device=params["embed"].device)
+
+
+def greedy_generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
+                    steps: int, max_len: int) -> torch.Tensor:
+    """Prefill token by token, then greedy-decode ``steps`` tokens.
+
+    prompt (B, S) int -> (B, S + steps), in ``S + steps - 1`` decode steps
+    (the first takes ``prompt[:, :1]``).  Under ``torch.no_grad()``.  Each
+    step's time goes into ``REGISTRY.histogram("serve.step_seconds")``,
+    with a device synchronize inside the timed region, so the card is
+    charged for its work and not the enqueue; the whole run is one
+    ``serve.generate`` span.
+    """
+    B, S = prompt.shape
+    serve_step = build_serve_step(cfg)
+    cache = init_cache(params, cfg, B, max_len)
+    sync = _synchronizer(prompt.device)
+    tok = prompt[:, :1]
+    out = [tok]
+    step_hist = REGISTRY.histogram("serve.step_seconds")
+    with torch.no_grad(), trace.span("serve.generate", arch=cfg.name,
+                                     batch=B, prompt_len=S, steps=steps):
+        for t in range(S + steps - 1):
+            with step_hist.time():
+                logits, cache = serve_step(params, tok, cache, t)
+                sync()
+            if t + 1 < S:
+                tok = prompt[:, t + 1:t + 2]
+            else:
+                tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+            out.append(tok)
+    return torch.cat(out, dim=1)

@@ -1,8 +1,10 @@
-"""Train-step construction, as ``repro.train.loop``, for the mlp family.
+"""Train-step construction, as ``repro.train.loop``, for the mlp and dense
+families.
 
 ``build_train_step(cfg, optimizer)`` returns ``train_step(state, batch) ->
 (state, metrics)``; a batch is a dict of tensors (``features`` and
-``click`` for the mlp family).  The step is functional: it returns a new
+``click`` for the mlp family, ``tokens`` and ``labels`` for the dense
+one).  The step is functional: it returns a new
 state and leaves the old one as it was.
 
 Gradient sync.  The JAX step's sync is implicit in its global-mean loss
@@ -15,7 +17,9 @@ unchanged.  The params are a dict of tensors, not a ``Module``, so the sync
 is plain ``dist.all_reduce``, not ``DistributedDataParallel``.
 
 The other families, and gradient compression, raise naming the ROADMAP
-Queue 1 item that ports them.
+Queue 1 item that ports them.  The kernels are forward-only: a dense
+config with ``use_flash`` or ``use_kernel_matmul`` trains on the CPU's
+plain versions and raises on the card.
 """
 from __future__ import annotations
 
@@ -27,23 +31,27 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike
 from repro_torch.models import mlp_dlrm as mlp_mod
+from repro_torch.models import transformer as lm_mod
+from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace
 from repro_torch.optim.optimizer import apply_updates, global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 #: where each family that is not ported yet waits (ROADMAP Queue 1)
-_WAITS = {"dense": 7, "moe": 8, "ssm": 9, "hybrid": 9, "encdec": 10,
-          "vlm": 10}
+_WAITS = {"moe": 8, "ssm": 9, "hybrid": 9, "encdec": 10, "vlm": 10}
+#: the families the port trains
+_TRAINS = ("mlp", "dense")
 
 
-def _mlp_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "mlp":
+def _require_ported(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in _TRAINS:
         item = _WAITS.get(cfg.family)
         raise NotImplementedError(
             f"{what} for the {cfg.family!r} family ({cfg.name}) is not "
             f"ported yet" + (f": ROADMAP Queue 1 item {item}" if item
-                             else "") + "; the port trains the mlp family")
+                             else "") + "; the port trains the mlp and "
+            "dense families")
 
 
 class TrainState(NamedTuple):
@@ -55,13 +63,19 @@ class TrainState(NamedTuple):
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
     """Loss over one (micro)batch: ``(params, batch) -> (loss, metrics)``."""
-    _mlp_only(cfg, "the train loss")
+    _require_ported(cfg, "the train loss")
+
+    def lm_loss(params, batch):
+        logits, aux = lm_mod.forward(params, batch["tokens"], cfg)
+        ce = softmax_cross_entropy(logits, batch["labels"])
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
 
     def mlp_loss(params, batch):
         loss = mlp_mod.loss_fn(params, batch["features"], batch["click"], cfg)
         return loss, {"ce": loss, "aux": torch.zeros((), device=loss.device)}
 
-    return mlp_loss
+    return mlp_loss if cfg.family == "mlp" else lm_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,11 +152,13 @@ def build_train_step(cfg: ModelConfig, optimizer,
 
 def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
                      optimizer, device: DeviceLike = None) -> TrainState:
-    """Params from ``generator`` (``init_mlp``), a fresh optimizer state and
-    step 0 on ``device`` (None: the card)."""
-    _mlp_only(cfg, "the train state")
+    """Params from ``generator`` (``init_mlp``, or ``init_lm`` for the
+    dense family), a fresh optimizer state and step 0 on ``device`` (None:
+    the card)."""
+    _require_ported(cfg, "the train state")
+    init = mlp_mod.init_mlp if cfg.family == "mlp" else lm_mod.init_lm
     with trace.span("train.init_state", arch=cfg.name, family=cfg.family):
-        params = mlp_mod.init_mlp(cfg, generator, device=device)
+        params = init(cfg, generator, device=device)
         return TrainState(
             params=params, opt_state=optimizer.init(params),
             step=torch.zeros((), dtype=torch.int32,
@@ -151,5 +167,12 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def model_param_specs(cfg: ModelConfig):
-    _mlp_only(cfg, "param specs")
-    return mlp_mod.mlp_specs(cfg)
+    """The mlp family's specs; the dense family's (``lm_specs``) have no
+    reader before the port's mesh and come with it."""
+    if cfg.family == "mlp":
+        return mlp_mod.mlp_specs(cfg)
+    if cfg.family == "dense":
+        raise NotImplementedError(
+            f"param specs for the dense family ({cfg.name}) are not ported "
+            f"yet: ROADMAP Queue 1 item 12 (mesh and sharding)")
+    _require_ported(cfg, "param specs")

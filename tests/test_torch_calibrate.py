@@ -45,7 +45,8 @@ def _stream(mb, t_of):
 
 def _steps():
     return [_rec("train_step_a", "step", 6.7e7, 1.5e7, seconds=4e-5),
-            _rec("train_step_b", "step", 1.5e9, 9.6e7, seconds=2e-4)]
+            _rec("train_step_b", "step", 1.5e9, 9.6e7, seconds=2e-4),
+            _rec("serve_step_c", "step", 2.0e6, 3.0e6, seconds=3e-3)]
 
 
 SIZES = (64, 128, 256, 512, 1024, 2048)
@@ -222,10 +223,11 @@ def test_cli_fits_and_writes(tmp_path, monkeypatch, capsys):
     d = json.loads((tmp_path / "h100_sxm_fp32_cal.json").read_text())
     assert d["base"] == "h100_sxm_fp32"
     assert d["sources"]["net_bw"] == "datasheet"
-    assert d["validation"]["n"] == 2
+    assert d["validation"]["n"] == 3
     cells = sorted((tmp_path / "cells").iterdir())
     figs = sorted((tmp_path / "figs").iterdir())
     assert [p.name for p in cells] == [
+        "serve_step_c__serve_step_c__1__measured.json",
         "train_step_a__train_step_a__1__measured.json",
         "train_step_b__train_step_b__1__measured.json"]
     assert [p.name for p in figs] == ["calibration_h100_sxm_fp32_cal.svg",

@@ -46,7 +46,10 @@ def _rel_err(got, want):
                                  (130, 8, 520), (3000, 1024, 1000),
                                  (5000, 512, 2048),
                                  # fp32: K % 4 != 0 (f32_edge); 768^3
-                                 (64, 702, 128), (768, 768, 768)])
+                                 (64, 702, 128), (768, 768, 768),
+                                 # smollm-135m's decode FFN at B = 8, 64
+                                 (8, 576, 1536), (8, 1536, 576),
+                                 (64, 576, 1536), (64, 1536, 576)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_kernel_matches_plain_version(cuda, dtype, mkn, act, with_bias):
@@ -243,6 +246,65 @@ def test_lm_forward_launches_one_flash_kernel_per_layer(cuda):
     assert got.shape == (2, 200, 512) and torch.isfinite(got).all()
     # bf16: the kernel rounds unnormalised p, the plain path scores in bf16
     assert _rel_err(got, want) < 5e-2
+
+
+def test_kernels_refuse_autograd_on_the_card(cuda):
+    """The kernels give no gradient, so a CUDA input that requires grad
+    under grad mode raises instead of returning a result cut off from the
+    graph; under no_grad the same call launches."""
+    a = torch.randn((64, 64), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    q = torch.randn((1, 4, 64, 64), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn((1, 2, 64, 64), device=cuda, dtype=torch.bfloat16)
+    launches = (blocked_matmul.launches, flash_attention_bhsd.launches)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        blocked_matmul(a, a.detach())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention_bhsd(q, kv, kv)
+    assert (blocked_matmul.launches, flash_attention_bhsd.launches) == launches
+    with torch.no_grad():
+        blocked_matmul(a, a)
+        flash_attention_bhsd(q, kv, kv)
+    assert (blocked_matmul.launches, flash_attention_bhsd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    cfg = get_config("smollm-135m").replace(n_layers=2, vocab_size=512,
+                                            use_flash=True,
+                                            use_kernel_matmul=True)
+    from repro_torch.train.loop import make_loss_fn
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(0))
+    for p in params["blocks"][0]["ffn"].values():
+        p.requires_grad_(True)
+    toks = torch.randint(0, 512, (2, 65), device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        make_loss_fn(cfg)(params, {"tokens": toks[:, :-1],
+                                   "labels": toks[:, 1:]})
+
+
+def test_decode_step_launches_the_ffn_kernel_and_no_flash(cuda):
+    """Three blocked-matmul launches a layer a step (all sm90 in bf16),
+    no flash launch with use_flash on; the logits agree with the plain
+    path's decode."""
+    from repro_torch.kernels import blocked_matmul as bm
+    cfg = get_config("smollm-135m").replace(n_layers=2, vocab_size=512,
+                                            use_flash=True,
+                                            use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, 512, (8, 6), device=cuda)
+    caches = [transformer.init_cache(c, 8, 16) for c in (cfg, plain)]
+    before = (dict(bm.blocked_matmul.launches_by_variant),
+              flash_attention_bhsd.launches)
+    with torch.no_grad():
+        for t in range(6):
+            got, _ = transformer.decode_step(params, tokens[:, t:t + 1],
+                                             caches[0], t, cfg)
+            want, _ = transformer.decode_step(params, tokens[:, t:t + 1],
+                                              caches[1], t, plain)
+            assert _rel_err(got, want) < 2e-2
+    assert bm.blocked_matmul.launches_by_variant == {
+        **before[0], "sm90": before[0]["sm90"] + 6 * 3 * 2}
+    assert flash_attention_bhsd.launches == before[1]
 
 
 def _row_rel_err(got, want):

@@ -48,7 +48,9 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
             "repro_torch.obs.metrics", "repro_torch.obs.__main__",
             "repro_torch.core.ridgeline", "repro_torch.core.roofline",
             "repro_torch.core.report",
-            "repro_torch.core.sweep"} <= set(probe["names"])
+            "repro_torch.core.sweep", "repro_torch.serve",
+            "repro_torch.serve.engine", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 

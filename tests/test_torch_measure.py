@@ -189,7 +189,8 @@ def test_entry_points_raise_without_a_card():
                  lambda: timers.kernel_ms(lambda i: None),
                  lambda: mlp_params_from_numpy({"layers": [], "head": {}}),
                  lambda: microbench.default_suite(),
-                 lambda: microbench.train_step_bench()):
+                 lambda: microbench.train_step_bench(),
+                 lambda: microbench.serve_step_bench()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -202,6 +203,59 @@ def test_train_step_bench_counts_its_step_on_the_cpu():
     assert m.work.flops == 2.0 * 8 * 16 ** 2 * 5 + 6.0 * 8 * 16
     assert m.work.mem_bytes > 0 and m.work.net_bytes == 0.0
     assert dict(m.meta) == {"kind": "train_step", "arch": "dlrm-mlp"}
+
+
+def test_byte_counter_counts_views_and_unsafe_views_as_nothing():
+    from repro_torch.measure import counters
+    x = torch.ones((4, 6))
+    assert counters.count(lambda: x.view(24))[1] == 0.0
+    assert counters.count(
+        lambda: torch.ops.aten._unsafe_view(x, [24]))[1] == 0.0
+    assert counters.count(lambda: x * 2.0)[1] == 2 * x.numel() * 4
+    # einsum's permuted operand is cloned (read, written) and read by bmm
+    q, k = torch.ones((2, 1, 3, 16)), torch.ones((2, 64, 3, 16))
+    _, nbytes = counters.count(
+        lambda: torch.einsum("bqkd,bskd->bkqs", q, k))
+    assert nbytes >= 3 * k.numel() * 4
+
+
+def test_serve_step_bench_counts_its_step_on_the_cpu():
+    """The reference's name, category and meta; F counted while the reduced
+    smollm decode step runs: its products (q, k, v, o, the SwiGLU FFN, the
+    tied head) and the two attention contractions over the 64-slot cache."""
+    from repro_torch.configs import get_reduced
+    m = microbench.serve_step_bench(repeats=1, device="cpu")
+    assert m.work.name == "serve_step_smollm_b8"
+    assert m.category == "step" and m.backend == "cpu" and m.seconds > 0
+    assert dict(m.meta) == {"kind": "serve_step", "arch": "smollm-135m"}
+    c = get_reduced("smollm-135m")
+    d, f, V = c.d_model, c.d_ff, c.vocab_size
+    per_layer = d * (c.q_dim + 2 * c.kv_dim) + c.q_dim * d + 3 * d * f
+    products = 2.0 * 8 * (c.n_layers * per_layer + d * V)
+    attention = 4.0 * 8 * c.n_heads * 64 * c.dh * c.n_layers
+    assert m.work.flops == products + attention
+    assert m.work.mem_bytes > 0 and m.work.net_bytes == 0.0
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+def test_step_benches_are_the_references_points(smoke, monkeypatch):
+    calls = []
+    monkeypatch.setattr(microbench, "train_step_bench",
+                        lambda **kw: calls.append(("train", kw)) or _m(
+                            f"train{len(calls)}", 1.0, 1.0))
+    monkeypatch.setattr(microbench, "serve_step_bench",
+                        lambda **kw: calls.append(("serve", kw)) or _m(
+                            f"serve{len(calls)}", 1.0, 1.0))
+    ms = microbench.step_benches(smoke=smoke, repeats=2, passes=1,
+                                 device="cpu")
+    want = [("train", {}), ("train", dict(batch=256, width=512, layers=4)),
+            ("serve", {})]
+    if not smoke:
+        want.append(("serve", dict(batch=16, max_len=128)))
+    assert [(k, {n: v for n, v in kw.items()
+                 if n not in ("repeats", "device")}) for k, kw in calls] \
+        == want
+    assert len(ms) == len(want)
 
 
 def _m(name, seconds, best):

@@ -135,7 +135,10 @@ def _records(hill: bool):
                                       "arch": "dlrm-mlp"}),
              _rec("train_step_mlp_b256_w512x4", "step", 1.5e9, 9.6e7,
                   seconds=2e-4, meta={"kind": "train_step",
-                                      "arch": "dlrm-mlp"})]
+                                      "arch": "dlrm-mlp"}),
+             _rec("serve_step_smollm_b8", "step", 2.0e6, 3.0e6,
+                  seconds=3e-3, meta={"kind": "serve_step",
+                                      "arch": "smollm-135m"})]
     return recs
 
 
@@ -160,7 +163,7 @@ def test_overlay_matches_jax(hill, tmp_path):
     assert overlay.point_notes(got) == jax_overlay.point_notes(want)
     cells = overlay.measured_cell_reports(got)
     jcells = jax_overlay.measured_cell_reports(want)
-    assert len(cells) == 2
+    assert len(cells) == 3
     assert [c.to_json() for c in cells] == [c.to_json() for c in jcells]
     for c, m in zip(cells, got.validation_measurements):
         assert c.measured_rel_error == got.rel_error(m)
@@ -199,7 +202,9 @@ def test_cli_writes_entry_cells_and_figures_on_the_cpu(tmp_path):
     assert _tree(ROOT / "artifacts") == before
     entry = json.loads((out / "h100_sxm_fp32_cal.json").read_text())
     steps = entry["validation_measurements"]
-    assert len(steps) == 2
+    assert [m["name"] for m in steps] == [
+        "train_step_mlp_b64_w256x3", "train_step_mlp_b256_w512x4",
+        "serve_step_smollm_b8"]
     cells = report.load_reports(str(out / "cells"))
     assert sorted(c.shape for c in cells) == sorted(m["name"] for m in steps)
     assert all(c.variant == "measured" and c.measured_runtime > 0
@@ -226,7 +231,7 @@ def test_cli_figure_directory_follows_the_reference_rule(
     assert calibrate.main(["--device", "cpu"]) == 0
     assert sorted(os.listdir(tmp_path)) == ["figures_torch", "registry"]
     assert len(os.listdir(tmp_path / "figures_torch")) == 2
-    assert len(os.listdir(tmp_path / "registry" / "cells")) == 2
+    assert len(os.listdir(tmp_path / "registry" / "cells")) == 3
     monkeypatch.delenv("REPRO_TORCH_CALIBRATION_DIR")
     assert calibrate.main(["--device", "cpu", "--out",
                            str(tmp_path / "other")]) == 0

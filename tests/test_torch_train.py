@@ -117,8 +117,10 @@ def test_step_leaves_its_input_state_alone():
 
 
 def test_other_families_and_compression_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        loop.build_train_step(get_config("smollm-135m"), opt.AdamW())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        loop.build_train_step(get_config("whisper-tiny"), opt.AdamW())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        loop.model_param_specs(get_config("smollm-135m"))
     with pytest.raises(NotImplementedError, match="item 8"):
         loop.model_param_specs(get_config("qwen2-moe-a2.7b"))
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -171,6 +173,89 @@ def test_counted_flops_against_the_analytic_count(layers):
     # eager traffic: at least the fp32 params read and written and the two
     # AdamW moments read and written
     assert nbytes > 6 * 4 * sum(x.numel() for x in tree_leaves(state.params))
+
+
+# ---- the dense family: lm_loss and remat ---------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _lm_case():
+    """Reduced smollm-135m in fp32: JAX's ``init_lm`` tree filled from
+    numpy (norm scales moved off 1), and a batch of next-token labels."""
+    from repro.models import transformer as jax_tf
+    jcfg = jax_get_reduced("smollm-135m").replace(compute_dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda: jax_tf.init_lm(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(3)
+
+    def fill(path, s):
+        n = rng.standard_normal(s.shape)
+        if "scale" in jax.tree_util.keystr(path):
+            return (1.0 + 0.1 * n).astype(np.float32)
+        if "embed" in jax.tree_util.keystr(path):
+            return (0.02 * n).astype(np.float32)
+        return (n / np.sqrt(s.shape[-2])).astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(fill, shapes)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 9)).astype(np.int32)
+    return jcfg, tree, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _lm_grads(cfg, tree, batch):
+    from repro_torch.convert import lm_params_from_numpy
+    params = lm_params_from_numpy(tree, device="cpu")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss, metrics = loop.make_loss_fn(cfg)(
+        params, {k: torch.from_numpy(v).long() for k, v in batch.items()})
+    return loss, metrics, torch.autograd.grad(loss, leaves)
+
+
+def test_lm_loss_grads_match_jax_grad():
+    from repro_torch.convert import lm_params_from_numpy
+    jcfg, tree, batch = _lm_case()
+    cfg = get_reduced("smollm-135m").replace(compute_dtype=torch.float32)
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
+        jax_loop.make_loss_fn(jcfg), has_aux=True))(
+            jax.tree.map(jnp.asarray, tree),
+            jax.tree.map(jnp.asarray, batch))
+    loss, metrics, grads = _lm_grads(cfg, tree, batch)
+    assert _rel(loss.item(), float(jloss)) < TOL
+    assert _rel(metrics["ce"].item(), float(jm["ce"])) < TOL
+    assert float(metrics["aux"]) == float(jm["aux"]) == 0.0
+    # the reference's grads in the port's layout (blocks unstacked)
+    want = tree_leaves(lm_params_from_numpy(
+        jax.tree.map(np.asarray, jgrads), device="cpu"))
+    assert [g.shape for g in grads] == [w.shape for w in want]
+    scale = max(w.abs().max().item() for w in want)
+    assert max((g - w).abs().max().item()
+               for g, w in zip(grads, want)) / scale < TOL
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_gives_the_grads_of_none(remat):
+    _, tree, batch = _lm_case()
+    cfg = get_reduced("smollm-135m").replace(compute_dtype=torch.float32)
+    loss, _, want = _lm_grads(cfg, tree, batch)
+    got_loss, _, got = _lm_grads(cfg.replace(remat=remat), tree, batch)
+    assert got_loss.item() == loss.item()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+
+
+def test_dense_step_trains_on_the_cpu():
+    cfg = get_reduced("smollm-135m").replace(compute_dtype=torch.float32,
+                                             remat="dots")
+    o = opt.AdamW(learning_rate=1e-2)
+    state = loop.init_train_state(torch.Generator().manual_seed(0), cfg, o,
+                                  device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 9)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = loop.build_train_step(cfg, o)
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert int(state.step) == 3
 
 
 # ---- two processes over gloo -------------------------------------------------

@@ -178,7 +178,7 @@ def test_init_without_a_device_means_the_card(init):
 
 
 @pytest.mark.parametrize("change", [dict(family="moe"), dict(family="ssm"),
-                                    dict(remat="full")])
+                                    dict(family="hybrid")])
 def test_what_is_not_ported_raises(change):
     tree, tokens = _case()
     _, cfg = _cfgs("float32")
