@@ -8,6 +8,21 @@ against its plain PyTorch version on the card, and drives the port's main
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
+  moe_prefill qwen2-moe-a2.7b at full width and depth (24 layers, 60
+              routed experts top-4 and 4 shared, dh 128; 14.3 B fp32 params
+              drawn on the card from a seed, the card otherwise empty)
+              prefilling (4, 2048): every layer's attention in the flash
+              kernel at dh 128, the shared experts' products in the blocked
+              matmul, the routed experts' dispatch, expert and combine
+              products in cuBLAS as in the JAX package; the logits held to
+              the plain path's with its routing replayed
+              (``routes_replayed``), within twice the plain path's own
+              distance from fp32;
+  moe_decode  the same model serving B = 8 against a 2048-slot cache: 64
+              teacher-forced steps beside the plain path, greedy generation
+              through ``serve.engine.greedy_generate``, decode against the
+              forward where no choice is dropped (fp32), and the step timed,
+              profiled and counted at pos 2047;
   mlp_serve   the full 8 x 4096 DLRM MLP tower scoring batches of 256, 1024
               and 4096 requests through the fused GEMM + bias + ReLU kernel
               (its Hopper variant, sm90: TMA ring, wgmma, persistent grid);
@@ -58,12 +73,13 @@ after:
               construction must classify each point as the times do on the
               spec's bandwidth-only plane; the tables and the plane printed.
 
-Every blocked-matmul and flash-attention launch of the first three paths
-must take the sm90 variant (the decode's fp32 check the f32 variant, and no
-decode step any flash launch), every calibration GEMM the f32 variant (the
-wrappers count launches by variant).  It times the paths, places them on the
-Ridgeline plane of the H100 datasheet spec, times the flash kernel's
-earlier mma design beside the sm90 kernel at every prefill shape, the f32
+Every blocked-matmul and flash-attention launch of the MoE paths and the
+three after them must take the sm90 variant (the decode's fp32 check the
+f32 variant, and no decode step any flash launch), every calibration GEMM
+the f32 variant (the wrappers count launches by variant).  It times the
+paths, places them on the Ridgeline plane of the H100 datasheet spec,
+times the flash kernel's earlier mma design beside the sm90 kernel at
+every prefill shape, the f32
 GEMM's earlier design (f32_edge) beside it at every calibration size, the
 sm90 GEMM's tile options at every main-path shape and the f32 GEMM's at
 every calibration size, and the host cost of a launch.  Any failed check
@@ -79,6 +95,7 @@ reports them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -170,6 +187,27 @@ DECODE_TIMED = (8, 64)
 #: reads as the real kernel (PERF.md).  6e-2 is 2.4x the sound reading.
 #: fp32 (TF32 off): orders of summation only, as FLASH_TOL's 1e-4.
 DECODE_TOL = {torch.bfloat16: 6e-2, torch.float32: 1e-4}
+#: qwen2-moe-a2.7b, full width and depth (14.3 B fp32 params, drawn on the
+#: card): the prefill's token batch (four dispatch groups of 2048 tokens,
+#: C = 170); decode at B = MOE_B against a cache of MOE_MAX, MOE_TF steps
+#: teacher-forced, greedy MOE_PROMPT + MOE_NEW tokens, and decode against
+#: the forward with no choice dropped at MOE_NODROP (in fp32, DECODE_TOL)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PREFILL = (4, 2048)
+MOE_B, MOE_MAX, MOE_TF = 8, 2048, 64
+MOE_PROMPT, MOE_NEW = 32, 32
+MOE_NODROP = (8, 128)
+#: qwen2-moe's kernel-path logits against the plain path's (row_rel_err,
+#: with the plain routing replayed on the kernel path) within MOE_MARGIN x
+#: the plain bf16 path's own distance from the fp32 plain path on the same
+#: tokens and routing, measured in the same run.  A fixed bound such as
+#: LM_TOL does not hold here: over 24 layers of dh 128 the plain bf16 path
+#: itself lies 0.101-0.118 from the fp32 plain path by row (its scores are
+#: rounded to bf16 before the softmax, as the reference's are), the kernel
+#: path 0.088-0.093, the two 0.095-0.118 apart (PERF.md).  A planted flash
+#: fault moves the logits by 0.58-0.80 (chip_mutants.py at smollm-135m),
+#: far past 2 x 0.118
+MOE_MARGIN = 2.0
 #: the dlrm-mlp train step: 20 AdamW steps on one fixed batch of 1024, the
 #: step timed at three batches (256 below the bf16 ridge, 1024 and 4096
 #: above it)
@@ -232,6 +270,51 @@ def max_abs(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+@contextlib.contextmanager
+def routes_recorded(log: list):
+    """Append each ``moe.route`` call's expert indices to ``log`` while the
+    block runs; the routing itself is unchanged."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def recording(logits, cfg):
+        gates, idx, aux = real(logits, cfg)
+        log.append(idx)
+        return gates, idx, aux
+
+    moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = real
+
+
+@contextlib.contextmanager
+def routes_replayed(log: list):
+    """Make the block's ``moe.route`` calls take the expert indices of
+    ``log`` in turn, with gates from the caller's own probabilities,
+    renormalised as ``route`` does (``moe.gates_and_aux``).  Two paths that
+    round apart flip a near-tied top-k choice now and then, and one flipped
+    expert moves a token's output by far more than the rounding did: with
+    the choices replayed, the paths compare on the same routing.  Every
+    entry of ``log`` must be taken."""
+    from repro_torch.models import moe
+    real, calls = moe.route, iter(log)
+
+    def replaying(logits, cfg):
+        idx = next(calls)
+        probs = torch.softmax(logits.float(), dim=-1)
+        gates, aux = moe.gates_and_aux(probs, idx, cfg)
+        return gates, idx, aux
+
+    moe.route = replaying
+    try:
+        yield
+    finally:
+        moe.route = real
+    check(next(calls, None) is None, "a recorded routing was not replayed")
+
+
 def sm90_option(sm90, a: torch.Tensor, b: torch.Tensor, bias, act, plan):
     """One launch of ``sm90`` (the second entry point ``blocked_matmul.bind``
     returns) with the tiles of ``plan``, past the wrapper and its counters."""
@@ -282,6 +365,57 @@ def flash_option(fns, kind: str, q: torch.Tensor, k: torch.Tensor,
     rc = fa.launch(fns, kind, qt, kt, vt, out, True, 0, q.shape[1])
     check(rc == 0, f"flash {kind} failed at {tuple(q.shape)}: CUDA error {rc}")
     return out.transpose(1, 2)
+
+
+def flash_row(say, path: str, fns, gen: torch.Generator, B: int, S: int,
+              H: int, K: int, dh: int, launches: int) -> dict:
+    """The flash kernel at one causal bf16 prefill shape per launch: the
+    kernel, its plain version, the earlier mma design (called past the
+    wrapper, in turns: the kernel, mma, the kernel again) and the library's
+    one call (SDPA, a yardstick the port never calls), each checked against
+    the plain version: one row of the summary line, ``launches`` the main
+    path's launches at this shape.  q, k, v sit in L2 where they fit, as
+    the forward, which has just written them, finds them."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_flash_attention
+    from repro_torch.measure.timers import kernel_ms
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=gen.device)
+               .to(bf16) for n in (H, K, K))
+    k_ms = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
+    mma_ms = kernel_ms(lambda i: flash_option(fns, "mma", q, k, v), iters=20)
+    k_ms_again = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
+    p_ms = kernel_ms(lambda i: ref_flash_attention(q, k, v), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = kernel_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    want = ref_flash_attention(q, k, v)
+    got = ops.flash_attention(q, k, v)
+    err_abs, err = max_abs(got, want), row_rel_err(got, want)
+    check(err < FLASH_TOL[bf16],
+          f"flash kernel disagrees at {path}'s ({B},{S},{H},{K},{dh}): {err}")
+    e_mma = row_rel_err(flash_option(fns, "mma", q, k, v), want)
+    check(e_mma < FLASH_TOL[bf16],
+          f"flash mma disagrees at {path}'s ({B},{S},{H},{K},{dh}): {e_mma}")
+    flops, nbytes = attn_work(B, S, H, K, dh, True, 2)
+    b_ms, b_by = bound_of(flops, nbytes, H100_SXM)
+    say(f"  flash B={B} S={S} H={H} K={K} dh={dh} per launch: kernel "
+        f"(sm90) {k_ms:.4f} / {k_ms_again:.4f} ms "
+        f"({flops / k_ms / 1e9:.1f} TFLOP/s), earlier mma design "
+        f"{mma_ms:.4f} ms ({mma_ms / k_ms:.2f}x the kernel); plain "
+        f"{p_ms:.4f} ms, library SDPA {lib_ms:.4f} ms "
+        f"({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}), kernel at "
+        f"{100 * b_ms / k_ms:.1f}% of bound; {launches} {path} "
+        f"launches; max_abs_err {err_abs:.3e}, row_rel_err {err:.3e} "
+        f"(mma {e_mma:.3e}; tol {FLASH_TOL[bf16]:g})")
+    return {"path": path, "shape": [B, S, H, K, dh], "causal": True,
+            "launches": launches, "kernel_ms": k_ms,
+            "kernel_ms_again": k_ms_again, "mma_ms": mma_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes}
 
 
 def attn_work(B: int, S: int, H: int, K: int, dh: int, causal: bool,
@@ -530,15 +664,19 @@ def mlp_train(dev, say, cfg, rng: np.random.Generator) -> list:
 #: the blocked matmul's kernels, by the names the profiler shows
 OUR_GEMMS = ("gemm_sm90_kernel", "gemm_bf16_kernel", "gemm_f32_kernel",
              "gemm_f32_ring_kernel")
+#: the flash kernels, by the names the profiler shows
+OUR_FLASH = ("flash_sm90_kernel", "flash_bf16_kernel", "flash_f32_kernel")
 
 
 def op_split(fn) -> dict:
     """Card ms of one ``fn()`` by the profiler, split into the blocked
-    matmul (device rows whose name holds one of ``OUR_GEMMS``), cuBLAS products (the
-    kernels ``aten::mm`` and ``aten::addmm`` launch themselves), attention
-    contractions and softmax (``aten::bmm``, ``aten::_softmax``) and the
-    rest (elementwise ops, casts, the copies ``einsum`` makes, the gather);
-    ``total`` and the launches with it."""
+    matmul (device rows whose name holds one of ``OUR_GEMMS``), the flash
+    kernel (one of ``OUR_FLASH``), cuBLAS products (the kernels
+    ``aten::mm`` and ``aten::addmm`` launch themselves), batched products
+    (``aten::bmm``: a decode's attention contractions, an MoE layer's
+    dispatch, expert and combine products), the softmax (``aten::_softmax``)
+    and the rest (elementwise ops, casts, the copies ``einsum`` makes, the
+    gather); ``total`` and the launches with it."""
     from torch.autograd import DeviceType
     rows = profile_rows(fn)
     kern = [r for r in rows if r.device_type == DeviceType.CUDA]
@@ -551,10 +689,13 @@ def op_split(fn) -> dict:
     out = {"total": total, "launches": sum(r.count for r in kern),
            "kernel": sum(r.self_device_time_total for r in kern
                          if any(o in r.key for o in OUR_GEMMS)) / 1e3,
+           "flash": sum(r.self_device_time_total for r in kern
+                        if any(o in r.key for o in OUR_FLASH)) / 1e3,
            "cublas_products": by_op("aten::mm", "aten::addmm"),
-           "attention": by_op("aten::bmm", "aten::_softmax")}
-    out["rest"] = total - out["kernel"] - out["cublas_products"] \
-        - out["attention"]
+           "bmm": by_op("aten::bmm"), "softmax": by_op("aten::_softmax")}
+    out["rest"] = total - sum(out[n] for n in ("kernel", "flash",
+                                                "cublas_products", "bmm",
+                                                "softmax"))
     out["top"] = sorted(((r.key, r.count, r.self_device_time_total / 1e3)
                          for r in kern), key=lambda x: -x[2])[:12]
     return out
@@ -598,6 +739,62 @@ def ffn_row(say, path: str, a: torch.Tensor, ws: list, act, launches: int,
             "launches": launches, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": err_abs, "flops": flops, "bytes": nbytes}
+
+
+def hold_generation(say, gen_k: torch.Tensor, prompt: torch.Tensor,
+                    new: int, plain_step, tf_abs: float, gen_s: float,
+                    hist: dict) -> None:
+    """(b) of a decode path: ``gen_k``, what ``greedy_generate`` made of
+    ``prompt`` in ``new`` steps (``gen_s`` seconds, its step histogram
+    ``hist``), held to the plain path teacher-forced on it:
+    ``plain_step(t, tokens)`` is the plain step's logits (B, 1, V) at
+    position t.  Each path's logits lie within ``tf_abs`` of the other's
+    (the teacher-forced check), so at every generated step the kernel
+    path's token has a plain logit within 2 x tf_abs of the plain maximum.
+    Up to a sequence's first near-tie (plain top-2 gap within 2 x tf_abs)
+    its token is the plain argmax, so up to there it is the plain path's
+    own greedy generation (the rows of a batch never meet)."""
+    B, P = prompt.shape
+    check(gen_k.shape == (B, P + new) and torch.equal(gen_k[:, :P], prompt),
+          f"greedy_generate gave {tuple(gen_k.shape)}")
+    gaps, short, argmax = [], [], []
+    for t in range(P + new - 1):
+        lg = plain_step(t, gen_k[:, t:t + 1])
+        if t + 1 >= P:
+            row = lg[:, -1].float()
+            top2 = row.topk(2, dim=-1)
+            chosen = row.gather(1, gen_k[:, t + 1:t + 2].long())[:, 0]
+            gaps.append(top2.values[:, 0] - top2.values[:, 1])
+            short.append(top2.values[:, 0] - chosen)
+            argmax.append(top2.indices[:, 0] == gen_k[:, t + 1])
+    near = (torch.stack(gaps, dim=1) <= 2 * tf_abs).cpu()
+    short = torch.stack(short, dim=1).cpu()
+    same = torch.stack(argmax, dim=1).cpu()
+    ties = [int(r.nonzero()[0]) if r.any() else None for r in near]
+    upto = [new if j is None else j for j in ties]
+    say(f"  (b) greedy_generate B={B}, prompt {P}, +{new} "
+        f"tokens: {B * new / gen_s:.1f} tokens/s ({gen_s:.3f} s for "
+        f"{P + new - 1} steps); serve.step_seconds p50 "
+        f"{hist['p50'] * 1e3:.4f} ms, p90 {hist['p90'] * 1e3:.4f} ms "
+        f"(n={hist['count']})")
+    say(f"  (b) the plain path teacher-forced on the generated tokens: "
+        f"all {short.numel()} generated steps held; the chosen token's "
+        f"plain logit below the plain maximum by at most "
+        f"{float(short.max()):.4f} (limit 2 x {tf_abs:.4f}); the chosen "
+        f"token is the plain argmax at {int(same.sum())} steps; first "
+        f"near-tie (top-2 gap <= 2 x {tf_abs:.4f}) per sequence: "
+        + ", ".join("none" if j is None else f"step {j}" for j in ties)
+        + f" ({int(near.sum())} of {near.numel()} steps near-ties); the "
+        f"plain path's own generation up to there")
+    check(hist["count"] == P + new - 1,
+          f"serve.step_seconds counted {hist['count']} steps")
+    for r in range(B):
+        check(bool(same[r, :upto[r]].all()),
+              f"sequence {r}: a greedy token differs from the plain argmax "
+              f"before its first near-tie (step {ties[r]})")
+    check(float(short.max()) <= 2 * tf_abs,
+          f"a generated token's plain logit is {float(short.max())} below "
+          f"the plain maximum (limit 2 x {tf_abs})")
 
 
 @torch.no_grad()
@@ -646,9 +843,7 @@ def lm_decode(dev, say, params, cfg, tokens) -> tuple:
               for b in DECODE_TIMED}
 
     # ---- the main path: (a), (b), (c) -----------------------------------------
-    blocked_matmul.launches = 0
-    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
-    flash_attention_bhsd.launches = 0
+    reset_counts()
     cache = transformer.init_cache(dcfg, B, DECODE_MAX, device=dev)
     steps_seen, tf_rel, tf_abs = set(), 0.0, 0.0
     for t in range(DECODE_TF):
@@ -694,66 +889,18 @@ def lm_decode(dev, say, params, cfg, tokens) -> tuple:
     check(tf_rel < DECODE_TOL[torch.bfloat16],
           f"decode logits disagree with the prefill's: {tf_rel}")
 
-    # (b) the plain decode_step teacher-forced on greedy_generate's own
-    # tokens.  Each path's logits lie within tf_abs of the other's, so at
-    # every generated step the kernel path's token has a plain logit within
-    # 2 x tf_abs of the plain maximum.  Up to a sequence's first near-tie
-    # (plain top-2 gap within 2 x tf_abs) its token is the plain argmax, so
-    # up to there it is the plain path's own greedy generation (the rows of
-    # a batch never meet)
-    check(gen_k.shape == (B, GEN_PROMPT + GEN_NEW)
-          and torch.equal(gen_k[:, :GEN_PROMPT], prompt),
-          f"greedy_generate gave {tuple(gen_k.shape)}")
     cache = transformer.init_cache(plain, B, DECODE_MAX, device=dev)
-    gaps, short, argmax = [], [], []
-    for t in range(GEN_PROMPT + GEN_NEW - 1):
-        lg, cache = transformer.decode_step(params, gen_k[:, t:t + 1], cache,
-                                            t, plain)
-        if t + 1 >= GEN_PROMPT:
-            row = lg[:, -1].float()
-            top2 = row.topk(2, dim=-1)
-            chosen = row.gather(1, gen_k[:, t + 1:t + 2].long())[:, 0]
-            gaps.append(top2.values[:, 0] - top2.values[:, 1])
-            short.append(top2.values[:, 0] - chosen)
-            argmax.append(top2.indices[:, 0] == gen_k[:, t + 1])
+    hold_generation(say, gen_k, prompt, GEN_NEW, lambda t, tok:
+                    transformer.decode_step(params, tok, cache, t, plain)[0],
+                    tf_abs, gen_s, hist)
     del cache
-    near = (torch.stack(gaps, dim=1) <= 2 * tf_abs).cpu()
-    short = torch.stack(short, dim=1).cpu()
-    same = torch.stack(argmax, dim=1).cpu()
-    ties = [int(r.nonzero()[0]) if r.any() else None for r in near]
-    upto = [GEN_NEW if j is None else j for j in ties]
-    say(f"  (b) greedy_generate B={B}, prompt {GEN_PROMPT}, +{GEN_NEW} "
-        f"tokens: {B * GEN_NEW / gen_s:.1f} tokens/s ({gen_s:.3f} s for "
-        f"{GEN_PROMPT + GEN_NEW - 1} steps); serve.step_seconds p50 "
-        f"{hist['p50'] * 1e3:.4f} ms, p90 {hist['p90'] * 1e3:.4f} ms "
-        f"(n={hist['count']})")
-    say(f"  (b) the plain path teacher-forced on the generated tokens: "
-        f"all {short.numel()} generated steps held; the chosen token's "
-        f"plain logit below the plain maximum by at most "
-        f"{float(short.max()):.4f} (limit 2 x {tf_abs:.4f}); the chosen "
-        f"token is the plain argmax at {int(same.sum())} steps; first "
-        f"near-tie (top-2 gap <= 2 x {tf_abs:.4f}) per sequence: "
-        + ", ".join("none" if j is None else f"step {j}" for j in ties)
-        + f" ({int(near.sum())} of {near.numel()} steps near-ties); the "
-        f"plain path's own generation up to there")
-    check(hist["count"] == GEN_PROMPT + GEN_NEW - 1,
-          f"serve.step_seconds counted {hist['count']} steps")
-    for r in range(B):
-        check(bool(same[r, :upto[r]].all()),
-              f"sequence {r}: a greedy token differs from the plain argmax "
-              f"before its first near-tie (step {ties[r]})")
-    check(float(short.max()) <= 2 * tf_abs,
-          f"a generated token's plain logit is {float(short.max())} below "
-          f"the plain maximum (limit 2 x {tf_abs})")
 
     # (d) fp32: the f32 kernel, a path of its own
     c32 = dcfg.replace(compute_dtype=torch.float32)
     want = transformer.forward(params, toks[:, :DECODE_F32],
                                plain.replace(compute_dtype=torch.float32))[0]
     cache = transformer.init_cache(c32, B, DECODE_MAX, device=dev)
-    blocked_matmul.launches = 0
-    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
-    flash_attention_bhsd.launches = 0
+    reset_counts()
     f32_rel = 0.0
     for t in range(DECODE_F32):
         lg, cache = transformer.decode_step(params, toks[:, t:t + 1], cache,
@@ -817,16 +964,7 @@ def lm_decode(dev, say, params, cfg, tokens) -> tuple:
             f"of the host median; least bytes (fp32 params and the cache "
             f"read once, logits written) {least:.6g}: bound "
             f"{a_least.runtime * 1e3:.4f} ms")
-        say(f"  (e) B={b} profile of one step: {split['launches']} launches, "
-            f"{split['total']:.4f} ms of kernels ({100 * split['total'] / card:.1f}"
-            f"% of the card time); blocked matmul {split['kernel']:.4f} ms, "
-            f"cuBLAS products (q/k/v/o, lm head) "
-            f"{split['cublas_products']:.4f} ms, attention contractions and "
-            f"softmax {split['attention']:.4f} ms, elementwise, casts and "
-            f"copies {split['rest']:.4f} ms; by name, most first:")
-        for name, n, ms in split["top"]:
-            say(f"    {ms:9.4f} ms {100 * ms / split['total']:5.1f}% x{n:<4d} "
-                f"{name[:110]}")
+        say_split(say, f"(e) B={b} one step's", split, card)
     del caches
 
     # (f) each FFN shape per launch, every layer's weights in turn
@@ -859,6 +997,453 @@ def lm_decode(dev, say, params, cfg, tokens) -> tuple:
               f"the {path} rows cover {covered} launches, the path made "
               f"{made}")
     return paths, rows, placed
+
+
+def reset_counts() -> None:
+    """Every launch count of both wrappers to 0."""
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    for mod, fn in ((bm, bm.blocked_matmul), (fa, fa.flash_attention_bhsd)):
+        fn.launches = 0
+        fn.launches_by_variant = dict.fromkeys(mod.VARIANTS, 0)
+
+
+def topk_agreement(log_a: list, log_b: list) -> float:
+    """The share of (token, layer) pairs whose top-k expert sets agree
+    between two recorded routings of the same tokens."""
+    same = [(a.sort(-1).values == b.sort(-1).values).all(-1)
+            for a, b in zip(log_a, log_b, strict=True)]
+    return torch.cat(same).float().mean().item()
+
+
+def weight_casts(params) -> tuple:
+    """(the weight casts of one forward or decode step as a function of a
+    call index, their bytes): every matrix leaf but the embedding table
+    (whose rows are gathered, then cast) read in fp32, written in bf16."""
+    from repro_torch.tree import tree_leaves
+    mats = [w for w in tree_leaves(params)
+            if w.dim() >= 2 and w is not params["embed"]]
+
+    def casts(_i):
+        for w in mats:
+            w.to(torch.bfloat16)
+
+    return casts, 6.0 * sum(w.numel() for w in mats)
+
+
+def say_split(say, label: str, split: dict, card_ms: float) -> None:
+    """``op_split``'s reading of one forward or step, against its
+    unprofiled card time, and its costliest kernels by name."""
+    say(f"  {label} profile: {split['launches']} launches, "
+        f"{split['total']:.4f} ms of kernels "
+        f"({100 * split['total'] / card_ms:.1f}% of the card time "
+        f"{card_ms:.4f} ms); blocked matmul {split['kernel']:.4f} ms, flash "
+        f"{split['flash']:.4f} ms, cuBLAS mm (projections, head) "
+        f"{split['cublas_products']:.4f} ms, cuBLAS bmm (decode's attention; "
+        f"an MoE layer's dispatch, experts, combine) {split['bmm']:.4f} ms, "
+        f"softmax {split['softmax']:.4f} ms, the rest (weight casts, "
+        f"elementwise, einsum's copies, the gather) {split['rest']:.4f} ms; "
+        f"by name, most first:")
+    for name, n, ms in split["top"]:
+        say(f"    {ms:9.4f} ms {100 * ms / split['total']:5.1f}% x{n:<4d} "
+            f"{name[:110]}")
+
+
+@torch.no_grad()
+def moe_prefill(dev, say, params, cfg, tokens: torch.Tensor,
+                gen: torch.Generator) -> dict:
+    """The qwen2-moe-a2.7b prefill, full width and depth, bf16, with
+    ``use_flash`` (dh 128) and ``use_kernel_matmul`` (the shared experts):
+    (a) the main path, one forward of ``tokens`` with its routing recorded
+    (the routing unchanged), its counts set to 0 before and read after;
+    (b) the plain forward with its routing recorded, then the kernel forward
+    with that routing replayed, each token's logits row held to the plain
+    one within ``MOE_MARGIN`` x the plain path's distance from the fp32
+    plain forward (a sequence at a time), and the share of (token, layer)
+    top-k sets (a) chose as the plain forward did; (c) the forward timed (host, card),
+    its peak memory, the profiler's split, the weight casts alone, F and B_M
+    counted on the plain path, against the bound; (d) both kernels per
+    launch at the forward's shapes.  Returns the launches by variant, the
+    summary rows and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import (cuda_event_ms, kernel_ms,
+                                            time_callable)
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.common import count_params
+
+    kcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    (B, S), V, NL = tokens.shape, cfg.vocab_size, cfg.n_layers
+    H, K, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_model
+    T = B * S
+    Tg = min(cfg.moe_group_tokens, T)
+    n_params = count_params(params)
+    say(f"{cfg.name} prefill ({B}, {S}): {T // Tg} dispatch groups of {Tg} "
+        f"tokens, capacity {moe._capacity(Tg, cfg)} a group and expert; "
+        f"use_flash (dh {dh}) and use_kernel_matmul on")
+
+    # (a) the main path
+    reset_counts()
+    k_log = []
+    with routes_recorded(k_log):
+        logits, aux = transformer.forward(params, tokens, kcfg)
+    torch.cuda.synchronize()
+    mm_made = dict(bm.blocked_matmul.launches_by_variant)
+    fa_made = dict(fa.flash_attention_bhsd.launches_by_variant)
+    say(f"(a) main path, one forward: blocked_matmul by variant {mm_made}, "
+        f"flash by variant {fa_made}; aux {float(aux):.6f}")
+    check(logits.shape == (B, S, V) and torch.isfinite(logits).all().item()
+          and math.isfinite(float(aux)), "moe prefill logits malformed")
+    check(mm_made == {**dict.fromkeys(bm.VARIANTS, 0), "sm90": 3 * NL},
+          f"expected {3 * NL} sm90 blocked-matmul launches: {mm_made}")
+    check(fa_made == {**dict.fromkeys(fa.VARIANTS, 0), "sm90": NL},
+          f"expected {NL} sm90 flash launches: {fa_made}")
+    del logits
+
+    # (b) kernel path against plain path, on the plain path's routing; the
+    # bound from the plain path's own distance from fp32, a sequence (one
+    # dispatch group) at a time
+    p_log = []
+    with routes_recorded(p_log):
+        want = transformer.forward(params, tokens, plain)[0]
+    with routes_replayed(p_log):
+        got = transformer.forward(params, tokens, kcfg)[0]
+    f32 = plain.replace(compute_dtype=torch.float32)
+    check(Tg == S, f"a sequence alone is not one dispatch group: {Tg} != {S}")
+    errs, ref_errs, k32_errs, agree = [], [], [], []
+    for b in range(B):
+        with routes_replayed([r[b * S:(b + 1) * S] for r in p_log]):
+            exact = transformer.forward(params, tokens[b:b + 1], f32)[0][0]
+        errs.append(row_rel_err(got[b], want[b]))
+        ref_errs.append(row_rel_err(want[b], exact))
+        k32_errs.append(row_rel_err(got[b], exact))
+        agree.append((got[b].argmax(-1) == want[b].argmax(-1)).float()
+                     .mean().item())
+        del exact
+    del got, want
+    same_sets = topk_agreement(k_log, p_log)
+    tol = MOE_MARGIN * max(ref_errs)
+    say(f"(b) logits, kernel path vs plain path with the plain routing "
+        f"replayed, row_rel_err by sequence: "
+        + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {MOE_MARGIN:g} x "
+        f"{max(ref_errs):.3e} = {tol:.3e}; {LM_TOL:g} held: "
+        f"{max(errs) < LM_TOL}); the plain path vs the fp32 plain path "
+        + ", ".join(f"{e:.3e}" for e in ref_errs) + "; the kernel path vs "
+        "fp32 " + ", ".join(f"{e:.3e}" for e in k32_errs) + "; argmax "
+        f"agrees on " + ", ".join(f"{100 * a:.2f}%" for a in agree)
+        + f" of rows; unreplayed, (a) chose the plain path's top-"
+        f"{cfg.moe_top_k} set at {100 * same_sets:.3f}% of {len(k_log)} x "
+        f"{T} (layer, token) pairs")
+    check(max(errs) < tol, f"moe prefill logits disagree: {max(errs)}")
+
+    # (c) timed, profiled, counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    transformer.forward(params, tokens, kcfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    host = time_callable(transformer.forward, params, tokens, kcfg,
+                         device=dev, repeats=10, warmup=1)
+    p90 = float(np.percentile(host.samples, 90))
+    card = cuda_event_ms(lambda i: transformer.forward(params, tokens, kcfg),
+                         iters=5, warmup=1)
+    plain_card = cuda_event_ms(
+        lambda i: transformer.forward(params, tokens, plain), iters=3,
+        warmup=1)
+    casts, cast_bytes = weight_casts(params)
+    cast_ms = kernel_ms(casts, iters=3, warmup=1)
+    split = op_split(lambda: transformer.forward(params, tokens, kcfg))
+    check(split["kernel"] > 0 and split["flash"] > 0,
+          f"the profiler saw neither kernel: {split}")
+    flops, nbytes = counters.count(transformer.forward, params, tokens, plain)
+    least = 4.0 * n_params + 2.0 * T * V + 8.0 * T
+    a_least = analyze(WorkUnit(f"moe_prefill_b{B}_s{S}", flops, least, 0.0),
+                      H100_SXM)
+    a_counted = analyze(WorkUnit(f"moe_prefill_b{B}_s{S}_counted", flops,
+                                 nbytes, 0.0), H100_SXM)
+    say(f"(c) forward: host median {host.median * 1e3:.4f} ms, p90 "
+        f"{p90 * 1e3:.4f} ms (n={len(host.samples)}), "
+        f"{T / host.median:.0f} tokens/s; card {card:.4f} ms; plain path "
+        f"card {plain_card:.4f} ms; peak memory allocated {peak / 1e9:.3f} GB"
+        f"; counted F {flops:.6g}, B_M {nbytes:.6g} (plain path, eager ops)")
+    say(f"(c) h100_sxm, least bytes (fp32 params once, logits written) "
+        f"{least:.6g}: {a_least.summary()}, bound "
+        f"{a_least.runtime * 1e3:.4f} ms = "
+        f"{100 * a_least.runtime / host.median:.1f}% of the host median; "
+        f"with the counted B_M: bound {a_counted.runtime * 1e3:.4f} ms "
+        f"({a_counted.bottleneck.value}); the weight casts alone "
+        f"{cast_ms:.4f} ms for {cast_bytes:.6g} bytes "
+        f"({cast_bytes / cast_ms / 1e9:.3f} TB/s)")
+    say_split(say, "(c) one forward's", split, card)
+
+    # (d) per launch at the forward's shapes
+    flash_rows = [flash_row(say, "moe_prefill", fa._launcher(), gen, B, S, H,
+                            K, dh, NL)]
+    shared = [blk["moe"]["shared"] for blk in params["blocks"]]
+    ws = {n: [sh[n].to(torch.bfloat16) for sh in shared]
+          for n in ("w_gate", "w_up", "w_down")}
+    f = ws["w_down"][0].shape[0]
+    x_in = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+    x_mid = torch.randn((T, f), generator=gen, device=dev).to(torch.bfloat16)
+    mm_rows = [ffn_row(say, "moe_prefill", a_, w, act, NL, H100_SXM)
+               for a_, w, act in ((x_in, ws["w_gate"], "silu"),
+                                  (x_in, ws["w_up"], None),
+                                  (x_mid, ws["w_down"], None))]
+    del ws, x_in, x_mid
+    point = {
+        "arch": cfg.name, "shape": f"prefill_b{B}_s{S}", "mesh": "1",
+        "kind": "prefill", "variant": "use_flash+use_kernel_matmul",
+        "flops": flops, "mem_bytes": least, "wire_bytes": 0.0, "by_kind": {},
+        "peak": float(peak), "params": float(n_params), "tokens": float(T),
+        "seconds": host.median, "main": True,
+        "source": "chip_smoke moe_prefill host median",
+        "notes": "F counted on the plain path; least bytes: params once, "
+                 "logits written"}
+    return {"blocked_matmul": mm_made, "flash": fa_made,
+            "mm_rows": mm_rows, "flash_rows": flash_rows, "point": point}
+
+
+@torch.no_grad()
+def moe_decode(dev, say, params, cfg, rng: np.random.Generator,
+               gen: torch.Generator) -> dict:
+    """The qwen2-moe-a2.7b serving path, B = ``MOE_B`` against a cache of
+    ``MOE_MAX``, bf16, the shared experts' products in the blocked matmul
+    (``use_kernel_matmul``; ``use_flash`` stays on and must launch nothing).
+    The main path, its counts set to 0 before (a) and read after (c):
+    (a) ``MOE_TF`` teacher-forced steps of the kernel path, each after the
+    plain path's step on the same tokens with its routing recorded and
+    replayed, the logits held row by row within ``MOE_MARGIN`` x the plain
+    step's distance from the fp32 plain step; (b)
+    ``serve.engine.greedy_generate`` of ``MOE_PROMPT`` + ``MOE_NEW``
+    tokens with its routing recorded, every generated token held to the
+    plain path teacher-forced on the generated tokens with that routing;
+    (c) one step at the cache's last position.  Then (d) decode against
+    the forward where no choice is dropped (``capacity_factor = E / k``,
+    ``MOE_NODROP``), in fp32 on the plain path, the forward's routing
+    replayed per step; (e) the step at
+    the cache's last position timed, profiled and counted; (f) the shared
+    experts' products per launch.  Returns the blocked matmul's launches by
+    variant, the summary rows and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import (cuda_event_ms, kernel_ms,
+                                            time_callable)
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.common import count_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve import engine
+
+    V, NL, k, d = cfg.vocab_size, cfg.n_layers, cfg.moe_top_k, cfg.d_model
+    dcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    B, per_step = MOE_B, 3 * NL
+    n_params = count_params(params)
+    mm, flash = bm.blocked_matmul, fa.flash_attention_bhsd
+    toks = torch.from_numpy(rng.integers(0, V, (B, MOE_TF))).to(dev)
+    last = torch.from_numpy(rng.integers(0, V, (B, 1))).to(dev)
+    say(f"{cfg.name} decode: B={B}, cache {MOE_MAX}, one dispatch group of "
+        f"the step's {B} tokens (capacity {moe._capacity(B, cfg)}); "
+        f"{MOE_TF} teacher-forced steps, greedy {MOE_PROMPT} + {MOE_NEW}, "
+        f"the step at pos {MOE_MAX - 1}")
+
+    # ---- the main path: (a), (b), (c) -----------------------------------------
+    f32 = plain.replace(compute_dtype=torch.float32)
+    reset_counts()
+    ck = transformer.init_cache(dcfg, B, MOE_MAX, device=dev)
+    cp = transformer.init_cache(plain, B, MOE_MAX, device=dev)
+    c32 = transformer.init_cache(f32, B, MOE_TF, device=dev)
+    steps_seen, tf_rel, tf_abs, ref_rel = set(), 0.0, 0.0, 0.0
+    for t in range(MOE_TF):
+        log = []
+        with routes_recorded(log):
+            want = transformer.decode_step(params, toks[:, t:t + 1], cp, t,
+                                           plain)[0]
+        with routes_replayed(log):
+            exact = transformer.decode_step(params, toks[:, t:t + 1], c32, t,
+                                            f32)[0]
+        ref_rel = max(ref_rel, row_rel_err(want[:, 0], exact[:, 0]))
+        m0, f0 = mm.launches, flash.launches
+        with routes_replayed(log):
+            lg, out = transformer.decode_step(params, toks[:, t:t + 1], ck, t,
+                                              dcfg)
+        steps_seen.add((mm.launches - m0, flash.launches - f0))
+        check(out is ck and lg.shape == (B, 1, V)
+              and torch.isfinite(lg).all().item(),
+              f"moe decode step {t}: logits malformed or the cache replaced")
+        tf_rel = max(tf_rel, row_rel_err(lg[:, 0], want[:, 0]))
+        tf_abs = max(tf_abs, max_abs(lg[:, 0], want[:, 0]))
+    del ck, cp, c32
+    REGISTRY.reset()
+    prompt, g_log = toks[:, :MOE_PROMPT], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routes_recorded(g_log):
+        gen_k = engine.greedy_generate(params, dcfg, prompt, steps=MOE_NEW,
+                                       max_len=MOE_MAX)
+    gen_s = time.perf_counter() - t0
+    hist = REGISTRY.snapshot()["histograms"]["serve.step_seconds"]
+    cache = transformer.init_cache(dcfg, B, MOE_MAX, device=dev)
+    transformer.decode_step(params, last, cache, MOE_MAX - 1, dcfg)
+    torch.cuda.synchronize()
+    n_steps = MOE_TF + MOE_PROMPT + MOE_NEW - 1 + 1
+    launched = dict(mm.launches_by_variant)
+    say(f"(blocked_matmul, flash) launches per teacher-forced step "
+        f"{sorted(steps_seen)}; main path ({n_steps} steps): blocked_matmul "
+        f"by variant {launched}, flash {flash.launches}")
+    check(steps_seen == {(per_step, 0)},
+          f"expected {per_step} blocked-matmul launches and no flash launch "
+          f"a step, got {steps_seen}")
+    check(launched == {**dict.fromkeys(bm.VARIANTS, 0),
+                       "sm90": per_step * n_steps} and flash.launches == 0,
+          f"every moe decode launch must take the sm90 kernel and none the "
+          f"flash kernel: {launched}, flash {flash.launches}")
+    tol = MOE_MARGIN * ref_rel
+    say(f"  (a) teacher-forced logits, kernel path vs plain path with the "
+        f"plain routing replayed, over {MOE_TF} steps: row_rel_err "
+        f"{tf_rel:.3e} (tol {MOE_MARGIN:g} x {ref_rel:.3e} = {tol:.3e}, the "
+        f"plain path's distance from the fp32 plain path; "
+        f"{DECODE_TOL[torch.bfloat16]:g} held: "
+        f"{tf_rel < DECODE_TOL[torch.bfloat16]}), max_abs_err {tf_abs:.4f}")
+    check(tf_rel < tol,
+          f"moe decode logits disagree with the plain path's: {tf_rel}")
+    cp = transformer.init_cache(plain, B, MOE_MAX, device=dev)
+    with routes_replayed(g_log):
+        hold_generation(say, gen_k, prompt, MOE_NEW, lambda t, tok:
+                        transformer.decode_step(params, tok, cp, t, plain)[0],
+                        tf_abs, gen_s, hist)
+    del cp
+
+    # (d) decode against the forward where no choice is dropped, in fp32 on
+    # the plain path: the semantics alone (the cache, positions, a dispatch
+    # group of the step's B tokens), not the roundings
+    nd = f32.replace(capacity_factor=cfg.n_experts / k)
+    Bn, Sn = MOE_NODROP
+    check(moe._capacity(Bn, nd) >= Bn and moe._capacity(Bn * Sn, nd)
+          >= Bn * Sn, "the no-drop check's capacity drops choices")
+    ntoks = torch.from_numpy(rng.integers(0, V, (Bn, Sn))).to(dev)
+    f_log = []
+    with routes_recorded(f_log):
+        full = transformer.forward(params, ntoks, nd)[0]
+    per_call = [f_log[i].view(Bn, Sn, k)[:, t]
+                for t in range(Sn) for i in range(NL)]
+    nc = transformer.init_cache(nd, Bn, Sn, device=dev)
+    nd_rel = 0.0
+    with routes_replayed(per_call):
+        for t in range(Sn):
+            lg = transformer.decode_step(params, ntoks[:, t:t + 1], nc, t,
+                                         nd)[0]
+            nd_rel = max(nd_rel, row_rel_err(lg[:, 0], full[:, t]))
+    del full, nc
+    say(f"  (d) capacity_factor {nd.capacity_factor:g} (no drops), fp32: "
+        f"decode of ({Bn}, {Sn}) tokens against the forward's rows, the "
+        f"forward's routing replayed: row_rel_err {nd_rel:.3e} (tol "
+        f"{DECODE_TOL[torch.float32]:g})")
+    check(nd_rel < DECODE_TOL[torch.float32],
+          f"moe decode disagrees with the forward without drops: {nd_rel}")
+
+    # (e) the step at the cache's last position, timed, profiled, counted
+    pos = MOE_MAX - 1
+    host = time_callable(transformer.decode_step, params, last, cache, pos,
+                         dcfg, device=dev, repeats=10, warmup=2)
+    p90 = float(np.percentile(host.samples, 90))
+    plain_host = time_callable(transformer.decode_step, params, last, cache,
+                               pos, plain, device=dev, repeats=5, warmup=1)
+    card = cuda_event_ms(lambda i: transformer.decode_step(
+        params, last, cache, pos, dcfg), iters=5, warmup=1)
+    m0 = mm.launches
+    transformer.decode_step(params, last, cache, pos, dcfg)
+    n_launch = mm.launches - m0
+    casts, cast_bytes = weight_casts(params)
+    cast_ms = kernel_ms(casts, iters=3, warmup=1)
+    split = op_split(lambda: transformer.decode_step(params, last, cache, pos,
+                                                     dcfg))
+    check(split["kernel"] > 0, f"the profiler saw no kernel time: {split}")
+    flops, nbytes = counters.count(transformer.decode_step, params, last,
+                                   cache, pos, plain)
+    cache_bytes = 2.0 * cache["k"].numel() * cache["k"].element_size()
+    least = 4.0 * n_params + cache_bytes + 2.0 * B * V
+    a = analyze(WorkUnit(f"moe_decode_b{B}", flops, nbytes, 0.0), H100_SXM)
+    a_least = analyze(WorkUnit(f"moe_decode_b{B}_least", flops, least, 0.0),
+                      H100_SXM)
+    say(f"  (e) B={B} step at pos {pos}: host median "
+        f"{host.median * 1e3:.4f} ms, p90 {p90 * 1e3:.4f} ms "
+        f"(n={len(host.samples)}), {B / host.median:.1f} tokens/s; card "
+        f"{card:.4f} ms; plain path host {plain_host.median * 1e3:.4f} ms; "
+        f"{n_launch} blocked-matmul launches a step; counted F {flops:.6g}, "
+        f"B_M {nbytes:.6g} (plain path, eager ops; the KV cache "
+        f"{cache_bytes:.6g}); h100_sxm: {a.summary()}, bound "
+        f"{a.runtime * 1e3:.4f} ms = {100 * a.runtime / host.median:.1f}% of "
+        f"the host median; least bytes (fp32 params and the cache read once, "
+        f"logits written) {least:.6g}: bound {a_least.runtime * 1e3:.4f} ms; "
+        f"the weight casts alone {cast_ms:.4f} ms for {cast_bytes:.6g} bytes")
+    say_split(say, f"(e) B={B} one step's", split, card)
+    check(n_launch == per_step, f"{n_launch} launches in the timed step")
+    del cache
+
+    # (f) the shared experts' products per launch, each layer's in turn
+    shared = [blk["moe"]["shared"] for blk in params["blocks"]]
+    ws = {n: [sh[n].to(torch.bfloat16) for sh in shared]
+          for n in ("w_gate", "w_up", "w_down")}
+    f = ws["w_down"][0].shape[0]
+    x_in = torch.randn((B, d), generator=gen, device=dev).to(torch.bfloat16)
+    x_mid = torch.randn((B, f), generator=gen, device=dev).to(torch.bfloat16)
+    rows = [ffn_row(say, "moe_decode", a_, w, act, NL * n_steps, H100_SXM)
+            for a_, w, act in ((x_in, ws["w_gate"], "silu"),
+                               (x_in, ws["w_up"], None),
+                               (x_mid, ws["w_down"], None))]
+    del ws
+    point = {
+        "arch": cfg.name, "shape": f"decode_b{B}_s{MOE_MAX}", "mesh": "1",
+        "kind": "decode", "variant": "use_kernel_matmul", "flops": flops,
+        "mem_bytes": nbytes, "wire_bytes": 0.0, "by_kind": {}, "peak": 0.0,
+        "params": float(n_params), "tokens": float(B),
+        "seconds": host.median, "main": True,
+        "source": "chip_smoke moe_decode host median",
+        "notes": "one step at the cache's last position; F and B_M counted "
+                 "on the plain path"}
+    return {"blocked_matmul": launched, "mm_rows": rows, "point": point}
+
+
+def moe_paths(dev, say, gen: torch.Generator) -> tuple:
+    """qwen2-moe-a2.7b at full width and depth on the card: its weights
+    drawn there from a seeded ``torch.Generator`` (fp32, 57 GB), then the
+    ``moe_prefill`` and ``moe_decode`` phases; the weights are dropped and
+    the allocator's cache emptied before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+
+    phase("moe_prefill")
+    cfg = get_config(MOE_ARCH)
+    say(f"card before the MoE paths: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    t0 = time.perf_counter()
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    say(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.dh}, "
+        f"{cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff "
+        f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared (one FFN of "
+        f"{cfg.moe_d_ff * cfg.n_shared_experts}), vocab {cfg.vocab_size}; "
+        f"{count_params(params)} fp32 params drawn on the card from seed 0 "
+        f"in {time.perf_counter() - t0:.2f}s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           MOE_PREFILL)).to(dev)
+    pre = moe_prefill(dev, say, params, cfg, tokens, gen)
+    phase("moe_decode")
+    dec = moe_decode(dev, say, params, cfg, rng, gen)
+    del params, tokens
+    torch.cuda.empty_cache()
+    return pre, dec
 
 
 def f32_row(dev, say, s: int, launches: int, path: str) -> dict:
@@ -1342,7 +1927,12 @@ def main() -> int:
     say("worst row_rel_err: " + ", ".join(
         f"{str(d)[6:]} {var} {v:.3e}" for (d, var), v in worst.items()))
 
-    # ---- 5. mlp_serve: the first main path ----------------------------------------
+    # ---- 5-6. moe_prefill and moe_decode: the MoE paths, on an empty card ----
+    del a, b, bias, got, want, a3, b3, flat, q, k, v, clean_k, clean_v
+    torch.cuda.empty_cache()
+    moe_pre, moe_dec = moe_paths(dev, say, gen)
+
+    # ---- 7. mlp_serve: the first main path ----------------------------------------
     phase("mlp_serve")
     from repro_torch.configs import get_config
     from repro_torch.convert import mlp_params_from_numpy
@@ -1361,8 +1951,7 @@ def main() -> int:
         f"params {str(cfg.param_dtype)[6:]}, batches {BATCHES}")
 
     # the main path: each batch scored once through the kernel path
-    blocked_matmul.launches = 0
-    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
+    reset_counts()
     logits = {}
     per_forward = []
     for B in BATCHES:
@@ -1466,14 +2055,13 @@ def main() -> int:
     mlp_params = float(sum(x.numel() for x in tree_leaves(params)))
     for p in points:
         p.update(peak=float(peak), params=mlp_params)
+    points += [moe_pre["point"], moe_dec["point"]]
     say(f"peak memory allocated {peak / 1e9:.3f} GB; weight casts "
         f"{cast_ms:.4f} ms per forward (bound "
         f"{L * 6.0 * (W * W + W) / H100_SXM.hbm_bw * 1e3:.4f} ms)")
 
-    # ---- 6. lm_prefill: the second main path ----------------------------------------
+    # ---- 8. lm_prefill: the second main path ----------------------------------------
     phase("lm_prefill")
-    import torch.nn.functional as F
-
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import transformer
     from repro_torch.models.common import count_params
@@ -1499,10 +2087,7 @@ def main() -> int:
     # the main path: each batch prefilled once with use_flash, and the timed
     # batch once more with the FFN products in the blocked-matmul kernel too
     runs = [(bs, lm_cfg) for bs in PREFILL] + [(PREFILL[0], lm_kmm)]
-    flash_attention_bhsd.launches = 0
-    flash_attention_bhsd.launches_by_variant = dict.fromkeys(fa.VARIANTS, 0)
-    blocked_matmul.launches = 0
-    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
+    reset_counts()
     lm_logits, per_fwd = [], []
     for bs, c in runs:
         f0, m0 = flash_attention_bhsd.launches, blocked_matmul.launches
@@ -1610,51 +2195,12 @@ def main() -> int:
             say(f"    {ms:9.4f} ms {100 * ms / kern_ms:5.1f}% x{n:<4d} "
                 f"{name[:110]}")
 
-    # per launch, at each main-path shape: the kernel, its plain version,
-    # the earlier mma design (called past the wrapper, in turns: the kernel,
-    # mma, the kernel again), and the library's one call (SDPA, timed as a
-    # yardstick only: the port never calls it); q, k, v of (8, 2048) are
-    # 31 MB, so they sit in L2, as they do in the forward, which has just
-    # written them
+    # the flash kernel per launch at each main-path shape (``flash_row``);
+    # q, k, v of (8, 2048) are 31 MB, so they sit in L2
     flash_fns = fa._launcher()
-    flash_rows = []
-    for B, S in PREFILL:
-        n_launch = NL * sum(1 for bs, _ in runs if bs == (B, S))
-        q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=dev).to(bf16)
-                   for n in (H, K, K))
-        k_ms = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
-        mma_ms = kernel_ms(lambda i: flash_option(flash_fns, "mma", q, k, v),
-                           iters=20)
-        k_ms_again = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
-        p_ms = kernel_ms(lambda i: ref_flash_attention(q, k, v), iters=5)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = kernel_ms(lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-        want = ref_flash_attention(q, k, v)
-        got = ops.flash_attention(q, k, v)
-        err_abs, err = max_abs(got, want), row_rel_err(got, want)
-        check(err < FLASH_TOL[bf16],
-              f"flash kernel disagrees at the prefill's ({B},{S}): {err}")
-        e_mma = row_rel_err(flash_option(flash_fns, "mma", q, k, v), want)
-        check(e_mma < FLASH_TOL[bf16],
-              f"flash mma disagrees at the prefill's ({B},{S}): {e_mma}")
-        flops, nbytes = attn_work(B, S, H, K, dh, True, 2)
-        b_ms, b_by = bound_of(flops, nbytes, H100_SXM)
-        flash_rows.append({
-            "path": "lm_prefill", "shape": [B, S, H, K, dh], "causal": True,
-            "launches": n_launch, "kernel_ms": k_ms,
-            "kernel_ms_again": k_ms_again, "mma_ms": mma_ms, "plain_ms": p_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err_abs, "flops": flops, "bytes": nbytes})
-        say(f"  flash B={B} S={S} H={H} K={K} dh={dh} per launch: kernel "
-            f"(sm90) {k_ms:.4f} / {k_ms_again:.4f} ms "
-            f"({flops / k_ms / 1e9:.1f} TFLOP/s), earlier mma design "
-            f"{mma_ms:.4f} ms ({mma_ms / k_ms:.2f}x the kernel); plain "
-            f"{p_ms:.4f} ms, library SDPA {lib_ms:.4f} ms "
-            f"({k_ms / lib_ms:.2f}x); bound {b_ms:.4f} ms ({b_by}), kernel at "
-            f"{100 * b_ms / k_ms:.1f}% of bound; {n_launch} main-path "
-            f"launches; max_abs_err {err_abs:.3e}, row_rel_err {err:.3e} "
-            f"(mma {e_mma:.3e}; tol {FLASH_TOL[bf16]:g})")
+    flash_rows = [flash_row(say, "lm_prefill", flash_fns, gen, B, S, H, K, dh,
+                            NL * sum(1 for bs, _ in runs if bs == (B, S)))
+                  for B, S in PREFILL]
     attn_ms = NL * flash_rows[0]["kernel_ms"]
     say(f"  B={B0} S={S0}: {NL} flash launches take {attn_ms:.4f} ms = "
         f"{100 * attn_ms / lm_ev:.1f}% of the forward's card time")
@@ -1669,13 +2215,12 @@ def main() -> int:
                                     (x_in, ffn["w_up"], None),
                                     (x_mid, ffn["w_down"], None))]
 
-    # ---- 7. lm_decode: the third main path ---------------------------------------
+    # ---- 9. lm_decode: the third main path ---------------------------------------
     phase("lm_decode")
     dec_paths, dec_rows, dec_placed = lm_decode(
         dev, say, lm_params, lm_cfg, tokens[PREFILL[0]])
     dec_variants = {v: sum(made[v] for made in dec_paths.values())
                     for v in bm.VARIANTS}
-    dec_launches = sum(dec_variants.values())
     for p in dec_placed:
         b = p["batch"]
         points.append({
@@ -1689,10 +2234,9 @@ def main() -> int:
             "notes": "one step at the cache's last position; F and B_M "
                      "counted on the plain path"})
 
-    # ---- 8. mlp_train: the fourth main path -------------------------------------
+    # ---- 10. mlp_train: the fourth main path -------------------------------------
     phase("mlp_train")
-    for counted in (blocked_matmul, flash_attention_bhsd):
-        counted.launches = 0
+    reset_counts()
     placed = mlp_train(dev, say, get_config("dlrm-mlp"),
                        np.random.default_rng(2))
     torch.cuda.synchronize()
@@ -1723,11 +2267,9 @@ def main() -> int:
                 "main": True, "source": "chip_smoke mlp_train host median",
                 "notes": "one card, no all-reduce in the measured step"})
 
-    # ---- 9. calibrate: the fifth main path -------------------------------------
+    # ---- 11. calibrate: the fifth main path -------------------------------------
     phase("calibrate")
-    blocked_matmul.launches = 0
-    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
-    flash_attention_bhsd.launches = 0
+    reset_counts()
     cal_variants, f32_rows, cal_calib = calibrate(dev, say, card, placed,
                                                   get_config("dlrm-mlp"))
     cal_launches = sum(r["launches"] for r in f32_rows)
@@ -1738,17 +2280,14 @@ def main() -> int:
           f"the calibration GEMMs must each launch the f32 kernel once: "
           f"{cal_variants}")
 
-    # ---- 10. calibrate_cli: the sixth main path ---------------------------------
+    # ---- 12. calibrate_cli: the sixth main path ---------------------------------
     phase("calibrate_cli")
     tmp = tempfile.TemporaryDirectory()
-    blocked_matmul.launches = 0
-    blocked_matmul.launches_by_variant = dict.fromkeys(bm.VARIANTS, 0)
-    flash_attention_bhsd.launches = 0
+    reset_counts()
     cli_variants, cli_rows, cli_calib, cli_ms = calibrate_cli(
         dev, say, tmp.name, cal_calib)
-    cli_launches = sum(r["launches"] for r in cli_rows)
 
-    # ---- 11. ridgeline: every main path's points on the plane -------------------
+    # ---- 13. ridgeline: every main path's points on the plane -------------------
     phase("ridgeline")
     for m in cli_ms:
         points.append({
@@ -1763,15 +2302,16 @@ def main() -> int:
     ridgeline(say, tmp.name, points, cli_calib.spec())
     tmp.cleanup()
 
-    # ---- 12. tile_options -----------------------------------------------------
+    # ---- 14. tile_options -----------------------------------------------------
     phase("tile_options")
     # the sm90 kernel at every main-path shape under each tile width and
     # order, beside tile_plan's choice (PERF.md reads the rule off these);
     # each call takes the next of 8 weights, as a forward's layers do
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sm90 = bm._launcher().sm90
-    for row in per_batch + ffn_rows + [r for r in dec_rows
-                                       if r["dtype"] == "bf16"]:
+    for row in (per_batch + ffn_rows + [r for r in dec_rows
+                                        if r["dtype"] == "bf16"]
+                + moe_pre["mm_rows"] + moe_dec["mm_rows"]):
         M, Kd, N = row["shape"]
         a_ = torch.randn((M, Kd), generator=gen, device=dev).to(bf16)
         bs_ = [(torch.randn((Kd, N), generator=gen, device=dev)
@@ -1793,7 +2333,7 @@ def main() -> int:
             + ", ".join(f"{tuple(p)} {t:.4f}" for t, p in timed))
     del a_, bs_
 
-    # ---- 13. f32_options ------------------------------------------------------
+    # ---- 15. f32_options ------------------------------------------------------
     phase("f32_options")
     # the f32 kernel at every calibration size under each tile, beside
     # f32_plan's choice (PERF.md reads the rule off these)
@@ -1811,7 +2351,7 @@ def main() -> int:
             + ", ".join(f"{t.bm}x{t.bn} {ms:.4f}" for t, ms in timed.items()))
     del a_, b_
 
-    # ---- 14. microbench -------------------------------------------------------
+    # ---- 16. microbench -------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
     # tensor-map encoding, ctypes call), enqueue only, beside one torch call
@@ -1875,20 +2415,25 @@ def main() -> int:
                if all("mma_ms" in r for r in rows) else {}),
             "card": card, "per_launch": rows}
 
+    mm_paths = (mlp_variants, lm_variants, dec_variants, cal_variants,
+                cli_variants, moe_pre["blocked_matmul"],
+                moe_dec["blocked_matmul"])
     summary = {"kernels": [
         entry("blocked_matmul",
               "src/repro_torch/kernels/csrc/blocked_matmul.cu",
               "src/repro/kernels/blocked_matmul.py:57",
-              main_launches + lm_launches["blocked_matmul"] + dec_launches
-              + cal_launches + cli_launches,
-              per_batch + ffn_rows + dec_rows + f32_rows + cli_rows,
-              {v: mlp_variants[v] + lm_variants[v] + dec_variants[v]
-               + cal_variants[v] + cli_variants[v] for v in bm.VARIANTS}),
+              sum(sum(made.values()) for made in mm_paths),
+              per_batch + ffn_rows + dec_rows + f32_rows + cli_rows
+              + moe_pre["mm_rows"] + moe_dec["mm_rows"],
+              {v: sum(made[v] for made in mm_paths) for v in bm.VARIANTS}),
         entry("flash_attention_bhsd",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
-              lm_launches["flash_attention_bhsd"], flash_rows,
-              flash_variants),
+              lm_launches["flash_attention_bhsd"]
+              + sum(moe_pre["flash"].values()),
+              flash_rows + moe_pre["flash_rows"],
+              {v: flash_variants[v] + moe_pre["flash"][v]
+               for v in fa.VARIANTS}),
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Per-chip all-reduce cost (α–β accounting), copied from
-``repro.distributed.collectives``.
+"""Per-chip collective costs (α–β accounting), copied from
+``repro.distributed.collectives``: the all-reduce, and the reduce-scatter
+and the all-to-all that an expert-parallel MoE layer's dispatch prices.
 
 ``payload_bytes`` is the full reduced tensor; ``group_size`` ``n`` may be a
 float (``math.inf`` gives the paper's large-n asymptote, 2·payload on a
@@ -9,6 +10,10 @@ its busiest link:
   ring    2·(n−1)/n · payload, 2·(n−1) hops  (reduce-scatter + all-gather)
   bidir   (n−1)/n · payload, n−1 hops        (two half-payload rings)
   tree    2·payload (n>1), 2·⌈log2 n⌉ hops   (send up + forward down)
+
+A reduce-scatter sends (n−1)/n · payload in n−1 hops; an all-to-all, whose
+payload is the bytes each chip holds, keeps 1/n of them local and sends the
+rest in the same profile.
 
 With a per-hop latency α, ``CollectiveCost.time`` is
 ``α·steps + wire_bytes/link_bw``.  The functions broadcast over numpy
@@ -98,3 +103,16 @@ def all_reduce(payload_bytes: ArrayLike, group_size: ArrayLike,
         return CollectiveCost(2.0 * _active(n) * p, 2.0 * _log2_steps(n))
     raise ValueError(f"unknown all-reduce algorithm {algorithm!r}; "
                      f"have {ALGORITHMS}")
+
+
+def reduce_scatter(payload_bytes: ArrayLike,
+                   group_size: ArrayLike) -> CollectiveCost:
+    p = np.asarray(payload_bytes, dtype=np.float64)
+    n = np.asarray(group_size, dtype=np.float64)
+    return CollectiveCost(_ring_factor(n) * p, np.maximum(n - 1.0, 0.0))
+
+
+def all_to_all(payload_bytes: ArrayLike,
+               group_size: ArrayLike) -> CollectiveCost:
+    """payload = per-chip resident bytes; each chip keeps 1/n of it local."""
+    return reduce_scatter(payload_bytes, group_size)

@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --reduced --batch 4 --prompt-len 8 --new-tokens 32 [--device cpu]
 
-The port of ``repro.launch.serve``: random params from ``--seed`` and a
-random prompt from ``--seed + 1`` (``torch.Generator`` streams, not JAX's),
-then ``serve.engine.greedy_generate``.  ``--device`` defaults to the card;
+The port of ``repro.launch.serve``: random params from ``--seed`` on a
+generator of the target device (on the card, so a full-width model is not
+drawn on the host first) and a random prompt from ``--seed + 1`` on the CPU
+(``torch.Generator`` streams, not JAX's), then
+``serve.engine.greedy_generate``.  ``--device`` defaults to the card;
 the CPU runs only when asked.  A mesh other than ``1x1`` waits for the
 port's sharding (ROADMAP Queue 1, item 12).
 """
@@ -46,7 +48,7 @@ def main(argv=None) -> int:
         cfg = cfg.replace(compute_dtype=torch.float32)
     dev = resolve_device(args.device)
 
-    params = init_lm(cfg, torch.Generator().manual_seed(args.seed),
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                      device=dev)
     prompt = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -1,20 +1,24 @@
-"""Decoder-only LM, dense family: the train / prefill forward and decode.
+"""Decoder-only LM, dense and MoE families: the train / prefill forward and
+decode.
 
 The port of ``src/repro/models/transformer.py`` for ``family == "dense"``
-(GQA attention + SwiGLU FFN, llama/qwen style).  ``forward`` returns
-``(logits, aux)`` as the reference does; aux is the MoE load-balance loss,
-0 for a dense model.  ``decode_step`` performs one-token decode against the
+(GQA attention + SwiGLU FFN, llama/qwen style) and ``family == "moe"``
+(GQA attention + the top-k MoE FFN of ``models/moe.py``, shared experts
+optional).  ``forward`` returns ``(logits, aux)`` as the reference does;
+aux is the MoE load-balance loss summed over the layers in fp32, 0 for a
+dense model.  ``decode_step`` performs one-token decode against the
 KV cache ``init_cache`` builds, which it updates in place.  Parameters are
 nested dicts with ``blocks`` a list of per-layer dicts, and a Python loop
 over it takes the place of ``lax.scan`` (``convert.lm_params_from_numpy``
 unstacks the reference's scanned layout).  With ``cfg.use_flash`` every
 layer's prefill attention runs the flash-attention CUDA kernel, with
-``cfg.use_kernel_matmul`` every FFN product the blocked-matmul kernel.
+``cfg.use_kernel_matmul`` every dense FFN product (an MoE layer's shared
+experts included) the blocked-matmul kernel.
 ``cfg.remat`` recomputes each block in the backward: ``"full"`` keeps only
 the block's input, ``"dots"`` also the products' outputs.
 
-The MoE, hybrid and ssm families come with later slices (ROADMAP Queue 1,
-items 8-9): they raise here.
+The hybrid and ssm families come with a later slice (ROADMAP Queue 1,
+item 9), enc-dec and VLM with item 10: they raise here.
 """
 from __future__ import annotations
 
@@ -29,20 +33,25 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, init_rng)
 from repro_torch.models.config import ModelConfig, Params
 
 #: where each family the port does not run yet stands in ROADMAP Queue 1
-_NOT_PORTED = {"moe": "item 8 (MoE)", "hybrid": "item 9 (recurrent families)",
+_NOT_PORTED = {"hybrid": "item 9 (recurrent families)",
                "ssm": "item 9 (recurrent families)",
                "encdec": "item 10 (enc-dec and VLM)",
                "vlm": "item 10 (enc-dec and VLM)"}
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        where = _NOT_PORTED.get(cfg.family, "items 8-10")
+#: the families this module runs
+_PORTED = ("dense", "moe")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in _PORTED:
+        where = _NOT_PORTED.get(cfg.family, "items 9-10")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP Queue 1, "
             f"{where}")
@@ -51,12 +60,16 @@ def _require_dense(cfg: ModelConfig) -> None:
 def init_block(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device: DeviceLike = None) -> Params:
     gen, dev = init_rng(generator, device)
-    return {
+    p = {
         "attn_norm": init_norm(cfg, device=dev),
         "attn": attn_mod.init_attention(cfg, gen, dev),
         "ffn_norm": init_norm(cfg, device=dev),
-        "ffn": ffn_mod.init_ffn(cfg, gen, dev),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe(cfg, gen, dev)
+    else:
+        p["ffn"] = ffn_mod.init_ffn(cfg, gen, dev)
+    return p
 
 
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -64,7 +77,7 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """fp32 weights drawn from ``generator`` (default: a CPU generator at
     its default seed) and placed on ``device`` (None: the card, which must
     be there); blocks as a list."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     gen, dev = init_rng(generator, device)
     p: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev)}
@@ -90,14 +103,24 @@ def _embed(params: Params, tokens: torch.Tensor,
     return x
 
 
-def _apply_dense_block(blk: Params, x: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
-    """One pre-norm block; a dense block adds nothing to aux."""
+def _apply_ffn_or_moe(blk: Params, h: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the normed ``h``: (out, aux fp32), aux None for a
+    dense FFN (it adds nothing, and no op is spent on a zero)."""
+    if "moe" in blk:
+        return moe_mod.apply_moe(blk["moe"], h, cfg)
+    return ffn_mod.apply_ffn(blk["ffn"], h, cfg), None
+
+
+def _apply_dense_block(blk: Params, x: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-norm block -> (x, the block's aux or None)."""
     h = apply_norm(blk["attn_norm"], x, cfg)
     x = x + attn_mod.apply_attention(blk["attn"], h, cfg,
                                      window=cfg.sliding_window)
     h = apply_norm(blk["ffn_norm"], x, cfg)
-    return x + ffn_mod.apply_ffn(blk["ffn"], h, cfg)
+    out, aux = _apply_ffn_or_moe(blk, h, cfg)
+    return x + out, aux
 
 
 #: the products whose outputs ``remat="dots"`` saves: the counterpart of
@@ -132,13 +155,16 @@ def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) int -> (logits (B, S, V) in compute dtype, aux fp32 0)."""
-    _require_dense(cfg)
+    """tokens (B, S) int -> (logits (B, S, V) in compute dtype, aux fp32:
+    the layers' load-balance losses summed, 0 for a dense model)."""
+    _require_ported(cfg)
     x = _embed(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = _maybe_remat(_apply_dense_block, cfg)
     for blk in params["blocks"]:
-        x = block(blk, x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = block(blk, x, cfg)
+        if a is not None:
+            aux = aux + a
     return _head(params, x, cfg), aux
 
 
@@ -146,9 +172,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The dense family's KV cache (``attention.init_kv_cache``) on
-    ``device`` (None: the card)."""
-    _require_dense(cfg)
+    """The KV cache of the dense and MoE families
+    (``attention.init_kv_cache``) on ``device`` (None: the card)."""
+    _require_ported(cfg)
     return attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
 
 
@@ -175,9 +201,11 @@ def decode_step(params: Params, tokens: torch.Tensor,
     ``S_max``, as in the reference (which takes the flash kernel only when
     the query and key lengths agree, so ``use_flash`` launches nothing
     here); with ``use_kernel_matmul`` the FFN products run the
-    blocked-matmul kernel.
+    blocked-matmul kernel.  An MoE layer dispatches the step's B tokens as
+    one group (the reference's ``apply_moe`` on the (B, 1, D) batch), and
+    its aux is dropped.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     pos = int(pos)
     x = _embed_decode(params, tokens, pos, cfg)
     for i, blk in enumerate(params["blocks"]):
@@ -187,5 +215,5 @@ def decode_step(params: Params, tokens: torch.Tensor,
             cfg, window=cfg.sliding_window)
         x = x + a
         h = apply_norm(blk["ffn_norm"], x, cfg)
-        x = x + ffn_mod.apply_ffn(blk["ffn"], h, cfg)
+        x = x + _apply_ffn_or_moe(blk, h, cfg)[0]
     return _head(params, x, cfg), cache

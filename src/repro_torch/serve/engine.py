@@ -1,6 +1,6 @@
 """Serving: prefill + batched single-token decode (``serve_step``).
 
-The port of ``src/repro/serve/engine.py`` for the dense family.
+The port of ``src/repro/serve/engine.py`` for the dense and MoE families.
 ``build_serve_step(cfg)`` returns the one-token decode function: given the
 params, the KV cache of the context so far, the current token batch and
 its position, it gives the logits and the cache, which it updates in place
@@ -9,7 +9,7 @@ through it and then decodes greedily.  The step runs eagerly, as
 ``decode_step`` does: no ``torch.compile`` and no CUDA graph.
 
 Every other family raises through ``transformer``, naming its ROADMAP
-Queue 1 item (8-10).
+Queue 1 item (9-10).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from repro_torch.obs.metrics import REGISTRY
 def build_serve_step(cfg: ModelConfig) -> Callable:
     """``serve_step(params, tokens (B, 1), cache, pos) -> (logits (B, 1, V),
     cache)``."""
-    lm_mod._require_dense(cfg)
+    lm_mod._require_ported(cfg)
 
     def serve_step(params, tokens, cache, pos):
         return lm_mod.decode_step(params, tokens, cache, pos, cfg)
@@ -39,7 +39,7 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int
                ) -> Dict[str, torch.Tensor]:
     """A zeroed cache for ``batch`` sequences of up to ``max_len`` tokens,
     on the device of ``params``."""
-    lm_mod._require_dense(cfg)
+    lm_mod._require_ported(cfg)
     return lm_mod.init_cache(cfg, batch, max_len,
                              device=params["embed"].device)
 

@@ -1,5 +1,6 @@
 """Train-step construction, as ``repro.train.loop``, for the mlp and dense
-families.
+families.  The moe family serves (``models/moe.py``) but does not train
+yet: its train step waits for ROADMAP Queue 1 item 8 (MoE training).
 
 ``build_train_step(cfg, optimizer)`` returns ``train_step(state, batch) ->
 (state, metrics)``; a batch is a dict of tensors (``features`` and
@@ -39,7 +40,8 @@ from repro_torch.optim.optimizer import apply_updates, global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 #: where each family that is not ported yet waits (ROADMAP Queue 1)
-_WAITS = {"moe": 8, "ssm": 9, "hybrid": 9, "encdec": 10, "vlm": 10}
+_WAITS = {"moe": "8 (MoE training)", "ssm": 9, "hybrid": 9, "encdec": 10,
+          "vlm": 10}
 #: the families the port trains
 _TRAINS = ("mlp", "dense")
 

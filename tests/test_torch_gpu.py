@@ -453,3 +453,46 @@ def test_calibration_gemms_launch_the_f32_kernel(cuda):
     assert blocked_matmul.launches_by_variant == {
         **before, "f32": before["f32"] + 2 * 4}
     assert bm.variant(256, 256, 256, torch.float32, True) == "f32"
+
+
+def test_moe_kernel_path_matches_the_plain_path_on_its_routing(cuda):
+    """The reduced qwen2-moe widened to dh 128 (a head dim the flash kernel
+    takes) on the card: the kernel path (``use_flash``; the shared experts'
+    products in the blocked matmul) against the plain path, with the plain
+    path's routing replayed (``chip_smoke.routes_replayed``), so a near-tied
+    top-k choice that the two roundings break apart does not count.  Two
+    flash and six sm90 launches a forward; six and no flash a decode step."""
+    from chip_smoke import LM_TOL, routes_recorded, routes_replayed, \
+        row_rel_err
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import blocked_matmul as bm
+    cfg = get_reduced("qwen2-moe-a2.7b").replace(
+        d_model=256, n_heads=2, n_kv_heads=2, moe_d_ff=64,
+        n_shared_experts=2, use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    params = transformer.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, 512, (2, 256), device=cuda)
+    mm, flash = bm.blocked_matmul, flash_attention_bhsd
+    with torch.no_grad():
+        log = []
+        with routes_recorded(log):
+            want, _ = transformer.forward(params, tokens, plain)
+        before = (dict(mm.launches_by_variant), flash.launches)
+        with routes_replayed(log):
+            got, aux = transformer.forward(params, tokens, cfg)
+        assert mm.launches_by_variant == {**before[0],
+                                          "sm90": before[0]["sm90"] + 6}
+        assert flash.launches == before[1] + 2
+        assert got.shape == (2, 256, 512) and torch.isfinite(aux)
+        assert row_rel_err(got, want) < LM_TOL
+        caches = [transformer.init_cache(c, 2, 8) for c in (cfg, plain)]
+        for t in range(8):
+            tok, log = tokens[:, t:t + 1], []
+            with routes_recorded(log):
+                want, _ = transformer.decode_step(params, tok, caches[1], t,
+                                                  plain)
+            m0, f0 = mm.launches, flash.launches
+            with routes_replayed(log):
+                got, _ = transformer.decode_step(params, tok, caches[0], t, cfg)
+            assert (mm.launches - m0, flash.launches - f0) == (6, 0)
+            assert row_rel_err(got, want) < LM_TOL

@@ -50,7 +50,8 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
             "repro_torch.core.report",
             "repro_torch.core.sweep", "repro_torch.serve",
             "repro_torch.serve.engine", "repro_torch.launch",
-            "repro_torch.launch.serve"} <= set(probe["names"])
+            "repro_torch.launch.serve",
+            "repro_torch.models.moe"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 

@@ -177,7 +177,7 @@ def test_init_without_a_device_means_the_card(init):
                                                   jax.tree.leaves(q)))
 
 
-@pytest.mark.parametrize("change", [dict(family="moe"), dict(family="ssm"),
+@pytest.mark.parametrize("change", [dict(family="encdec"), dict(family="ssm"),
                                     dict(family="hybrid")])
 def test_what_is_not_ported_raises(change):
     tree, tokens = _case()
