@@ -23,6 +23,26 @@ after:
               through ``serve.engine.greedy_generate``, decode against the
               forward where no choice is dropped (fp32), and the step timed,
               profiled and counted at pos 2047;
+  hybrid_prefill
+              hymba-1.5b at full width and depth (32 layers of attention
+              and Mamba heads in parallel, 1.35 B fp32 params drawn on the
+              card) prefilling (8, 2048), the FFN products in the blocked
+              matmul and the windowed attention the plain masked form, as
+              in the JAX package; the logits held to the plain path's
+              within max(LM_TOL, 2 x the plain path's own distance from
+              fp32) (``recurrent_rule``);
+  hybrid_decode
+              the same model serving B = 8 against a 2048-slot cache (the
+              local layers' rings of 1024 slots): 64 teacher-forced steps,
+              greedy generation, the rings past their wrap at a depth cut to
+              2 layers in fp32, and the step timed, profiled and counted at
+              pos 2047 on a full, wrapped cache;
+  xlstm_prefill, xlstm_decode
+              xlstm-125m at full width and depth (mLSTM blocks, sLSTM at
+              layers 3 and 11; no kernel of the port on its path, as in the
+              JAX package): the prefill (8, 2048) timed, counted and
+              profiled, the card against the CPU; decode at B = 8 teacher-
+              forced in bf16 and fp32, greedy generation, the step timed;
   mlp_serve   the full 8 x 4096 DLRM MLP tower scoring batches of 256, 1024
               and 4096 requests through the fused GEMM + bias + ReLU kernel
               (its Hopper variant, sm90: TMA ring, wgmma, persistent grid);
@@ -73,8 +93,9 @@ after:
               construction must classify each point as the times do on the
               spec's bandwidth-only plane; the tables and the plane printed.
 
-Every blocked-matmul and flash-attention launch of the MoE paths and the
-three after them must take the sm90 variant (the decode's fp32 check the
+Every blocked-matmul and flash-attention launch of the MoE and hybrid
+paths and the three after them must take the sm90 variant (the hybrid and
+xLSTM paths no flash launch) (the decode's fp32 check the
 f32 variant, and no decode step any flash launch), every calibration GEMM
 the f32 variant (the wrappers count launches by variant).  It times the
 paths, places them on the Ridgeline plane of the H100 datasheet spec,
@@ -208,6 +229,33 @@ MOE_NODROP = (8, 128)
 #: fault moves the logits by 0.58-0.80 (chip_mutants.py at smollm-135m),
 #: far past 2 x 0.118
 MOE_MARGIN = 2.0
+#: hymba-1.5b, full width and depth (1.35 B fp32 params, drawn on the card):
+#: the prefill's token batch; decode at B = HYBRID_B against a cache of
+#: HYBRID_MAX (the local layers' rings of 1024 wrap), HYBRID_TF steps
+#: teacher-forced, greedy HYBRID_PROMPT + HYBRID_NEW tokens; the rings
+#: checked at a depth cut to 2 layers (0 global, 1 local) for RING_STEPS
+#: steps in fp32, past the window, within RING_TOL by row of the forward
+HYMBA_ARCH = "hymba-1.5b"
+HYBRID_PREFILL = (8, 2048)
+HYBRID_B, HYBRID_MAX, HYBRID_TF = 8, 2048, 64
+HYBRID_PROMPT, HYBRID_NEW = 32, 32
+RING_STEPS = 1100
+#: decode against the forward of the same fp32 weights by row: the chunked
+#: and the sequential recurrence, the masked full-sequence attention and
+#: the grouped one over the cache, differ in rounding only (fp32, TF32 off)
+RING_TOL = 1e-3
+#: xlstm-125m, full width and depth: the prefill's token batch, its samples
+#: (the sLSTM's steps are eager launches: seconds a forward); decode at
+#: B = XLSTM_B, XLSTM_TF steps teacher-forced in bf16 and in fp32, greedy
+#: XLSTM_PROMPT + XLSTM_NEW tokens
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_PREFILL = (8, 2048)
+XLSTM_SAMPLES = 3
+XLSTM_B, XLSTM_TF = 8, 64
+XLSTM_PROMPT, XLSTM_NEW = 32, 32
+#: xlstm-125m on the card against the same weights on the CPU, fp32 (TF32
+#: off), by row: sums in other orders only
+CARD_CPU_TOL = 1e-4
 #: the dlrm-mlp train step: 20 AdamW steps on one fixed batch of 1024, the
 #: step timed at three batches (256 below the bf16 ridge, 1024 and 4096
 #: above it)
@@ -1446,6 +1494,660 @@ def moe_paths(dev, say, gen: torch.Generator) -> tuple:
     return pre, dec
 
 
+def recurrent_rule(say, label: str, got: torch.Tensor, want: torch.Tensor,
+                   exact: torch.Tensor) -> float:
+    """Hold ``got`` (bf16) to ``want``, the plain bf16 path's rows, within
+    max(``LM_TOL``, ``MOE_MARGIN`` x the plain path's own row distance from
+    ``exact``, the fp32 plain path's), the rule ``moe_prefill`` set for deep
+    random models; both distances are printed.  Returns the tolerance."""
+    err, ref = row_rel_err(got, want), row_rel_err(want, exact)
+    tol = max(LM_TOL, MOE_MARGIN * ref)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    say(f"{label}: row_rel_err {err:.3e} (tol max({LM_TOL:g}, "
+        f"{MOE_MARGIN:g} x {ref:.3e}) = {tol:.3e}); the plain bf16 path vs "
+        f"the fp32 plain path {ref:.3e}, this path vs fp32 "
+        f"{row_rel_err(got, exact):.3e}; argmax agrees on {100 * agree:.2f}%"
+        f" of rows")
+    check(err < tol, f"{label} disagrees: {err} (tol {tol})")
+    return tol
+
+
+def branch_split(say, label: str, fn) -> float:
+    """One call of a block's branch: its kernels' card time
+    (``timers.kernel_ms``) and ``op_split``'s reading, one line.  A short
+    profiler session can come back without its device records (an FFN
+    branch of 7 launches did on an H100); the line then says so rather than
+    print zeros.  Returns the card ms."""
+    from repro_torch.measure.timers import kernel_ms
+    ms_ = kernel_ms(lambda i: fn(), iters=3, warmup=1)
+    s = op_split(fn)
+    seen = (f"profiler: {s['launches']} launches, {s['total']:.4f} ms: "
+            f"blocked matmul {s['kernel']:.4f}, cuBLAS mm "
+            f"{s['cublas_products']:.4f}, bmm {s['bmm']:.4f}, softmax "
+            f"{s['softmax']:.4f}, the rest {s['rest']:.4f}; most: "
+            + ", ".join(f"{n[:48]} x{c} {t:.3f}" for n, c, t in s["top"][:4])
+            if s["launches"] else "the profiler recorded no kernel")
+    say(f"  {label}: card {ms_:.4f} ms; {seen}")
+    return ms_
+
+
+@torch.no_grad()
+def hybrid_prefill(dev, say, params, cfg, tokens: torch.Tensor,
+                   gen: torch.Generator) -> dict:
+    """The hymba-1.5b prefill, full width and depth, bf16, the FFN products
+    in the blocked matmul (``use_kernel_matmul``; ``use_flash`` on, which
+    Hymba's windowed attention never takes): (a) the main path, one forward,
+    its counts set to 0 before and read after: 3 sm90 launches a layer and
+    no flash; (b) its logits against the plain path's by ``recurrent_rule``;
+    (c) the forward timed (host, card), its peak memory, the profiler's
+    split (and one layer's attention, Mamba and FFN branches alone), the
+    weight casts alone, F and B_M counted on the plain path against the
+    bound; (d) the kernel per launch at the FFN's shapes.  Returns the
+    launches by variant, the summary rows and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import (cuda_event_ms, kernel_ms,
+                                            time_callable)
+    from repro_torch.models import ffn, hybrid, mamba, transformer
+    from repro_torch.models.common import apply_norm, count_params
+
+    kcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    (B, S), V, NL, d = tokens.shape, cfg.vocab_size, cfg.n_layers, cfg.d_model
+    T = B * S
+    n_params = count_params(params)
+    say(f"{cfg.name} prefill ({B}, {S}): windows "
+        f"{sorted(set(hybrid.layer_windows(cfg, S)))} (global layers "
+        f"{cfg.global_attn_layers}), SSD chunks of {min(cfg.ssm_chunk, S)}; "
+        f"use_kernel_matmul and use_flash on")
+
+    # (a) the main path
+    reset_counts()
+    logits, aux = transformer.forward(params, tokens, kcfg)
+    torch.cuda.synchronize()
+    mm_made = dict(bm.blocked_matmul.launches_by_variant)
+    fa_made = dict(fa.flash_attention_bhsd.launches_by_variant)
+    say(f"(a) main path, one forward: blocked_matmul by variant {mm_made}, "
+        f"flash by variant {fa_made}")
+    check(logits.shape == (B, S, V) and torch.isfinite(logits).all().item()
+          and float(aux) == 0.0, "hybrid prefill logits malformed")
+    check(mm_made == {**dict.fromkeys(bm.VARIANTS, 0), "sm90": 3 * NL},
+          f"expected {3 * NL} sm90 blocked-matmul launches: {mm_made}")
+    check(sum(fa_made.values()) == 0, f"a flash launch in hymba: {fa_made}")
+
+    # (b) against the plain path, held by the fp32 plain path's distance
+    want = transformer.forward(params, tokens, plain)[0]
+    exact = transformer.forward(params, tokens,
+                                plain.replace(compute_dtype=torch.float32))[0]
+    recurrent_rule(say, "(b) logits, kernel path vs plain path", logits,
+                   want, exact)
+    del logits, want, exact
+
+    # (c) timed, profiled, counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    transformer.forward(params, tokens, kcfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    host = time_callable(transformer.forward, params, tokens, kcfg,
+                         device=dev, repeats=10, warmup=1)
+    p90 = float(np.percentile(host.samples, 90))
+    card = cuda_event_ms(lambda i: transformer.forward(params, tokens, kcfg),
+                         iters=5, warmup=1)
+    plain_card = cuda_event_ms(
+        lambda i: transformer.forward(params, tokens, plain), iters=3,
+        warmup=1)
+    casts, cast_bytes = weight_casts(params)
+    cast_ms = kernel_ms(casts, iters=1, warmup=1)   # ~420 launches a call
+    split = op_split(lambda: transformer.forward(params, tokens, kcfg))
+    check(split["kernel"] > 0 and split["flash"] == 0,
+          f"the profiler saw no blocked matmul, or a flash kernel: {split}")
+    flops, nbytes = counters.count(transformer.forward, params, tokens, plain)
+    least = 4.0 * n_params + 2.0 * T * V + 8.0 * T
+    a_least = analyze(WorkUnit(f"hymba_prefill_b{B}_s{S}", flops, least, 0.0),
+                      H100_SXM)
+    a_counted = analyze(WorkUnit(f"hymba_prefill_b{B}_s{S}_counted", flops,
+                                 nbytes, 0.0), H100_SXM)
+    say(f"(c) forward: host median {host.median * 1e3:.4f} ms, p90 "
+        f"{p90 * 1e3:.4f} ms (n={len(host.samples)}), "
+        f"{T / host.median:.0f} tokens/s; card {card:.4f} ms; plain path "
+        f"card {plain_card:.4f} ms; peak memory allocated {peak / 1e9:.3f} GB"
+        f"; counted F {flops:.6g}, B_M {nbytes:.6g} (plain path, eager ops)")
+    say(f"(c) h100_sxm, least bytes (fp32 params once, logits written) "
+        f"{least:.6g}: {a_least.summary()}, bound "
+        f"{a_least.runtime * 1e3:.4f} ms = "
+        f"{100 * a_least.runtime / host.median:.1f}% of the host median; "
+        f"with the counted B_M: bound {a_counted.runtime * 1e3:.4f} ms "
+        f"({a_counted.bottleneck.value}); the weight casts alone "
+        f"{cast_ms:.4f} ms for {cast_bytes:.6g} bytes")
+    say_split(say, "(c) one forward's", split, card)
+    blk = params["blocks"][1]
+    h = apply_norm(blk["pre_norm"], torch.randn(
+        (B, S, d), generator=gen, device=dev).to(torch.bfloat16), kcfg)
+    say("(c) one local layer's branches alone, on its normed input:")
+    parts = [branch_split(say, label, fn) for label, fn in (
+        ("attention (plain, full S^2 masked to the window)",
+         lambda: hybrid._windowed_attention(blk["attn"], h, kcfg,
+                                            cfg.sliding_window)),
+        ("Mamba heads (projections, the SSD's products, exps)",
+         lambda: mamba.apply_mamba(blk["mamba"], h, kcfg)),
+        ("FFN (blocked matmul)", lambda: ffn.apply_ffn(blk["ffn"], h, kcfg)))]
+    say(f"(c) x {NL} layers: attention {NL * parts[0]:.1f} ms, Mamba heads "
+        f"{NL * parts[1]:.1f} ms, FFN {NL * parts[2]:.1f} ms of the card "
+        f"time {card:.1f} ms")
+    del h
+
+    # (d) per launch at the FFN's shapes, each layer's weights in turn
+    ws = {n: [b["ffn"][n].to(torch.bfloat16) for b in params["blocks"]]
+          for n in ("w_gate", "w_up", "w_down")}
+    x_in = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+    x_mid = torch.randn((T, cfg.d_ff), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    rows = [ffn_row(say, "hybrid_prefill", a_, w, act, NL, H100_SXM)
+            for a_, w, act in ((x_in, ws["w_gate"], "silu"),
+                               (x_in, ws["w_up"], None),
+                               (x_mid, ws["w_down"], None))]
+    del ws, x_in, x_mid
+    point = {
+        "arch": cfg.name, "shape": f"prefill_b{B}_s{S}", "mesh": "1",
+        "kind": "prefill", "variant": "use_kernel_matmul", "flops": flops,
+        "mem_bytes": least, "wire_bytes": 0.0, "by_kind": {},
+        "peak": float(peak), "params": float(n_params), "tokens": float(T),
+        "seconds": host.median, "main": True,
+        "source": "chip_smoke hybrid_prefill host median",
+        "notes": "F counted on the plain path; least bytes: params once, "
+                 "logits written"}
+    return {"blocked_matmul": mm_made, "mm_rows": rows, "point": point}
+
+
+def fill_cache(cache: dict, gen: torch.Generator) -> None:
+    """Seeded random content in every buffer of a Hymba or xLSTM cache, in
+    place: k and v rows and the sLSTM's stabilizer m and normalizer n (its
+    (B, D) states) N(0, 1), the other recurrent states N(0, 0.1^2)."""
+    for row in cache.values():
+        for name, t in row.items():
+            scale = 1.0 if name in ("k", "v") or (
+                t.dim() == 2 and name in ("m", "n")) else 0.1
+            t.copy_(scale * torch.randn(t.shape, generator=gen,
+                                        device=t.device))
+
+
+def cache_nbytes(cache: dict) -> float:
+    from repro_torch.tree import tree_leaves
+    return float(sum(t.numel() * t.element_size()
+                     for t in tree_leaves(cache)))
+
+
+@torch.no_grad()
+def hybrid_decode(dev, say, params, cfg, rng: np.random.Generator,
+                  gen: torch.Generator) -> dict:
+    """The hymba-1.5b serving path, B = ``HYBRID_B`` against a cache of
+    ``HYBRID_MAX`` (the local layers' rings of 1024 slots), bf16, the FFN
+    products in the blocked matmul (``use_kernel_matmul``; ``use_flash`` on
+    and unused).  The main path, its counts set to 0 before (a) and read
+    after (c): (a) ``HYBRID_TF`` teacher-forced steps from pos 0, held to the
+    plain forward's rows by ``recurrent_rule``; (b)
+    ``serve.engine.greedy_generate`` of ``HYBRID_PROMPT`` + ``HYBRID_NEW``
+    tokens, every generated token held to the plain path teacher-forced on
+    them (``hold_generation``); (c) one step at pos ``HYBRID_MAX - 1`` on a
+    cache of seeded random content (every ring full and wrapped).  Then
+    (d) the rings on the card: a depth cut to 2 layers (0 global, 1 local),
+    ``RING_STEPS`` fp32 steps on the plain path against the fp32 forward's
+    rows within ``RING_TOL``; (e) the step at (c) timed, profiled and
+    counted; (f) the FFN products per launch.  Returns the launches by
+    variant, the summary rows and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import (cuda_event_ms, kernel_ms,
+                                            time_callable)
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve import engine
+
+    V, NL, d = cfg.vocab_size, cfg.n_layers, cfg.d_model
+    dcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    f32 = plain.replace(compute_dtype=torch.float32)
+    B, per_step, pos = HYBRID_B, 3 * NL, HYBRID_MAX - 1
+    n_params = count_params(params)
+    mm, flash = bm.blocked_matmul, fa.flash_attention_bhsd
+    toks = torch.from_numpy(rng.integers(0, V, (B, HYBRID_TF))).to(dev)
+    last = torch.from_numpy(rng.integers(0, V, (B, 1))).to(dev)
+    say(f"{cfg.name} decode: B={B}, cache {HYBRID_MAX} (global layers "
+        f"{HYBRID_MAX} rows, local rings {min(cfg.sliding_window, HYBRID_MAX)}"
+        f"); {HYBRID_TF} teacher-forced steps, greedy {HYBRID_PROMPT} + "
+        f"{HYBRID_NEW}, the step at pos {pos} on a full, wrapped cache")
+    want = transformer.forward(params, toks, plain)[0]
+    exact = transformer.forward(params, toks, f32)[0]
+    warm = transformer.init_cache(dcfg, B, HYBRID_MAX, device=dev)
+    fill_cache(warm, gen)
+
+    # ---- the main path: (a), (b), (c) -----------------------------------------
+    reset_counts()
+    cache = transformer.init_cache(dcfg, B, HYBRID_MAX, device=dev)
+    steps_seen, rows_k = set(), []
+    for t in range(HYBRID_TF):
+        m0, f0 = mm.launches, flash.launches
+        lg, out = transformer.decode_step(params, toks[:, t:t + 1], cache, t,
+                                          dcfg)
+        steps_seen.add((mm.launches - m0, flash.launches - f0))
+        check(out is cache and lg.shape == (B, 1, V)
+              and torch.isfinite(lg).all().item(),
+              f"hybrid decode step {t}: logits malformed or the cache "
+              f"replaced")
+        rows_k.append(lg[:, 0])
+    del cache
+    REGISTRY.reset()
+    prompt = toks[:, :HYBRID_PROMPT]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_k = engine.greedy_generate(params, dcfg, prompt, steps=HYBRID_NEW,
+                                   max_len=HYBRID_MAX)
+    gen_s = time.perf_counter() - t0
+    hist = REGISTRY.snapshot()["histograms"]["serve.step_seconds"]
+    step_lg = transformer.decode_step(params, last, warm, pos, dcfg)[0]
+    torch.cuda.synchronize()
+    n_steps = HYBRID_TF + HYBRID_PROMPT + HYBRID_NEW - 1 + 1
+    launched = dict(mm.launches_by_variant)
+    say(f"(blocked_matmul, flash) launches per teacher-forced step "
+        f"{sorted(steps_seen)}; main path ({n_steps} steps): blocked_matmul "
+        f"by variant {launched}, flash {flash.launches}")
+    check(steps_seen == {(per_step, 0)},
+          f"expected {per_step} blocked-matmul launches and no flash launch "
+          f"a step, got {steps_seen}")
+    check(launched == {**dict.fromkeys(bm.VARIANTS, 0),
+                       "sm90": per_step * n_steps} and flash.launches == 0,
+          f"every hybrid decode launch must take the sm90 kernel and none "
+          f"the flash kernel: {launched}, flash {flash.launches}")
+    check(torch.isfinite(step_lg).all().item(),
+          "the step on the wrapped cache gave non-finite logits")
+    got = torch.stack(rows_k, dim=1)
+    recurrent_rule(say, f"  (a) {HYBRID_TF} teacher-forced steps, kernel "
+                   f"path vs the plain forward's rows", got, want, exact)
+    tf_abs = max_abs(got, want)
+    del got, want, exact, rows_k
+    cp = transformer.init_cache(plain, B, HYBRID_MAX, device=dev)
+    hold_generation(say, gen_k, prompt, HYBRID_NEW, lambda t, tok:
+                    transformer.decode_step(params, tok, cp, t, plain)[0],
+                    tf_abs, gen_s, hist)
+    del cp
+
+    # (d) the rings past their wrap, fp32 on the plain path, depth cut to 2
+    ring_cfg = f32.replace(n_layers=2, global_attn_layers=(0,))
+    ring_params = dict(params, blocks=params["blocks"][:2])
+    rtoks = torch.from_numpy(rng.integers(0, V, (B, RING_STEPS))).to(dev)
+    full = transformer.forward(ring_params, rtoks, ring_cfg)[0]
+    rc = transformer.init_cache(ring_cfg, B, RING_STEPS, device=dev)
+    W = rc["layer1"]["k"].shape[1]
+    ring_rel, before, after = 0.0, 0.0, 0.0
+    for t in range(RING_STEPS):
+        lg = transformer.decode_step(ring_params, rtoks[:, t:t + 1], rc, t,
+                                     ring_cfg)[0]
+        e = row_rel_err(lg[:, 0], full[:, t])
+        ring_rel = max(ring_rel, e)
+        if t < W:
+            before = max(before, e)
+        else:
+            after = max(after, e)
+    del full, rc
+    say(f"  (d) depth cut to 2 layers (layer 0 global with {RING_STEPS} "
+        f"rows, layer 1 a ring of {W}), fp32 plain path: {RING_STEPS} "
+        f"teacher-forced steps against the forward's rows: row_rel_err "
+        f"{ring_rel:.3e} (tol {RING_TOL:g}); before the wrap {before:.3e}, "
+        f"after it {after:.3e}")
+    check(W == cfg.sliding_window < RING_STEPS,
+          f"the ring of {W} does not wrap in {RING_STEPS} steps")
+    check(ring_rel < RING_TOL,
+          f"hybrid decode past the ring's wrap disagrees: {ring_rel}")
+
+    # (e) the step at pos HYBRID_MAX - 1 on the wrapped cache
+    host = time_callable(transformer.decode_step, params, last, warm, pos,
+                         dcfg, device=dev, repeats=10, warmup=2)
+    p90 = float(np.percentile(host.samples, 90))
+    plain_host = time_callable(transformer.decode_step, params, last, warm,
+                               pos, plain, device=dev, repeats=5, warmup=1)
+    card = cuda_event_ms(lambda i: transformer.decode_step(
+        params, last, warm, pos, dcfg), iters=5, warmup=1)
+    m0 = mm.launches
+    transformer.decode_step(params, last, warm, pos, dcfg)
+    n_launch = mm.launches - m0
+    casts, cast_bytes = weight_casts(params)
+    cast_ms = kernel_ms(casts, iters=1, warmup=1)   # ~420 launches a call
+    split = op_split(lambda: transformer.decode_step(params, last, warm, pos,
+                                                     dcfg))
+    check(split["kernel"] > 0, f"the profiler saw no kernel time: {split}")
+    flops, nbytes = counters.count(transformer.decode_step, params, last,
+                                   warm, pos, plain)
+    c_bytes = cache_nbytes(warm)
+    least = 4.0 * n_params + c_bytes + 2.0 * B * V
+    a = analyze(WorkUnit(f"hymba_decode_b{B}", flops, nbytes, 0.0), H100_SXM)
+    a_least = analyze(WorkUnit(f"hymba_decode_b{B}_least", flops, least, 0.0),
+                      H100_SXM)
+    say(f"  (e) B={B} step at pos {pos}: host median "
+        f"{host.median * 1e3:.4f} ms, p90 {p90 * 1e3:.4f} ms "
+        f"(n={len(host.samples)}), {B / host.median:.1f} tokens/s; card "
+        f"{card:.4f} ms; plain path host {plain_host.median * 1e3:.4f} ms; "
+        f"{n_launch} blocked-matmul launches a step; counted F {flops:.6g}, "
+        f"B_M {nbytes:.6g} (plain path, eager ops; the cache {c_bytes:.6g}); "
+        f"h100_sxm: {a.summary()}, bound {a.runtime * 1e3:.4f} ms = "
+        f"{100 * a.runtime / host.median:.1f}% of the host median; least "
+        f"bytes (fp32 params and the cache read once, logits written) "
+        f"{least:.6g}: bound {a_least.runtime * 1e3:.4f} ms; the weight "
+        f"casts alone {cast_ms:.4f} ms for {cast_bytes:.6g} bytes")
+    say_split(say, f"(e) B={B} one step's", split, card)
+    check(n_launch == per_step, f"{n_launch} launches in the timed step")
+    del warm
+
+    # (f) the FFN products per launch, each layer's in turn
+    ws = {n: [b["ffn"][n].to(torch.bfloat16) for b in params["blocks"]]
+          for n in ("w_gate", "w_up", "w_down")}
+    x_in = torch.randn((B, d), generator=gen, device=dev).to(torch.bfloat16)
+    x_mid = torch.randn((B, cfg.d_ff), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    rows = [ffn_row(say, "hybrid_decode", a_, w, act, NL * n_steps, H100_SXM)
+            for a_, w, act in ((x_in, ws["w_gate"], "silu"),
+                               (x_in, ws["w_up"], None),
+                               (x_mid, ws["w_down"], None))]
+    del ws
+    point = {
+        "arch": cfg.name, "shape": f"decode_b{B}_s{HYBRID_MAX}", "mesh": "1",
+        "kind": "decode", "variant": "use_kernel_matmul", "flops": flops,
+        "mem_bytes": nbytes, "wire_bytes": 0.0, "by_kind": {}, "peak": 0.0,
+        "params": float(n_params), "tokens": float(B),
+        "seconds": host.median, "main": True,
+        "source": "chip_smoke hybrid_decode host median",
+        "notes": "one step at pos 2047 on a wrapped cache; F and B_M "
+                 "counted on the plain path"}
+    return {"blocked_matmul": launched, "mm_rows": rows, "point": point}
+
+
+@torch.no_grad()
+def xlstm_prefill(dev, say, params, cfg, tokens: torch.Tensor,
+                  gen: torch.Generator) -> dict:
+    """The xlstm-125m prefill, full width and depth, bf16 (no kernel of the
+    port runs: its products are plain, as in the JAX package): (a) the main
+    path, one forward, its counts set to 0 before and read after (none may
+    launch); (b) its logits against the fp32 forward by row (printed), and
+    the fp32 forward on the card against the same weights' on the CPU at
+    (2, 64) within ``CARD_CPU_TOL``; (c) the forward timed
+    (``XLSTM_SAMPLES``), its peak memory, the profiler's split and launch
+    count, the sLSTM's recurrence alone, F and B_M counted, against the
+    bound.  Returns the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import cuda_event_ms, time_callable
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.common import apply_norm, count_params
+    from repro_torch.tree import tree_map
+
+    (B, S), V = tokens.shape, cfg.vocab_size
+    T = B * S
+    f32 = cfg.replace(compute_dtype=torch.float32)
+    n_params = count_params(params)
+    say(f"{cfg.name} prefill ({B}, {S}): mLSTM chunks of "
+        f"{min(cfg.ssm_chunk, S)}, sLSTM at layers {cfg.slstm_layers} "
+        f"({S} steps each)")
+
+    # (a) the main path
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, aux = transformer.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    made = (bm.blocked_matmul.launches, fa.flash_attention_bhsd.launches)
+    say(f"(a) main path, one forward ({first_s:.3f} s): (blocked_matmul, "
+        f"flash) launches {made}")
+    check(logits.shape == (B, S, V) and torch.isfinite(logits).all().item()
+          and float(aux) == 0.0, "xlstm prefill logits malformed")
+    check(made == (0, 0), f"xlstm launched a kernel of the port: {made}")
+
+    # (b) bf16 against fp32; the card against the CPU
+    exact = transformer.forward(params, tokens, f32)[0]
+    agree = (logits.argmax(-1) == exact.argmax(-1)).float().mean().item()
+    say(f"(b) bf16 vs the fp32 forward: row_rel_err "
+        f"{row_rel_err(logits, exact):.3e}, argmax agrees on "
+        f"{100 * agree:.2f}% of rows")
+    del logits, exact
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    short = tokens[:2, :64]
+    on_card = transformer.forward(params, short, f32)[0]
+    on_cpu = transformer.forward(cpu_params, short.cpu(), f32)[0]
+    e_cpu = row_rel_err(on_card.cpu(), on_cpu)
+    say(f"(b) fp32 (2, 64): the card vs the CPU on the same weights, "
+        f"row_rel_err {e_cpu:.3e} (tol {CARD_CPU_TOL:g})")
+    check(e_cpu < CARD_CPU_TOL, f"xlstm on the card disagrees with the "
+          f"CPU: {e_cpu}")
+    del cpu_params
+
+    # (c) timed, profiled, counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    transformer.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    host = time_callable(transformer.forward, params, tokens, cfg,
+                         device=dev, repeats=XLSTM_SAMPLES, warmup=0)
+    p90 = float(np.percentile(host.samples, 90))
+    card = cuda_event_ms(lambda i: transformer.forward(params, tokens, cfg),
+                         iters=1, warmup=0)
+    split = op_split(lambda: transformer.forward(params, tokens, cfg))
+    blk = params["blocks"][cfg.slstm_layers[0]]
+    h = apply_norm(blk["norm"], torch.randn((B, S, cfg.d_model), generator=gen,
+                                            device=dev), cfg)
+    s_ms = cuda_event_ms(lambda i: ssm.apply_slstm(blk["slstm"], h, cfg),
+                         iters=1, warmup=0)
+    flops, nbytes = counters.count(transformer.forward, params, tokens, cfg)
+    least = 4.0 * n_params + 2.0 * T * V + 8.0 * T
+    a_least = analyze(WorkUnit(f"xlstm_prefill_b{B}_s{S}", flops, least, 0.0),
+                      H100_SXM)
+    a_counted = analyze(WorkUnit(f"xlstm_prefill_b{B}_s{S}_counted", flops,
+                                 nbytes, 0.0), H100_SXM)
+    say(f"(c) forward: host median {host.median * 1e3:.4f} ms, p90 "
+        f"{p90 * 1e3:.4f} ms (n={len(host.samples)}), "
+        f"{T / host.median:.0f} tokens/s; card {card:.4f} ms; one sLSTM "
+        f"layer alone {s_ms:.4f} ms (card, {S} steps); peak memory "
+        f"allocated {peak / 1e9:.3f} GB; counted F {flops:.6g}, B_M "
+        f"{nbytes:.6g}; {split['launches']} launches a forward")
+    say(f"(c) h100_sxm, least bytes (fp32 params once, logits written) "
+        f"{least:.6g}: {a_least.summary()}, bound "
+        f"{a_least.runtime * 1e3:.4f} ms = "
+        f"{100 * a_least.runtime / host.median:.2f}% of the host median; "
+        f"with the counted B_M: bound {a_counted.runtime * 1e3:.4f} ms "
+        f"({a_counted.bottleneck.value})")
+    say_split(say, "(c) one forward's", split, card)
+    return {"point": {
+        "arch": cfg.name, "shape": f"prefill_b{B}_s{S}", "mesh": "1",
+        "kind": "prefill", "variant": "plain", "flops": flops,
+        "mem_bytes": least, "wire_bytes": 0.0, "by_kind": {},
+        "peak": float(peak), "params": float(n_params), "tokens": float(T),
+        "seconds": host.median, "main": True,
+        "source": "chip_smoke xlstm_prefill host median",
+        "notes": "F counted; least bytes: params once, logits written"}}
+
+
+@torch.no_grad()
+def xlstm_decode(dev, say, params, cfg, rng: np.random.Generator,
+                 gen: torch.Generator) -> dict:
+    """The xlstm-125m serving path, B = ``XLSTM_B``, bf16 (no kernel of the
+    port runs).  The main path, its counts set to 0 before (a) and read
+    after (c), which must find no launch: (a) ``XLSTM_TF`` teacher-forced
+    steps from the zero state against the forward's rows, in bf16 by
+    ``recurrent_rule`` and in fp32 within ``RING_TOL``; (b)
+    ``serve.engine.greedy_generate`` of ``XLSTM_PROMPT`` + ``XLSTM_NEW``
+    tokens, every generated token held (``hold_generation``); (c) one step
+    on a state of seeded random content, timed (host, card), profiled and
+    counted.  Returns the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import cuda_event_ms, time_callable
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve import engine
+
+    V, B = cfg.vocab_size, XLSTM_B
+    f32 = cfg.replace(compute_dtype=torch.float32)
+    n_params = count_params(params)
+    toks = torch.from_numpy(rng.integers(0, V, (B, XLSTM_TF))).to(dev)
+    last = torch.from_numpy(rng.integers(0, V, (B, 1))).to(dev)
+    say(f"{cfg.name} decode: B={B}; {XLSTM_TF} teacher-forced steps in bf16 "
+        f"and fp32, greedy {XLSTM_PROMPT} + {XLSTM_NEW}, the step timed on "
+        f"a random state")
+    reset_counts()
+
+    # (a) teacher-forced, bf16 and fp32
+    for c in (cfg, f32):
+        want = transformer.forward(params, toks, c)[0]
+        cache = transformer.init_cache(c, B, XLSTM_TF, device=dev)
+        rows = []
+        for t in range(XLSTM_TF):
+            lg, out = transformer.decode_step(params, toks[:, t:t + 1], cache,
+                                              t, c)
+            check(out is cache and torch.isfinite(lg).all().item(),
+                  f"xlstm decode step {t}: malformed")
+            rows.append(lg[:, 0])
+        got = torch.stack(rows, dim=1)
+        if c is cfg:
+            exact = transformer.forward(params, toks, f32)[0]
+            recurrent_rule(say, f"  (a) {XLSTM_TF} teacher-forced bf16 steps"
+                           f" vs the bf16 forward's rows", got, want, exact)
+            tf_abs = max_abs(got, want)
+            del exact
+        else:
+            e = row_rel_err(got, want)
+            say(f"  (a) {XLSTM_TF} teacher-forced fp32 steps vs the fp32 "
+                f"forward's rows: row_rel_err {e:.3e} (tol {RING_TOL:g})")
+            check(e < RING_TOL, f"xlstm fp32 decode disagrees: {e}")
+        del want, cache, got
+
+    # (b) greedy generation, held
+    REGISTRY.reset()
+    prompt = toks[:, :XLSTM_PROMPT]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_k = engine.greedy_generate(params, cfg, prompt, steps=XLSTM_NEW,
+                                   max_len=XLSTM_PROMPT + XLSTM_NEW)
+    gen_s = time.perf_counter() - t0
+    hist = REGISTRY.snapshot()["histograms"]["serve.step_seconds"]
+    cp = transformer.init_cache(cfg, B, 1, device=dev)
+    hold_generation(say, gen_k, prompt, XLSTM_NEW, lambda t, tok:
+                    transformer.decode_step(params, tok, cp, t, cfg)[0],
+                    tf_abs, gen_s, hist)
+
+    # (c) one step on a state of seeded random content
+    warm = transformer.init_cache(cfg, B, 1, device=dev)
+    fill_cache(warm, gen)
+    state0 = {k: dict(v) for k, v in warm.items()}
+
+    def step():
+        for k, v in state0.items():     # the same state at every call
+            warm[k].update(v)
+        return transformer.decode_step(params, last, warm, 0, cfg)[0]
+
+    check(torch.isfinite(step()).all().item(),
+          "the xlstm step on a random state gave non-finite logits")
+    torch.cuda.synchronize()
+    made = (bm.blocked_matmul.launches, fa.flash_attention_bhsd.launches)
+    say(f"main path: (blocked_matmul, flash) launches {made}")
+    check(made == (0, 0), f"xlstm decode launched a kernel of the port: "
+          f"{made}")
+    host = time_callable(step, device=dev, repeats=20, warmup=2)
+    p90 = float(np.percentile(host.samples, 90))
+    card = cuda_event_ms(lambda i: step(), iters=10, warmup=2)
+    split = op_split(step)
+    flops, nbytes = counters.count(step)
+    s_bytes = cache_nbytes(warm)
+    least = 4.0 * n_params + 2.0 * s_bytes + 2.0 * B * V
+    a = analyze(WorkUnit(f"xlstm_decode_b{B}", flops, nbytes, 0.0), H100_SXM)
+    a_least = analyze(WorkUnit(f"xlstm_decode_b{B}_least", flops, least, 0.0),
+                      H100_SXM)
+    say(f"  (c) B={B} step: host median {host.median * 1e3:.4f} ms, p90 "
+        f"{p90 * 1e3:.4f} ms (n={len(host.samples)}), "
+        f"{B / host.median:.1f} tokens/s; card {card:.4f} ms; counted F "
+        f"{flops:.6g}, B_M {nbytes:.6g} (the state {s_bytes:.6g}); h100_sxm:"
+        f" {a.summary()}, bound {a.runtime * 1e3:.4f} ms = "
+        f"{100 * a.runtime / host.median:.1f}% of the host median; least "
+        f"bytes (fp32 params once, the state read and written, logits) "
+        f"{least:.6g}: bound {a_least.runtime * 1e3:.4f} ms")
+    say_split(say, f"(c) B={B} one step's", split, card)
+    return {"point": {
+        "arch": cfg.name, "shape": f"decode_b{B}", "mesh": "1",
+        "kind": "decode", "variant": "plain", "flops": flops,
+        "mem_bytes": nbytes, "wire_bytes": 0.0, "by_kind": {}, "peak": 0.0,
+        "params": float(n_params), "tokens": float(B),
+        "seconds": host.median, "main": True,
+        "source": "chip_smoke xlstm_decode host median",
+        "notes": "one step on a random state; F and B_M counted"}}
+
+
+def recurrent_paths(dev, say, gen: torch.Generator) -> dict:
+    """hymba-1.5b, then xlstm-125m, at full width and depth on the card,
+    each model's weights drawn there from a seeded ``torch.Generator``:
+    the ``hybrid_prefill``, ``hybrid_decode``, ``xlstm_prefill`` and
+    ``xlstm_decode`` phases; each model's weights are dropped and the
+    allocator's cache emptied after its phases."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import count_params
+
+    out = {}
+    for arch in (HYMBA_ARCH, XLSTM_ARCH):
+        phase("hybrid_prefill" if arch == HYMBA_ARCH else "xlstm_prefill")
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = transformer.init_lm(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, "
+                 f"ssm_state {cfg.ssm_state}, d_ff {cfg.d_ff}, window "
+                 f"{cfg.sliding_window} but layers {cfg.global_attn_layers}"
+                 if arch == HYMBA_ARCH else
+                 f"{cfg.n_heads} heads, sLSTM at {cfg.slstm_layers}")
+        say(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {shape}, "
+            f"vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}; "
+            f"{count_params(params)} fp32 params drawn on the card from seed "
+            f"0 in {time.perf_counter() - t0:.2f}s; "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+        rng = np.random.default_rng(7)
+        if arch == HYMBA_ARCH:
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, HYBRID_PREFILL)).to(dev)
+            out["hybrid_prefill"] = hybrid_prefill(dev, say, params, cfg,
+                                                   tokens, gen)
+            say(f"hybrid_prefill took {time.perf_counter() - t_phase:.1f} s")
+            phase("hybrid_decode")
+            t_phase = time.perf_counter()
+            out["hybrid_decode"] = hybrid_decode(dev, say, params, cfg, rng,
+                                                 gen)
+            say(f"hybrid_decode took {time.perf_counter() - t_phase:.1f} s")
+        else:
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, XLSTM_PREFILL)).to(dev)
+            out["xlstm_prefill"] = xlstm_prefill(dev, say, params, cfg,
+                                                 tokens, gen)
+            say(f"xlstm_prefill took {time.perf_counter() - t_phase:.1f} s")
+            phase("xlstm_decode")
+            t_phase = time.perf_counter()
+            out["xlstm_decode"] = xlstm_decode(dev, say, params, cfg, rng,
+                                               gen)
+            say(f"xlstm_decode took {time.perf_counter() - t_phase:.1f} s")
+        del params, tokens
+        torch.cuda.empty_cache()
+    return out
+
+
 def f32_row(dev, say, s: int, launches: int, path: str) -> dict:
     """The f32 kernel at ``s``^3 per launch (``f32_plan``'s tile) beside its
     earlier design f32_edge (called past the wrapper), the plain version and
@@ -1932,7 +2634,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_pre, moe_dec = moe_paths(dev, say, gen)
 
-    # ---- 7. mlp_serve: the first main path ----------------------------------------
+    # ---- 7-10. hybrid_prefill, hybrid_decode, xlstm_prefill, xlstm_decode --
+    rec = recurrent_paths(dev, say, gen)
+    hyb_pre, hyb_dec = rec["hybrid_prefill"], rec["hybrid_decode"]
+
+    # ---- 11. mlp_serve: the first main path ----------------------------------------
     phase("mlp_serve")
     from repro_torch.configs import get_config
     from repro_torch.convert import mlp_params_from_numpy
@@ -2055,12 +2761,14 @@ def main() -> int:
     mlp_params = float(sum(x.numel() for x in tree_leaves(params)))
     for p in points:
         p.update(peak=float(peak), params=mlp_params)
-    points += [moe_pre["point"], moe_dec["point"]]
+    points += [moe_pre["point"], moe_dec["point"], hyb_pre["point"],
+               hyb_dec["point"], rec["xlstm_prefill"]["point"],
+               rec["xlstm_decode"]["point"]]
     say(f"peak memory allocated {peak / 1e9:.3f} GB; weight casts "
         f"{cast_ms:.4f} ms per forward (bound "
         f"{L * 6.0 * (W * W + W) / H100_SXM.hbm_bw * 1e3:.4f} ms)")
 
-    # ---- 8. lm_prefill: the second main path ----------------------------------------
+    # ---- 12. lm_prefill: the second main path ----------------------------------------
     phase("lm_prefill")
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import transformer
@@ -2215,7 +2923,7 @@ def main() -> int:
                                     (x_in, ffn["w_up"], None),
                                     (x_mid, ffn["w_down"], None))]
 
-    # ---- 9. lm_decode: the third main path ---------------------------------------
+    # ---- 13. lm_decode: the third main path ---------------------------------------
     phase("lm_decode")
     dec_paths, dec_rows, dec_placed = lm_decode(
         dev, say, lm_params, lm_cfg, tokens[PREFILL[0]])
@@ -2234,7 +2942,7 @@ def main() -> int:
             "notes": "one step at the cache's last position; F and B_M "
                      "counted on the plain path"})
 
-    # ---- 10. mlp_train: the fourth main path -------------------------------------
+    # ---- 14. mlp_train: the fourth main path -------------------------------------
     phase("mlp_train")
     reset_counts()
     placed = mlp_train(dev, say, get_config("dlrm-mlp"),
@@ -2267,7 +2975,7 @@ def main() -> int:
                 "main": True, "source": "chip_smoke mlp_train host median",
                 "notes": "one card, no all-reduce in the measured step"})
 
-    # ---- 11. calibrate: the fifth main path -------------------------------------
+    # ---- 15. calibrate: the fifth main path -------------------------------------
     phase("calibrate")
     reset_counts()
     cal_variants, f32_rows, cal_calib = calibrate(dev, say, card, placed,
@@ -2280,14 +2988,14 @@ def main() -> int:
           f"the calibration GEMMs must each launch the f32 kernel once: "
           f"{cal_variants}")
 
-    # ---- 12. calibrate_cli: the sixth main path ---------------------------------
+    # ---- 16. calibrate_cli: the sixth main path ---------------------------------
     phase("calibrate_cli")
     tmp = tempfile.TemporaryDirectory()
     reset_counts()
     cli_variants, cli_rows, cli_calib, cli_ms = calibrate_cli(
         dev, say, tmp.name, cal_calib)
 
-    # ---- 13. ridgeline: every main path's points on the plane -------------------
+    # ---- 17. ridgeline: every main path's points on the plane -------------------
     phase("ridgeline")
     for m in cli_ms:
         points.append({
@@ -2302,7 +3010,7 @@ def main() -> int:
     ridgeline(say, tmp.name, points, cli_calib.spec())
     tmp.cleanup()
 
-    # ---- 14. tile_options -----------------------------------------------------
+    # ---- 18. tile_options -----------------------------------------------------
     phase("tile_options")
     # the sm90 kernel at every main-path shape under each tile width and
     # order, beside tile_plan's choice (PERF.md reads the rule off these);
@@ -2311,7 +3019,8 @@ def main() -> int:
     sm90 = bm._launcher().sm90
     for row in (per_batch + ffn_rows + [r for r in dec_rows
                                         if r["dtype"] == "bf16"]
-                + moe_pre["mm_rows"] + moe_dec["mm_rows"]):
+                + moe_pre["mm_rows"] + moe_dec["mm_rows"]
+                + hyb_pre["mm_rows"] + hyb_dec["mm_rows"]):
         M, Kd, N = row["shape"]
         a_ = torch.randn((M, Kd), generator=gen, device=dev).to(bf16)
         bs_ = [(torch.randn((Kd, N), generator=gen, device=dev)
@@ -2333,7 +3042,7 @@ def main() -> int:
             + ", ".join(f"{tuple(p)} {t:.4f}" for t, p in timed))
     del a_, bs_
 
-    # ---- 15. f32_options ------------------------------------------------------
+    # ---- 19. f32_options ------------------------------------------------------
     phase("f32_options")
     # the f32 kernel at every calibration size under each tile, beside
     # f32_plan's choice (PERF.md reads the rule off these)
@@ -2351,7 +3060,7 @@ def main() -> int:
             + ", ".join(f"{t.bm}x{t.bn} {ms:.4f}" for t, ms in timed.items()))
     del a_, b_
 
-    # ---- 16. microbench -------------------------------------------------------
+    # ---- 20. microbench -------------------------------------------------------
     phase("microbench")
     # host cost of one launch through the wrapper (checks, allocation,
     # tensor-map encoding, ctypes call), enqueue only, beside one torch call
@@ -2417,14 +3126,16 @@ def main() -> int:
 
     mm_paths = (mlp_variants, lm_variants, dec_variants, cal_variants,
                 cli_variants, moe_pre["blocked_matmul"],
-                moe_dec["blocked_matmul"])
+                moe_dec["blocked_matmul"], hyb_pre["blocked_matmul"],
+                hyb_dec["blocked_matmul"])
     summary = {"kernels": [
         entry("blocked_matmul",
               "src/repro_torch/kernels/csrc/blocked_matmul.cu",
               "src/repro/kernels/blocked_matmul.py:57",
               sum(sum(made.values()) for made in mm_paths),
               per_batch + ffn_rows + dec_rows + f32_rows + cli_rows
-              + moe_pre["mm_rows"] + moe_dec["mm_rows"],
+              + moe_pre["mm_rows"] + moe_dec["mm_rows"] + hyb_pre["mm_rows"]
+              + hyb_dec["mm_rows"],
               {v: sum(made[v] for made in mm_paths) for v in bm.VARIANTS}),
         entry("flash_attention_bhsd",
               "src/repro_torch/kernels/csrc/flash_attention.cu",

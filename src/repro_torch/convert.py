@@ -6,7 +6,7 @@ makes them), so nothing is transposed: each leaf becomes a tensor of the
 same dtype on the target device.  ``opt_state_from_numpy`` and
 ``train_state_from_numpy`` carry a run over mid-way, so both packages can
 go on from one state at a step where the bias correction matters;
-``kv_cache_from_numpy`` does the same for a decode's KV cache.
+``cache_from_numpy`` does the same for any family's decode cache.
 """
 from __future__ import annotations
 
@@ -104,8 +104,10 @@ def lm_params_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
     port's ``models.transformer``.
 
     With ``scan_layers`` the reference stacks every block leaf on a leading
-    layer axis (``blocks["attn"]["wq"]`` is (L, d, q_dim)); without it,
-    ``blocks`` is a list of per-layer trees.  Both become the port's list.
+    layer axis (``blocks["attn"]["wq"]`` is (L, d, q_dim); hymba's blocks,
+    its Mamba heads included); without it, ``blocks`` is a list of
+    per-layer trees, which may differ from layer to layer (xLSTM's mLSTM
+    and sLSTM blocks).  Both become the port's list.
     """
     dev = resolve_device(device)
     blocks = tree["blocks"]
@@ -116,10 +118,13 @@ def lm_params_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
     return out
 
 
-def kv_cache_from_numpy(cache: Mapping, device: DeviceLike = None
-                        ) -> Dict[str, torch.Tensor]:
-    """The JAX package's dense KV cache (``init_kv_cache``, or one a run of
-    its ``decode_step`` filled), as numpy: ``{"k", "v"}`` of (L, B, S_max,
-    K, dh), fp32 or bf16 -> the port's, same layout and dtype."""
-    dev = resolve_device(device)
-    return {"k": _tensor(cache["k"], dev), "v": _tensor(cache["v"], dev)}
+def cache_from_numpy(cache: Mapping, device: DeviceLike = None
+                     ) -> Dict[str, Any]:
+    """Any family's decode cache from the JAX package (its ``init_cache``,
+    or one a run of its ``decode_step`` filled), as numpy -> the port's,
+    same layout and dtypes: the dense ``{"k", "v"}``, hymba's ``layer{i}``
+    ``{"k", "v", "mM", "mn"}``, xLSTM's ``layer{i}`` ``{"M", "n"}`` (mLSTM)
+    or ``{"c", "n", "h", "m"}`` (sLSTM).  Every leaf is a tensor of its
+    own, so a cache whose layers shared one array (the reference's zeroed
+    Mamba state) can be updated layer by layer."""
+    return _tree(cache, resolve_device(device))

@@ -1,24 +1,35 @@
-"""Decoder-only LM, dense and MoE families: the train / prefill forward and
+"""Decoder-only LM over the block families: the train / prefill forward and
 decode.
 
-The port of ``src/repro/models/transformer.py`` for ``family == "dense"``
-(GQA attention + SwiGLU FFN, llama/qwen style) and ``family == "moe"``
-(GQA attention + the top-k MoE FFN of ``models/moe.py``, shared experts
-optional).  ``forward`` returns ``(logits, aux)`` as the reference does;
-aux is the MoE load-balance loss summed over the layers in fp32, 0 for a
-dense model.  ``decode_step`` performs one-token decode against the
-KV cache ``init_cache`` builds, which it updates in place.  Parameters are
-nested dicts with ``blocks`` a list of per-layer dicts, and a Python loop
-over it takes the place of ``lax.scan`` (``convert.lm_params_from_numpy``
-unstacks the reference's scanned layout).  With ``cfg.use_flash`` every
-layer's prefill attention runs the flash-attention CUDA kernel, with
+The port of ``src/repro/models/transformer.py`` for four families:
+
+  dense   GQA attention + SwiGLU FFN (llama/qwen style);
+  moe     GQA attention + the top-k MoE FFN of ``models/moe.py`` (shared
+          experts optional);
+  hybrid  Hymba: parallel attention ∥ Mamba heads and a SwiGLU FFN
+          (``models/hybrid.py``), sliding-window attention but in
+          ``cfg.global_attn_layers``;
+  ssm     xLSTM: mLSTM blocks with sLSTM at ``cfg.slstm_layers``
+          (``models/ssm.py``), no FFN of their own.
+
+``forward`` returns ``(logits, aux)`` as the reference does; aux is the MoE
+load-balance loss summed over the layers in fp32, 0 for the other families.
+``decode_step`` performs one-token decode against the cache ``init_cache``
+builds (the dense KV cache, Hymba's per-layer KV buffers and rings with
+their Mamba states, xLSTM's per-layer recurrent states), which it updates
+in place.  Parameters are nested dicts with ``blocks`` a list of per-layer
+dicts, and a Python loop over it takes the place of ``lax.scan``
+(``convert.lm_params_from_numpy`` unstacks the reference's scanned layout).
+With ``cfg.use_flash`` every dense or MoE layer's prefill attention runs the
+flash-attention CUDA kernel (Hymba's windowed attention stays the plain
+``_sdpa`` with a mask bias, as in the reference), with
 ``cfg.use_kernel_matmul`` every dense FFN product (an MoE layer's shared
-experts included) the blocked-matmul kernel.
+experts and a Hymba block's FFN included) the blocked-matmul kernel.
 ``cfg.remat`` recomputes each block in the backward: ``"full"`` keeps only
 the block's input, ``"dots"`` also the products' outputs.
 
-The hybrid and ssm families come with a later slice (ROADMAP Queue 1,
-item 9), enc-dec and VLM with item 10: they raise here.
+Enc-dec and VLM come with a later slice (ROADMAP Queue 1, item 10): they
+raise here.
 """
 from __future__ import annotations
 
@@ -33,33 +44,37 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, init_rng)
 from repro_torch.models.config import ModelConfig, Params
 
 #: where each family the port does not run yet stands in ROADMAP Queue 1
-_NOT_PORTED = {"hybrid": "item 9 (recurrent families)",
-               "ssm": "item 9 (recurrent families)",
-               "encdec": "item 10 (enc-dec and VLM)",
+_NOT_PORTED = {"encdec": "item 10 (enc-dec and VLM)",
                "vlm": "item 10 (enc-dec and VLM)"}
 
 
 #: the families this module runs
-_PORTED = ("dense", "moe")
+_PORTED = ("dense", "moe", "hybrid", "ssm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED:
-        where = _NOT_PORTED.get(cfg.family, "items 9-10")
+    if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP Queue 1, "
-            f"{where}")
+            f"{_NOT_PORTED[cfg.family]}")
+    if cfg.family not in _PORTED:
+        raise ValueError(f"family {cfg.family!r} is not a decoder LM: "
+                         f"{', '.join(_PORTED + tuple(_NOT_PORTED))}")
 
 
 def init_block(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device: DeviceLike = None) -> Params:
     gen, dev = init_rng(generator, device)
+    if cfg.family == "hybrid":
+        return hybrid_mod.init_hymba_block(cfg, gen, dev)
     p = {
         "attn_norm": init_norm(cfg, device=dev),
         "attn": attn_mod.init_attention(cfg, gen, dev),
@@ -72,6 +87,19 @@ def init_block(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return p
 
 
+def init_xlstm_block(cfg: ModelConfig, layer: int,
+                     generator: Optional[torch.Generator] = None,
+                     device: DeviceLike = None) -> Params:
+    """Block ``layer`` of an xLSTM: sLSTM at ``cfg.slstm_layers``, mLSTM
+    elsewhere, each behind its pre-norm."""
+    gen, dev = init_rng(generator, device)
+    if layer in cfg.slstm_layers:
+        return {"norm": init_norm(cfg, device=dev),
+                "slstm": ssm_mod.init_slstm(cfg, gen, dev)}
+    return {"norm": init_norm(cfg, device=dev),
+            "mlstm": ssm_mod.init_mlstm(cfg, gen, dev)}
+
+
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             device: DeviceLike = None) -> Params:
     """fp32 weights drawn from ``generator`` (default: a CPU generator at
@@ -81,7 +109,12 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     gen, dev = init_rng(generator, device)
     p: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev)}
-    p["blocks"] = [init_block(cfg, gen, dev) for _ in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        p["blocks"] = [init_xlstm_block(cfg, i, gen, dev)
+                       for i in range(cfg.n_layers)]
+    else:
+        p["blocks"] = [init_block(cfg, gen, dev)
+                       for _ in range(cfg.n_layers)]
     p["final_norm"] = init_norm(cfg, device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, device=dev)
@@ -123,6 +156,23 @@ def _apply_dense_block(blk: Params, x: torch.Tensor, cfg: ModelConfig
     return x + out, aux
 
 
+def _apply_xlstm_block(blk: Params, x: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, None]:
+    """One pre-norm xLSTM block -> (x, None: it has no aux)."""
+    h = apply_norm(blk["norm"], x, cfg)
+    if "slstm" in blk:
+        return x + ssm_mod.apply_slstm(blk["slstm"], h, cfg), None
+    return x + ssm_mod.apply_mlstm(blk["mlstm"], h, cfg), None
+
+
+def _hybrid_block(window: int) -> Callable:
+    """A Hymba block at its layer's attention ``window``, in the form the
+    forward's layer loop calls: ``(blk, x, cfg) -> (x, None)``."""
+    def block(blk: Params, x: torch.Tensor, cfg: ModelConfig):
+        return hybrid_mod.apply_hymba_block(blk, x, cfg, window), None
+    return block
+
+
 #: the products whose outputs ``remat="dots"`` saves: the counterpart of
 #: ``checkpoint_dots_with_no_batch_dims``, which would recompute the
 #: attention's batched product too (the saved set changes memory, not values)
@@ -156,13 +206,19 @@ def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (logits (B, S, V) in compute dtype, aux fp32:
-    the layers' load-balance losses summed, 0 for a dense model)."""
+    the MoE layers' load-balance losses summed, 0 for the other families)."""
     _require_ported(cfg)
     x = _embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _maybe_remat(_apply_dense_block, cfg)
-    for blk in params["blocks"]:
-        x, a = block(blk, x, cfg)
+    if cfg.family == "hybrid":
+        blocks = [_hybrid_block(w)
+                  for w in hybrid_mod.layer_windows(cfg, tokens.shape[1])]
+    else:
+        fn = (_apply_xlstm_block if cfg.family == "ssm"
+              else _apply_dense_block)
+        blocks = [fn] * len(params["blocks"])
+    for blk, fn in zip(params["blocks"], blocks, strict=True):
+        x, a = _maybe_remat(fn, cfg)(blk, x, cfg)
         if a is not None:
             aux = aux + a
     return _head(params, x, cfg), aux
@@ -171,10 +227,25 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
 # --- decode ------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The KV cache of the dense and MoE families
-    (``attention.init_kv_cache``) on ``device`` (None: the card)."""
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """A zeroed cache on ``device`` (None: the card): the dense and MoE
+    families' KV cache (``attention.init_kv_cache``); Hymba's ``layer{i}``
+    KV buffers and Mamba states (``hybrid.init_hymba_cache``); xLSTM's
+    ``layer{i}`` states, ``{"M", "n"}`` for an mLSTM block and
+    ``{"c", "n", "h", "m"}`` for an sLSTM one (``max_len`` unused)."""
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        cache: Dict[str, Any] = {}
+        for i in range(cfg.n_layers):
+            if i in cfg.slstm_layers:
+                cache[f"layer{i}"] = ssm_mod.init_slstm_state(cfg, batch,
+                                                              device=device)
+            else:
+                M, n = ssm_mod.init_mlstm_state(cfg, batch, device=device)
+                cache[f"layer{i}"] = {"M": M, "n": n}
+        return cache
+    if cfg.family == "hybrid":
+        return hybrid_mod.init_hymba_cache(cfg, batch, max_len, device=device)
     return attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
 
 
@@ -189,31 +260,51 @@ def _embed_decode(params: Params, tokens: torch.Tensor, pos: int,
     return x
 
 
-def decode_step(params: Params, tokens: torch.Tensor,
-                cache: Dict[str, torch.Tensor], pos: int, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
+                pos: int, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens (B, 1) + cache + int pos -> (logits (B, 1, V), cache).
 
-    Each layer writes its k and v row at ``pos`` into its view of the
-    stacked cache, **in place** (``attention.decode_attention``), and the
-    same dict is returned: a caller that kept the cache sees it change.
-    The attention is the plain grouped contraction over the whole
-    ``S_max``, as in the reference (which takes the flash kernel only when
-    the query and key lengths agree, so ``use_flash`` launches nothing
-    here); with ``use_kernel_matmul`` the FFN products run the
-    blocked-matmul kernel.  An MoE layer dispatches the step's B tokens as
-    one group (the reference's ``apply_moe`` on the (B, 1, D) batch), and
-    its aux is dropped.
+    **The cache is updated in place** and the same dict is returned: a
+    caller that kept it sees it change.  A dense or MoE layer writes its k
+    and v row at ``pos`` into its view of the stacked cache
+    (``attention.decode_attention``); the attention is the plain grouped
+    contraction over the whole ``S_max``, as in the reference (which takes
+    the flash kernel only when the query and key lengths agree, so
+    ``use_flash`` launches nothing here).  An MoE layer dispatches the
+    step's B tokens as one group (the reference's ``apply_moe`` on the
+    (B, 1, D) batch), and its aux is dropped.  A Hymba layer writes its k
+    and v row into its buffer or ring (``hybrid.decode_hymba_block``); an
+    xLSTM or Hymba layer's recurrent state is replaced by the new one in
+    its ``layer{i}`` dict.  With ``use_kernel_matmul`` the FFN products run
+    the blocked-matmul kernel.
     """
     _require_ported(cfg)
     pos = int(pos)
     x = _embed_decode(params, tokens, pos, cfg)
-    for i, blk in enumerate(params["blocks"]):
-        h = apply_norm(blk["attn_norm"], x, cfg)
-        a, _ = attn_mod.decode_attention(
-            blk["attn"], h, {"k": cache["k"][i], "v": cache["v"][i]}, pos,
-            cfg, window=cfg.sliding_window)
-        x = x + a
-        h = apply_norm(blk["ffn_norm"], x, cfg)
-        x = x + _apply_ffn_or_moe(blk, h, cfg)[0]
+    if cfg.family == "ssm":
+        for i, blk in enumerate(params["blocks"]):
+            h = apply_norm(blk["norm"], x, cfg)
+            row = cache[f"layer{i}"]
+            if "slstm" in blk:
+                y, st = ssm_mod.decode_slstm(blk["slstm"], h, row, cfg)
+                row.update(st)
+            else:
+                y, (row["M"], row["n"]) = ssm_mod.decode_mlstm(
+                    blk["mlstm"], h, (row["M"], row["n"]), cfg)
+            x = x + y
+    elif cfg.family == "hybrid":
+        for i, blk in enumerate(params["blocks"]):
+            x = hybrid_mod.decode_hymba_block(
+                blk, x, cache[f"layer{i}"], pos, cfg,
+                is_global=i in cfg.global_attn_layers)
+    else:
+        for i, blk in enumerate(params["blocks"]):
+            h = apply_norm(blk["attn_norm"], x, cfg)
+            a, _ = attn_mod.decode_attention(
+                blk["attn"], h, {"k": cache["k"][i], "v": cache["v"][i]},
+                pos, cfg, window=cfg.sliding_window)
+            x = x + a
+            h = apply_norm(blk["ffn_norm"], x, cfg)
+            x = x + _apply_ffn_or_moe(blk, h, cfg)[0]
     return _head(params, x, cfg), cache

@@ -1,19 +1,20 @@
 """Serving: prefill + batched single-token decode (``serve_step``).
 
-The port of ``src/repro/serve/engine.py`` for the dense and MoE families.
-``build_serve_step(cfg)`` returns the one-token decode function: given the
-params, the KV cache of the context so far, the current token batch and
-its position, it gives the logits and the cache, which it updates in place
+The port of ``src/repro/serve/engine.py`` for the dense, MoE, hybrid
+(hymba) and ssm (xLSTM) families.  ``build_serve_step(cfg)`` returns the
+one-token decode function: given the params, the cache of the context so
+far (KV rows, rings and recurrent states), the current token batch and its
+position, it gives the logits and the cache, which it updates in place
 (``transformer.decode_step``).  ``greedy_generate`` prefills token by token
 through it and then decodes greedily.  The step runs eagerly, as
 ``decode_step`` does: no ``torch.compile`` and no CUDA graph.
 
-Every other family raises through ``transformer``, naming its ROADMAP
-Queue 1 item (9-10).
+Enc-dec and VLM raise through ``transformer``, naming their ROADMAP
+Queue 1 item (10).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -36,7 +37,7 @@ def build_serve_step(cfg: ModelConfig) -> Callable:
 
 
 def init_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int
-               ) -> Dict[str, torch.Tensor]:
+               ) -> Dict[str, Any]:
     """A zeroed cache for ``batch`` sequences of up to ``max_len`` tokens,
     on the device of ``params``."""
     lm_mod._require_ported(cfg)

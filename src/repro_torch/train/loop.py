@@ -40,8 +40,9 @@ from repro_torch.optim.optimizer import apply_updates, global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 #: where each family that is not ported yet waits (ROADMAP Queue 1)
-_WAITS = {"moe": "8 (MoE training)", "ssm": 9, "hybrid": 9, "encdec": 10,
-          "vlm": 10}
+_WAITS = {"moe": "8 (MoE training)",
+          "ssm": "9 (recurrent-family training)",
+          "hybrid": "9 (recurrent-family training)", "encdec": 10, "vlm": 10}
 #: the families the port trains
 _TRAINS = ("mlp", "dense")
 

@@ -5,7 +5,7 @@ Weights are numpy draws at ``dense_init`` / ``embed_init`` scales, with the
 norm scales, biases and QK-norm scales moved away from their init, in the
 reference's scanned layout; the port takes them through
 ``convert.lm_params_from_numpy``.  The JAX package fills the first tokens'
-cache, which the port takes over through ``convert.kv_cache_from_numpy``;
+cache, which the port takes over through ``convert.cache_from_numpy``;
 then both decode the same tokens.  No Pallas kernel is on the reference's
 decode path (it routes to flash only when the query and key lengths agree).
 
@@ -29,7 +29,7 @@ from repro.configs import get_reduced as jax_get_reduced
 from repro.models import attention as jax_attn
 from repro.models import transformer as jax_tf
 from repro_torch.configs import get_reduced
-from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy
+from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
 from repro_torch.models import attention, transformer
 
 B, MAX_LEN, PREFIX = 2, 8, 3
@@ -128,7 +128,7 @@ def test_decode_step_matches_jax_per_token(case, dtype):
     prefix_cache, want_logits, want_cache = _jax_run(case, dtype)
     _, cfg = _cfgs(case, dtype)
     params = lm_params_from_numpy(_tree(case), device="cpu")
-    cache = kv_cache_from_numpy(prefix_cache, device="cpu")
+    cache = cache_from_numpy(prefix_cache, device="cpu")
     assert cache["k"].dtype == TORCH[dtype]
     assert cache["k"].shape == (cfg.n_layers, B, MAX_LEN, cfg.n_kv_heads,
                                 cfg.dh)
@@ -201,8 +201,8 @@ def test_cache_layout_and_device():
         return                            # None resolves to the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_cache(cfg, 3, 5)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        transformer.init_cache(cfg.replace(family="hybrid"), 3, 5,
+    with pytest.raises(NotImplementedError, match="item 10"):
+        transformer.init_cache(cfg.replace(family="encdec"), 3, 5,
                                device="cpu")
 
 

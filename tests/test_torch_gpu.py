@@ -496,3 +496,58 @@ def test_moe_kernel_path_matches_the_plain_path_on_its_routing(cuda):
                 got, _ = transformer.decode_step(params, tok, caches[0], t, cfg)
             assert (mm.launches - m0, flash.launches - f0) == (6, 0)
             assert row_rel_err(got, want) < LM_TOL
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("mkn", [(16384, 1600, 5504), (16384, 5504, 1600),
+                                 (8, 1600, 5504), (8, 5504, 1600)])
+def test_kernel_at_hymba_ffn_shapes(cuda, mkn, act):
+    """hymba-1.5b's FFN in prefill (8 x 2048 tokens) and decode (B = 8):
+    K = 1600 is 25 k-tiles of 64, and N = 1600 leaves a 64-wide edge tile
+    at widths of 128 for the masked store.  bf16, the sm90 variant."""
+    from repro_torch.kernels.blocked_matmul import variant
+    M, K, N = mkn
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    a = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    b = (torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5).to(
+        torch.bfloat16)
+    assert variant(M, N, K, torch.bfloat16, True) == "sm90"
+    before = dict(blocked_matmul.launches_by_variant)
+    got = blocked_matmul(a, b, act=act)
+    torch.cuda.synchronize()
+    assert blocked_matmul.launches_by_variant == {
+        **before, "sm90": before["sm90"] + 1}
+    assert _rel_err(got, ref_matmul(a, b, act=act)) < TOL[torch.bfloat16]
+
+
+def test_hybrid_decode_step_launches_the_ffn_kernel_and_no_flash(cuda):
+    """The reduced hymba (3 layers, window 8: the local ring wraps) on the
+    card with use_flash and use_kernel_matmul: three sm90 launches a layer
+    a step and no flash launch, in the forward and in decode; the logits
+    agree with the plain path's."""
+    from chip_smoke import LM_TOL, row_rel_err
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import blocked_matmul as bm
+    cfg = get_reduced("hymba-1.5b").replace(use_flash=True,
+                                            use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    params = transformer.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, 512, (8, 12), device=cuda)
+    mm, flash = bm.blocked_matmul, flash_attention_bhsd
+    with torch.no_grad():
+        before = (dict(mm.launches_by_variant), flash.launches)
+        got, _ = transformer.forward(params, tokens, cfg)
+        assert mm.launches_by_variant == {**before[0],
+                                          "sm90": before[0]["sm90"] + 9}
+        assert flash.launches == before[1]
+        assert row_rel_err(got, transformer.forward(params, tokens, plain)[0]) \
+            < LM_TOL
+        caches = [transformer.init_cache(c, 8, 12) for c in (cfg, plain)]
+        for t in range(12):
+            m0, f0 = mm.launches, flash.launches
+            got, _ = transformer.decode_step(params, tokens[:, t:t + 1],
+                                             caches[0], t, cfg)
+            assert (mm.launches - m0, flash.launches - f0) == (9, 0)
+            want, _ = transformer.decode_step(params, tokens[:, t:t + 1],
+                                              caches[1], t, plain)
+            assert row_rel_err(got, want) < LM_TOL

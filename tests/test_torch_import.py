@@ -51,7 +51,9 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
             "repro_torch.core.sweep", "repro_torch.serve",
             "repro_torch.serve.engine", "repro_torch.launch",
             "repro_torch.launch.serve",
-            "repro_torch.models.moe"} <= set(probe["names"])
+            "repro_torch.models.moe", "repro_torch.models.ssd",
+            "repro_torch.models.mamba", "repro_torch.models.hybrid",
+            "repro_torch.models.ssm"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 

@@ -39,7 +39,7 @@ from repro.models import moe as jax_moe
 from repro.models import transformer as jax_tf
 from repro.serve import engine as jax_engine
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy
+from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
 from repro_torch.distributed import collectives
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import common, moe, transformer
@@ -314,7 +314,7 @@ def test_decode_step_matches_jax_per_token(arch):
     prefix_cache, want_logits = _jax_decode(arch)
     _, cfg = _cfgs(arch)
     params = lm_params_from_numpy(_tree(arch), device="cpu")
-    cache = kv_cache_from_numpy(prefix_cache, device="cpu")
+    cache = cache_from_numpy(prefix_cache, device="cpu")
     toks = torch.from_numpy(_tokens(cfg.vocab_size, (B, MAX_LEN), 1)).long()
     for t, want in zip(range(PREFIX, MAX_LEN), want_logits):
         logits, out = transformer.decode_step(params, toks[:, t:t + 1], cache,

@@ -177,14 +177,27 @@ def test_init_without_a_device_means_the_card(init):
                                                   jax.tree.leaves(q)))
 
 
-@pytest.mark.parametrize("change", [dict(family="encdec"), dict(family="ssm"),
-                                    dict(family="hybrid")])
+@pytest.mark.parametrize("change", [
+    dict(family="encdec"), dict(family="vlm"),
+    dict(family="vlm", use_flash=True, use_kernel_matmul=True)])
 def test_what_is_not_ported_raises(change):
+    """Enc-dec and VLM (item 10) raise at every entry point, whatever the
+    kernel flags; the recurrent families are ported (tests/test_torch_ssd,
+    _hybrid, _xlstm)."""
     tree, tokens = _case()
     _, cfg = _cfgs("float32")
+    cfg = cfg.replace(**change)
     params = lm_params_from_numpy(tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.forward(params, torch.from_numpy(tokens), cfg.replace(**change))
+    toks = torch.from_numpy(tokens)
+    for call in (lambda: transformer.forward(params, toks, cfg),
+                 lambda: transformer.init_lm(cfg, device="cpu"),
+                 lambda: transformer.init_cache(cfg, 2, 4, device="cpu"),
+                 lambda: transformer.decode_step(params, toks[:, :1], {}, 0,
+                                                 cfg)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+            call()
+    with pytest.raises(ValueError, match="not a decoder LM"):
+        transformer.forward(params, toks, cfg.replace(family="mlp"))
 
 
 # --- layers ----------------------------------------------------------------------
