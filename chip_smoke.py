@@ -43,6 +43,36 @@ after:
               JAX package): the prefill (8, 2048) timed, counted and
               profiled, the card against the CPU; decode at B = 8 teacher-
               forced in bf16 and fp32, greedy generation, the step timed;
+  encdec_prefill
+              whisper-tiny at full width and depth (4 + 4 layers, d 384, 6
+              heads of 64; 36.6 M fp32 params drawn on the card) encoding
+              (8, 1500) frames, every encoder layer's attention in the flash
+              kernel non-causal, and running the decoder over (8, 448)
+              tokens, its self-attention in the flash kernel causal and its
+              cross-attention plain, as in the JAX package; every FFN product
+              in the blocked matmul with its bias and GELU in the epilogue;
+              each launch recorded (``launches_recorded``); the encoder's
+              states and the logits held by ``recurrent_rule``, the fp32
+              kernel path to the fp32 plain path within 1e-4;
+  encdec_decode
+              the same model serving B = 8 against a 448-slot cache
+              (``init_encdec_cache``: the encoder once, the cross K/V): 64
+              teacher-forced steps, greedy generation with the frames, the
+              step at pos 447 timed and one at pos 450 (the learned position
+              clamped to the table's last row, as the reference's
+              ``dynamic_slice_in_dim`` does), decode against the forward in
+              fp32;
+  vlm_prefill internvl2-26b at full width and a depth cut to 24 of its 48
+              layers (10.6 B fp32 params, 42.2 GB: the 48 would not fit
+              beside the activations) prefilling 256 visual + 768 text
+              tokens at B = 2, every layer's attention in the flash kernel
+              at dh 128 and GQA 6, the FFN in the blocked matmul; the
+              logits held by ``recurrent_rule``, the fp32 kernel path at 2
+              layers within 1e-4;
+  vlm_decode  the same model serving text from pos 0 (the reference never
+              caches the visual prefix) at B = 8 against a 1024-slot cache:
+              32 teacher-forced steps, greedy generation, the step at pos
+              1023 timed;
   mlp_serve   the full 8 x 4096 DLRM MLP tower scoring batches of 256, 1024
               and 4096 requests through the fused GEMM + bias + ReLU kernel
               (its Hopper variant, sm90: TMA ring, wgmma, persistent grid);
@@ -93,9 +123,10 @@ after:
               construction must classify each point as the times do on the
               spec's bandwidth-only plane; the tables and the plane printed.
 
-Every blocked-matmul and flash-attention launch of the MoE and hybrid
-paths and the three after them must take the sm90 variant (the hybrid and
-xLSTM paths no flash launch) (the decode's fp32 check the
+Every blocked-matmul and flash-attention launch of the MoE, hybrid,
+enc-dec and VLM paths and the three after them must take the sm90 variant
+(the hybrid and xLSTM paths and every decode step no flash launch) (the
+decode's fp32 check the
 f32 variant, and no decode step any flash launch), every calibration GEMM
 the f32 variant (the wrappers count launches by variant).  It times the
 paths, places them on the Ridgeline plane of the H100 datasheet spec,
@@ -256,6 +287,28 @@ XLSTM_PROMPT, XLSTM_NEW = 32, 32
 #: xlstm-125m on the card against the same weights on the CPU, fp32 (TF32
 #: off), by row: sums in other orders only
 CARD_CPU_TOL = 1e-4
+#: whisper-tiny, full width and depth (36.6 M fp32 params, drawn on the
+#: card, every vector leaf moved off its init): the prefill encodes
+#: (ENCDEC_B, 1500) frames and runs the decoder over (ENCDEC_B, 448) tokens
+#: (its whole learned context); decode at B = ENCDEC_B against a cache of
+#: 448, ENCDEC_TF steps teacher-forced, greedy ENCDEC_PROMPT + ENCDEC_NEW
+#: tokens, the step at pos 447 timed and one at ENCDEC_CLAMP_POS (past the
+#: position table: the clamp)
+WHISPER_ARCH = "whisper-tiny"
+ENCDEC_B, ENCDEC_TF = 8, 64
+ENCDEC_PROMPT, ENCDEC_NEW = 32, 32
+ENCDEC_CLAMP_POS = 450
+#: internvl2-26b at full width and a depth cut to VLM_LAYERS (48 layers are
+#: 19.9 B params, 79.7 GB in fp32: no room on one 80 GB card; 24 are 10.6 B,
+#: 42.2 GB): the prefill (B, 256 visual + 768 text); the fp32 kernel path
+#: checked at a depth cut to VLM_F32_LAYERS; decode at B = VLM_B against a
+#: cache of VLM_MAX, VLM_TF steps teacher-forced, greedy VLM_PROMPT +
+#: VLM_NEW tokens, the step at pos VLM_MAX - 1 timed
+VLM_ARCH = "internvl2-26b"
+VLM_LAYERS, VLM_F32_LAYERS = 24, 2
+VLM_PREFILL = (2, 768)
+VLM_B, VLM_MAX, VLM_TF = 8, 1024, 32
+VLM_PROMPT, VLM_NEW = 32, 32
 #: the dlrm-mlp train step: 20 AdamW steps on one fixed batch of 1024, the
 #: step timed at three batches (256 below the bf16 ridge, 1024 and 4096
 #: above it)
@@ -403,21 +456,23 @@ def edge_option(base, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_option(fns, kind: str, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
-    """One causal launch of the ``kind`` kernel of ``fns`` (what
+                 v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """One launch (causal or not) of the ``kind`` kernel of ``fns`` (what
     ``flash_attention.bind`` returns) on model-layout q, k, v, past the
     wrapper and its counters."""
     from repro_torch.kernels import flash_attention as fa
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out = torch.empty_like(qt)
-    rc = fa.launch(fns, kind, qt, kt, vt, out, True, 0, q.shape[1])
+    rc = fa.launch(fns, kind, qt, kt, vt, out, causal, 0, q.shape[1])
     check(rc == 0, f"flash {kind} failed at {tuple(q.shape)}: CUDA error {rc}")
     return out.transpose(1, 2)
 
 
 def flash_row(say, path: str, fns, gen: torch.Generator, B: int, S: int,
-              H: int, K: int, dh: int, launches: int) -> dict:
-    """The flash kernel at one causal bf16 prefill shape per launch: the
+              H: int, K: int, dh: int, launches: int,
+              causal: bool = True) -> dict:
+    """The flash kernel at one bf16 prefill shape per launch, causal or
+    not (an encoder's bidirectional attention): the
     kernel, its plain version, the earlier mma design (called past the
     wrapper, in turns: the kernel, mma, the kernel again) and the library's
     one call (SDPA, a yardstick the port never calls), each checked against
@@ -433,24 +488,30 @@ def flash_row(say, path: str, fns, gen: torch.Generator, B: int, S: int,
     bf16 = torch.bfloat16
     q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=gen.device)
                .to(bf16) for n in (H, K, K))
-    k_ms = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
-    mma_ms = kernel_ms(lambda i: flash_option(fns, "mma", q, k, v), iters=20)
-    k_ms_again = kernel_ms(lambda i: ops.flash_attention(q, k, v), iters=20)
-    p_ms = kernel_ms(lambda i: ref_flash_attention(q, k, v), iters=5)
+    def kernel(i):
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    k_ms = kernel_ms(kernel, iters=20)
+    mma_ms = kernel_ms(lambda i: flash_option(fns, "mma", q, k, v, causal),
+                       iters=20)
+    k_ms_again = kernel_ms(kernel, iters=20)
+    p_ms = kernel_ms(lambda i: ref_flash_attention(q, k, v, causal=causal),
+                     iters=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib_ms = kernel_ms(lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-    want = ref_flash_attention(q, k, v)
-    got = ops.flash_attention(q, k, v)
+        qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20)
+    want = ref_flash_attention(q, k, v, causal=causal)
+    got = kernel(0)
     err_abs, err = max_abs(got, want), row_rel_err(got, want)
     check(err < FLASH_TOL[bf16],
           f"flash kernel disagrees at {path}'s ({B},{S},{H},{K},{dh}): {err}")
-    e_mma = row_rel_err(flash_option(fns, "mma", q, k, v), want)
+    e_mma = row_rel_err(flash_option(fns, "mma", q, k, v, causal), want)
     check(e_mma < FLASH_TOL[bf16],
           f"flash mma disagrees at {path}'s ({B},{S},{H},{K},{dh}): {e_mma}")
-    flops, nbytes = attn_work(B, S, H, K, dh, True, 2)
+    flops, nbytes = attn_work(B, S, H, K, dh, causal, 2)
     b_ms, b_by = bound_of(flops, nbytes, H100_SXM)
-    say(f"  flash B={B} S={S} H={H} K={K} dh={dh} per launch: kernel "
+    say(f"  flash B={B} S={S} H={H} K={K} dh={dh} causal={causal} per "
+        f"launch: kernel "
         f"(sm90) {k_ms:.4f} / {k_ms_again:.4f} ms "
         f"({flops / k_ms / 1e9:.1f} TFLOP/s), earlier mma design "
         f"{mma_ms:.4f} ms ({mma_ms / k_ms:.2f}x the kernel); plain "
@@ -459,7 +520,7 @@ def flash_row(say, path: str, fns, gen: torch.Generator, B: int, S: int,
         f"{100 * b_ms / k_ms:.1f}% of bound; {launches} {path} "
         f"launches; max_abs_err {err_abs:.3e}, row_rel_err {err:.3e} "
         f"(mma {e_mma:.3e}; tol {FLASH_TOL[bf16]:g})")
-    return {"path": path, "shape": [B, S, H, K, dh], "causal": True,
+    return {"path": path, "shape": [B, S, H, K, dh], "causal": causal,
             "launches": launches, "kernel_ms": k_ms,
             "kernel_ms_again": k_ms_again, "mma_ms": mma_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -750,40 +811,56 @@ def op_split(fn) -> dict:
 
 
 def ffn_row(say, path: str, a: torch.Tensor, ws: list, act, launches: int,
-            hw) -> dict:
+            hw, biases: list | None = None) -> dict:
     """The blocked matmul at one FFN shape per launch: ``a`` against each of
     ``ws`` in turn (at decode's sizes one layer's weight after another, so
     no launch finds its weight in L2 from the launch before, as in the
-    step), beside the plain version and ``torch.mm`` (+ silu), checked
-    against the plain version: one row of the summary line."""
+    step), with ``biases`` (one a weight, in the epilogue) where given,
+    beside the plain version and ``torch.mm`` (``addmm`` with a bias; +
+    the activation), checked against the plain version: one row of the
+    summary line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.blocked_matmul import blocked_matmul
     from repro_torch.kernels.ref import ref_matmul
     from repro_torch.measure.timers import kernel_ms
     n = len(ws)
+    bs = biases or [None] * n
     (M, K), N = a.shape, ws[0].shape[1]
-    k_ms = kernel_ms(lambda i: blocked_matmul(a, ws[i % n], act=act), iters=60)
-    p_ms = kernel_ms(lambda i: ref_matmul(a, ws[i % n], act=act), iters=60)
-    lib_ms = kernel_ms(
-        (lambda i: F.silu(torch.mm(a, ws[i % n]))) if act
-        else (lambda i: torch.mm(a, ws[i % n])), iters=60)
-    got, want = blocked_matmul(a, ws[0], act=act), ref_matmul(a, ws[0], act=act)
+    acts = {None: lambda y: y, "silu": F.silu,
+            "gelu": lambda y: F.gelu(y, approximate="tanh")}
+
+    def library(i):
+        w, b = ws[i % n], bs[i % n]
+        return acts[act](torch.mm(a, w) if b is None else torch.addmm(b, a, w))
+
+    k_ms = kernel_ms(lambda i: blocked_matmul(a, ws[i % n], bias=bs[i % n],
+                                              act=act), iters=60)
+    p_ms = kernel_ms(lambda i: ref_matmul(a, ws[i % n], bias=bs[i % n],
+                                          act=act), iters=60)
+    lib_ms = kernel_ms(library, iters=60)
+    got = blocked_matmul(a, ws[0], bias=bs[0], act=act)
+    want = ref_matmul(a, ws[0], bias=bs[0], act=act)
     err_abs, err = max_abs(got, want), rel_err(got, want)
     check(err < TOL[a.dtype],
           f"blocked matmul disagrees at {path}'s ({M},{K},{N}): {err}")
     elem = a.element_size()
-    flops, nbytes = 2.0 * M * K * N, float(elem) * (M * K + K * N + M * N)
+    flops = 2.0 * M * K * N
+    nbytes = float(elem) * (M * K + K * N + M * N
+                            + (N if biases else 0))
     b_ms, b_by = bound_of(flops, nbytes, hw)
     dt = "f32" if a.dtype == torch.float32 else "bf16"
-    say(f"  blocked_matmul {dt} ({M},{K},{N}) act={act} per launch: kernel "
+    lib = ("addmm" if biases else "mm") + (f"+{act}" if act else "")
+    say(f"  blocked_matmul {dt} ({M},{K},{N}) act={act} bias="
+        f"{biases is not None} per launch: kernel "
         f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
         f"{nbytes / k_ms / 1e6:.1f} GB/s, "
         f"{100 * b_ms / k_ms:.1f}% of the bound {b_ms:.5f} ms, {b_by}, "
-        f"{hw.name}), plain {p_ms:.4f} ms, library mm{'+silu' if act else ''}"
+        f"{hw.name}), plain {p_ms:.4f} ms, library {lib}"
         f" {lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x); {launches} {path} "
         f"launches; max_abs_err {err_abs:.3e}, rel_err {err:.3e}")
-    return {"path": path, "shape": [M, K, N], "act": act, "dtype": dt,
+    return {"path": path, "shape": [M, K, N], "act": act,
+            "bias": biases is not None, "dtype": dt,
             "launches": launches, "kernel_ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": err_abs, "flops": flops, "bytes": nbytes}
@@ -1064,13 +1141,15 @@ def topk_agreement(log_a: list, log_b: list) -> float:
     return torch.cat(same).float().mean().item()
 
 
-def weight_casts(params) -> tuple:
+def weight_casts(params, skip=None) -> tuple:
     """(the weight casts of one forward or decode step as a function of a
-    call index, their bytes): every matrix leaf but the embedding table
-    (whose rows are gathered, then cast) read in fp32, written in bf16."""
+    call index, their bytes): every matrix leaf but those of ``skip``
+    (default: the embedding table, whose rows are gathered, then cast) read
+    in fp32, written in bf16."""
     from repro_torch.tree import tree_leaves
+    skip = (params["embed"],) if skip is None else skip
     mats = [w for w in tree_leaves(params)
-            if w.dim() >= 2 and w is not params["embed"]]
+            if w.dim() >= 2 and not any(w is t for t in skip)]
 
     def casts(_i):
         for w in mats:
@@ -2148,6 +2227,776 @@ def recurrent_paths(dev, say, gen: torch.Generator) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def launches_recorded(log: list):
+    """Append one tuple a kernel launch while the block runs: ``("mm", M,
+    K, N, act, bias given, variant)`` for the blocked matmul, ``("flash",
+    B, H, K, S, dh, causal, variant)`` for the flash kernel.  The launches
+    and the wrappers' counters are as before."""
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    real_mm, real_fa = bm._launch, fa.launch
+
+    def mm(a, b, bias, act, kind):
+        log.append(("mm", a.shape[0], a.shape[1], b.shape[1], act,
+                    bias is not None, kind))
+        return real_mm(a, b, bias, act, kind)
+
+    def flash(fns, kind, q, k, v, out, causal, window, seq_len):
+        log.append(("flash", q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                    q.shape[3], bool(causal), kind))
+        return real_fa(fns, kind, q, k, v, out, causal, window, seq_len)
+
+    bm._launch, fa.launch = mm, flash
+    try:
+        yield log
+    finally:
+        bm._launch, fa.launch = real_mm, real_fa
+
+
+def launch_tally(log: list) -> dict:
+    """How many of each launch ``launches_recorded`` saw."""
+    tally: dict = {}
+    for key in log:
+        tally[key] = tally.get(key, 0) + 1
+    return tally
+
+
+def jitter_vectors(params, gen: torch.Generator) -> None:
+    """Move every vector leaf (norm scales and biases, drawn as ones and
+    zeros) off its init by N(0, 0.1^2), in place, so a kernel that drops a
+    bias shows in the logits."""
+    from repro_torch.tree import tree_leaves
+    for t in tree_leaves(params):
+        if t.dim() == 1:
+            t.add_(0.1 * torch.randn(t.shape, generator=gen, device=t.device))
+
+
+def prefill_report(say, label: str, fn, dev, plain_fn, count_fn,
+                   least: float, repeats: int) -> tuple:
+    """(c) of a prefill: ``fn()`` timed (host median and p90, card), its
+    peak memory, ``plain_fn()``'s card time, the profiler's split, F and
+    B_M counted by ``count_fn()`` on the plain path, and the bound with
+    ``least`` bytes and with the counted ones on h100_sxm.  Returns (the
+    host timing, F, the peak)."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.measure.timers import cuda_event_ms, time_callable
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    host = time_callable(fn, device=dev, repeats=repeats, warmup=1)
+    p90 = float(np.percentile(host.samples, 90))
+    card = cuda_event_ms(lambda i: fn(), iters=max(2, repeats // 2),
+                         warmup=1)
+    plain_card = cuda_event_ms(lambda i: plain_fn(), iters=2, warmup=1)
+    split = op_split(fn)
+    check(split["kernel"] > 0 and split["flash"] > 0,
+          f"{label}: the profiler saw neither kernel: {split}")
+    flops, nbytes = count_fn()
+    a_least = analyze(WorkUnit(label, flops, least, 0.0), H100_SXM)
+    a_counted = analyze(WorkUnit(label + "_counted", flops, nbytes, 0.0),
+                        H100_SXM)
+    say(f"(c) {label}: host median {host.median * 1e3:.4f} ms, p90 "
+        f"{p90 * 1e3:.4f} ms (n={len(host.samples)}); card {card:.4f} ms; "
+        f"plain path card {plain_card:.4f} ms; peak memory allocated "
+        f"{peak / 1e9:.3f} GB; counted F {flops:.6g}, B_M {nbytes:.6g} "
+        f"(plain path, eager ops)")
+    say(f"(c) {label} on h100_sxm, least bytes {least:.6g}: "
+        f"{a_least.summary()}, bound {a_least.runtime * 1e3:.4f} ms = "
+        f"{100 * a_least.runtime / host.median:.1f}% of the host median; "
+        f"with the counted B_M: bound {a_counted.runtime * 1e3:.4f} ms "
+        f"({a_counted.bottleneck.value})")
+    say_split(say, f"(c) {label}", split, card)
+    return host, flops, peak
+
+
+def step_report(say, label: str, step, plain_step, count_fn, dev,
+                least: float, per_step: int, casts) -> tuple:
+    """(e) of a decode path: ``step()`` timed (host median and p90, card),
+    ``plain_step()``'s host time, its blocked-matmul launches (must be
+    ``per_step``), the weight casts alone (``casts`` of ``weight_casts``),
+    the profiler's split, F and B_M counted on the plain path against the
+    bound, and with ``least`` bytes.  Returns (the host timing, F, B_M)."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.measure.timers import (cuda_event_ms, kernel_ms,
+                                            time_callable)
+    host = time_callable(step, device=dev, repeats=10, warmup=2)
+    p90 = float(np.percentile(host.samples, 90))
+    plain_host = time_callable(plain_step, device=dev, repeats=5, warmup=1)
+    card = cuda_event_ms(lambda i: step(), iters=5, warmup=1)
+    m0 = bm.blocked_matmul.launches
+    step()
+    n_launch = bm.blocked_matmul.launches - m0
+    cast_fn, cast_bytes = casts
+    cast_ms = kernel_ms(cast_fn, iters=1, warmup=1)
+    split = op_split(step)
+    check(split["kernel"] > 0, f"{label}: the profiler saw no kernel time")
+    flops, nbytes = count_fn()
+    a = analyze(WorkUnit(label, flops, nbytes, 0.0), H100_SXM)
+    a_least = analyze(WorkUnit(label + "_least", flops, least, 0.0),
+                      H100_SXM)
+    say(f"  (e) {label}: host median {host.median * 1e3:.4f} ms, p90 "
+        f"{p90 * 1e3:.4f} ms (n={len(host.samples)}); card {card:.4f} ms; "
+        f"plain path host {plain_host.median * 1e3:.4f} ms; {n_launch} "
+        f"blocked-matmul launches a step; counted F {flops:.6g}, B_M "
+        f"{nbytes:.6g} (plain path, eager ops); h100_sxm: {a.summary()}, "
+        f"bound {a.runtime * 1e3:.4f} ms = "
+        f"{100 * a.runtime / host.median:.1f}% of the host median; least "
+        f"bytes (fp32 params and the cache read once, logits written) "
+        f"{least:.6g}: bound {a_least.runtime * 1e3:.4f} ms; the weight "
+        f"casts alone {cast_ms:.4f} ms for {cast_bytes:.6g} bytes")
+    say_split(say, f"(e) {label}", split, card)
+    check(n_launch == per_step, f"{label}: {n_launch} launches in the step")
+    return host, flops, nbytes
+
+
+def bf16_copies(blocks: list, path: tuple) -> list:
+    """Leaf ``path`` of each block in bf16 (the per-launch rows' weights)."""
+    out = []
+    for blk in blocks:
+        t = blk
+        for key in path:
+            t = t[key]
+        out.append(t.to(torch.bfloat16))
+    return out
+
+
+@torch.no_grad()
+def encdec_prefill(dev, say, params, cfg, frames: torch.Tensor,
+                   tokens: torch.Tensor, gen: torch.Generator) -> dict:
+    """The whisper-tiny prefill, full width and depth, bf16, with
+    ``use_flash`` and ``use_kernel_matmul``: (a) the main path, ``encode``
+    of ``frames`` and ``forward`` of ``tokens`` over them, its counts set
+    to 0 before and read after and each launch recorded: the encoder's
+    attention in the flash kernel non-causal at S = 1500, the decoder's
+    self-attention causal, every FFN product in the blocked matmul with
+    its bias (and the GELU) in the epilogue; (b) the encoder's states and
+    the logits held to the plain path's by ``recurrent_rule``, and the fp32
+    kernel path (the f32 kernels) to the fp32 plain path within
+    ``DECODE_TOL``; (c) ``encode`` alone and the forward timed, profiled and
+    counted against the bound; (d) both kernels per launch at the path's
+    shapes.  Returns the launches by variant, the summary rows (and the
+    encoder's rows apart) and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.models import encdec
+    from repro_torch.models.common import count_params
+
+    kcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    f32 = plain.replace(compute_dtype=torch.float32)
+    (B, S), T = tokens.shape, frames.shape[1]
+    V, NL, NE, d, f = (cfg.vocab_size, cfg.n_layers, cfg.encoder_layers,
+                       cfg.d_model, cfg.d_ff)
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    n_params = count_params(params)
+    say(f"{cfg.name} prefill: frames ({B}, {T}, {d}) through {NE} encoder "
+        f"layers, tokens ({B}, {S}) through {NL} decoder layers; use_flash "
+        f"and use_kernel_matmul on")
+
+    # (a) the main path
+    reset_counts()
+    enc_log, fwd_log = [], []
+    with launches_recorded(enc_log):
+        enc = encdec.encode(params, frames, kcfg)
+    with launches_recorded(fwd_log):
+        logits, aux = encdec.forward(params, tokens, frames, kcfg)
+    torch.cuda.synchronize()
+    mm_made = dict(bm.blocked_matmul.launches_by_variant)
+    fa_made = dict(fa.flash_attention_bhsd.launches_by_variant)
+    enc_want = {("flash", B, H, K, T, dh, False, "sm90"): NE,
+                ("mm", B * T, d, f, "gelu", True, "sm90"): NE,
+                ("mm", B * T, f, d, None, True, "sm90"): NE}
+    dec_want = {("flash", B, H, K, S, dh, True, "sm90"): NL,
+                ("mm", B * S, d, f, "gelu", True, "sm90"): NL,
+                ("mm", B * S, f, d, None, True, "sm90"): NL}
+    say(f"(a) main path: encode launched {launch_tally(enc_log)}; the "
+        f"forward {launch_tally(fwd_log)}; blocked_matmul by variant "
+        f"{mm_made}, flash by variant {fa_made}")
+    check(launch_tally(enc_log) == enc_want,
+          f"encode must launch the flash kernel non-causal and the FFN "
+          f"kernel with its bias: {launch_tally(enc_log)}")
+    check(launch_tally(fwd_log) == {**enc_want, **dec_want},
+          f"the forward's launches: {launch_tally(fwd_log)}")
+    check(mm_made == {**dict.fromkeys(bm.VARIANTS, 0),
+                      "sm90": 4 * NE + 2 * NL}
+          and fa_made == {**dict.fromkeys(fa.VARIANTS, 0),
+                          "sm90": 2 * NE + NL},
+          f"every encdec prefill launch must take sm90: {mm_made}, "
+          f"{fa_made}")
+    check(enc.shape == (B, T, d) and torch.isfinite(enc).all().item()
+          and logits.shape == (B, S, V)
+          and torch.isfinite(logits).all().item() and float(aux) == 0.0,
+          "encdec prefill output malformed")
+
+    # (b) against the plain path, held by the fp32 plain path's distance;
+    # the fp32 kernel path against the fp32 plain path
+    recurrent_rule(say, "(b) encoder states, kernel path vs plain path", enc,
+                   encdec.encode(params, frames, plain),
+                   encdec.encode(params, frames, f32))
+    want = encdec.forward(params, tokens, frames, plain)[0]
+    exact = encdec.forward(params, tokens, frames, f32)[0]
+    recurrent_rule(say, "(b) logits, kernel path vs plain path", logits,
+                   want, exact)
+    del enc, logits, want
+    k32 = encdec.forward(params, tokens, frames,
+                         f32.replace(use_flash=True,
+                                     use_kernel_matmul=True))[0]
+    e32 = row_rel_err(k32, exact)
+    say(f"(b) fp32 logits, the kernel path (the f32 kernels) vs the plain "
+        f"path: row_rel_err {e32:.3e} (tol {DECODE_TOL[torch.float32]:g})")
+    check(e32 < DECODE_TOL[torch.float32],
+          f"the fp32 encdec kernel path disagrees: {e32}")
+    del k32, exact
+
+    # (c) encode alone, then the forward: timed, profiled, counted
+    enc_params = 4.0 * count_params([params["enc_blocks"],
+                                     params["enc_norm"]])
+    enc_host, _, _ = prefill_report(
+        say, f"whisper_encode_b{B}_t{T}",
+        lambda: encdec.encode(params, frames, kcfg), dev,
+        lambda: encdec.encode(params, frames, plain),
+        lambda: counters.count(encdec.encode, params, frames, plain),
+        enc_params + 4.0 * B * T * d + 2.0 * B * T * d, 10)
+    least = 4.0 * n_params + 4.0 * B * T * d + 2.0 * B * S * V + 8.0 * B * S
+    host, flops, peak = prefill_report(
+        say, f"whisper_prefill_b{B}_s{S}",
+        lambda: encdec.forward(params, tokens, frames, kcfg), dev,
+        lambda: encdec.forward(params, tokens, frames, plain),
+        lambda: counters.count(encdec.forward, params, tokens, frames, plain),
+        least, 10)
+    say(f"(c) encode is {100 * enc_host.median / host.median:.1f}% of the "
+        f"forward's host median; {B * S / host.median:.0f} decoder "
+        f"tokens/s")
+
+    # (d) per launch at the path's shapes, each layer's weights in turn
+    fns = fa._launcher()
+    enc_flash = flash_row(say, "encdec_prefill", fns, gen, B, T, H, K, dh,
+                          2 * NE, causal=False)
+    dec_flash = flash_row(say, "encdec_prefill", fns, gen, B, S, H, K, dh, NL)
+    rows = []
+    for blocks, M, n in ((params["enc_blocks"], B * T, 2 * NE),
+                         (params["dec_blocks"], B * S, NL)):
+        x_in = torch.randn((M, d), generator=gen, device=dev).to(torch.bfloat16)
+        x_mid = torch.randn((M, f), generator=gen,
+                            device=dev).to(torch.bfloat16)
+        rows += [ffn_row(say, "encdec_prefill", x_in,
+                         bf16_copies(blocks, ("ffn", "w_up")), "gelu", n,
+                         H100_SXM, bf16_copies(blocks, ("ffn", "b_up"))),
+                 ffn_row(say, "encdec_prefill", x_mid,
+                         bf16_copies(blocks, ("ffn", "w_down")), None, n,
+                         H100_SXM, bf16_copies(blocks, ("ffn", "b_down")))]
+    point = {
+        "arch": cfg.name, "shape": f"prefill_b{B}_s{S}_t{T}", "mesh": "1",
+        "kind": "prefill", "variant": "use_flash+use_kernel_matmul",
+        "flops": flops, "mem_bytes": least, "wire_bytes": 0.0, "by_kind": {},
+        "peak": float(peak), "params": float(n_params),
+        "tokens": float(B * S), "seconds": host.median, "main": True,
+        "source": "chip_smoke encdec_prefill host median",
+        "notes": "encode + decoder forward; F counted on the plain path; "
+                 "least bytes: params once, frames read, logits written"}
+    return {"blocked_matmul": mm_made, "flash": fa_made, "mm_rows": rows,
+            "flash_rows": [enc_flash, dec_flash],
+            "encoder_rows": [enc_flash] + rows[:2], "point": point}
+
+
+@torch.no_grad()
+def encdec_decode(dev, say, params, cfg, frames: torch.Tensor,
+                  rng: np.random.Generator, gen: torch.Generator,
+                  encoder_rows: list) -> dict:
+    """The whisper-tiny serving path, B = ``ENCDEC_B`` against a cache of
+    448 (the learned positions' context), bf16, ``use_flash`` and
+    ``use_kernel_matmul``.  The main path, its counts set to 0 before (a)
+    and read after (c), each launch recorded: (a) ``init_encdec_cache``
+    (the encoder once, its flash launches non-causal) and ``ENCDEC_TF``
+    teacher-forced steps from pos 0, held to the plain forward's rows by
+    ``recurrent_rule``; (b) ``serve.engine.greedy_generate`` with the
+    frames, ``ENCDEC_PROMPT`` + ``ENCDEC_NEW`` tokens (its own cache: the
+    encoder once more), every generated token held to the plain path
+    teacher-forced on them; (c) the step at pos 447 and one at
+    ``ENCDEC_CLAMP_POS`` (past the 448 position rows: the last one read),
+    that one held to the plain path's same step.  Then (d) decode against
+    the forward in fp32 on the plain path; (e) the step at pos 447 timed,
+    profiled and counted; (f) the decode FFN products per launch.  Returns
+    the launches by variant, the summary rows and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.models import attention, encdec
+    from repro_torch.models.common import count_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve import engine
+
+    V, NL, NE, d, f = (cfg.vocab_size, cfg.n_layers, cfg.encoder_layers,
+                       cfg.d_model, cfg.d_ff)
+    H, K, dh, L = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.max_seq_len
+    dcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    f32 = plain.replace(compute_dtype=torch.float32)
+    B, T, per_step, pos = ENCDEC_B, frames.shape[1], 2 * NL, L - 1
+    n_params = count_params(params)
+    mm, flash = bm.blocked_matmul, fa.flash_attention_bhsd
+    toks = torch.from_numpy(rng.integers(0, V, (B, ENCDEC_TF))).to(dev)
+    last = torch.from_numpy(rng.integers(0, V, (B, 1))).to(dev)
+    say(f"{cfg.name} decode: B={B}, frames ({B}, {T}), cache {L}; "
+        f"{ENCDEC_TF} teacher-forced steps, greedy {ENCDEC_PROMPT} + "
+        f"{ENCDEC_NEW}, the step at pos {pos} and at {ENCDEC_CLAMP_POS}")
+    want = encdec.forward(params, toks, frames, plain)[0]
+    exact = encdec.forward(params, toks, frames, f32)[0]
+
+    def clamp_cache(c, dtype_cfg):
+        """A zeroed self cache of ``ENCDEC_CLAMP_POS + 1`` rows beside
+        ``c``'s cross K/V."""
+        return {"self": attention.init_kv_cache(dtype_cfg, B,
+                                                ENCDEC_CLAMP_POS + 1,
+                                                device=dev),
+                "cross_k": c["cross_k"], "cross_v": c["cross_v"]}
+
+    # ---- the main path: (a), (b), (c) -----------------------------------------
+    reset_counts()
+    log = []
+    with launches_recorded(log):
+        cache = encdec.init_encdec_cache(params, frames, B, L, dcfg)
+        steps_seen, rows_k = set(), []
+        for t in range(ENCDEC_TF):
+            m0, f0 = mm.launches, flash.launches
+            lg, out = encdec.decode_step(params, toks[:, t:t + 1], cache, t,
+                                         dcfg)
+            steps_seen.add((mm.launches - m0, flash.launches - f0))
+            check(out is cache and lg.shape == (B, 1, V)
+                  and torch.isfinite(lg).all().item(),
+                  f"encdec decode step {t}: logits malformed or the cache "
+                  f"replaced")
+            rows_k.append(lg[:, 0])
+        REGISTRY.reset()
+        prompt = toks[:, :ENCDEC_PROMPT]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_k = engine.greedy_generate(params, dcfg, prompt,
+                                       steps=ENCDEC_NEW, max_len=L,
+                                       frames=frames)
+        gen_s = time.perf_counter() - t0
+        hist = REGISTRY.snapshot()["histograms"]["serve.step_seconds"]
+        step_lg = encdec.decode_step(params, last, cache, pos, dcfg)[0]
+        kc = clamp_cache(cache, dcfg)
+        clamp_lg = encdec.decode_step(params, last, kc, ENCDEC_CLAMP_POS,
+                                      dcfg)[0]
+    torch.cuda.synchronize()
+    n_steps = ENCDEC_TF + ENCDEC_PROMPT + ENCDEC_NEW - 1 + 2
+    launched = dict(mm.launches_by_variant)
+    flashed = dict(flash.launches_by_variant)
+    tally = launch_tally(log)
+    say(f"(blocked_matmul, flash) launches per teacher-forced step "
+        f"{sorted(steps_seen)}; main path ({n_steps} steps, 2 caches): "
+        f"{tally}")
+    check(steps_seen == {(per_step, 0)},
+          f"expected {per_step} blocked-matmul launches and no flash launch "
+          f"a step, got {steps_seen}")
+    check(tally == {("flash", B, H, K, T, dh, False, "sm90"): 2 * NE,
+                    ("mm", B * T, d, f, "gelu", True, "sm90"): 2 * NE,
+                    ("mm", B * T, f, d, None, True, "sm90"): 2 * NE,
+                    ("mm", B, d, f, "gelu", True, "sm90"): NL * n_steps,
+                    ("mm", B, f, d, None, True, "sm90"): NL * n_steps},
+          f"the encdec decode path's launches: {tally}")
+    check(launched == {**dict.fromkeys(bm.VARIANTS, 0),
+                       "sm90": 4 * NE + per_step * n_steps}
+          and flashed == {**dict.fromkeys(fa.VARIANTS, 0), "sm90": 2 * NE},
+          f"the counters disagree with the launches: {launched}, {flashed}")
+    check(torch.isfinite(step_lg).all().item()
+          and torch.isfinite(clamp_lg).all().item(),
+          "the steps at pos 447 and past the position table gave non-finite "
+          "logits")
+    got = torch.stack(rows_k, dim=1)
+    recurrent_rule(say, f"  (a) {ENCDEC_TF} teacher-forced steps, kernel "
+                   f"path vs the plain forward's rows", got, want, exact)
+    tf_abs = max_abs(got, want)
+    del got, rows_k, want
+    cp = encdec.init_encdec_cache(params, frames, B, L, plain)
+    hold_generation(say, gen_k, prompt, ENCDEC_NEW, lambda t, tok:
+                    encdec.decode_step(params, tok, cp, t, plain)[0],
+                    tf_abs, gen_s, hist)
+    c32 = encdec.init_encdec_cache(params, frames, B, 1, f32)
+    recurrent_rule(
+        say, f"  (c) the step at pos {ENCDEC_CLAMP_POS} (the learned row "
+        f"clamped to {L - 1}), kernel path vs plain path", clamp_lg,
+        encdec.decode_step(params, last, clamp_cache(cp, plain),
+                           ENCDEC_CLAMP_POS, plain)[0],
+        encdec.decode_step(params, last, clamp_cache(c32, f32),
+                           ENCDEC_CLAMP_POS, f32)[0])
+    del cp, kc
+
+    # (d) decode against the forward in fp32 on the plain path
+    c32 = encdec.init_encdec_cache(params, frames, B, ENCDEC_TF, f32)
+    d_rel = max(row_rel_err(encdec.decode_step(
+        params, toks[:, t:t + 1], c32, t, f32)[0][:, 0], exact[:, t])
+        for t in range(ENCDEC_TF))
+    say(f"  (d) fp32 plain path: {ENCDEC_TF} teacher-forced steps against "
+        f"the forward's rows: row_rel_err {d_rel:.3e} (tol "
+        f"{DECODE_TOL[torch.float32]:g})")
+    check(d_rel < DECODE_TOL[torch.float32],
+          f"encdec decode disagrees with the forward in fp32: {d_rel}")
+    del c32, exact
+
+    # (e) the step at pos 447
+    c_bytes = float(sum(t.numel() * t.element_size() for t in (
+        cache["self"]["k"], cache["self"]["v"], cache["cross_k"],
+        cache["cross_v"])))
+    least = 4.0 * n_params + c_bytes + 2.0 * B * V
+    host, flops, nbytes = step_report(
+        say, f"whisper_decode_b{B}",
+        lambda: encdec.decode_step(params, last, cache, pos, dcfg),
+        lambda: encdec.decode_step(params, last, cache, pos, plain),
+        lambda: counters.count(encdec.decode_step, params, last, cache, pos,
+                               plain), dev, least, per_step,
+        weight_casts(params, skip=(params["dec_pos"],)))
+    say(f"  (e) {B / host.median:.1f} tokens/s at B={B}; the cache "
+        f"{c_bytes:.6g} bytes (self and cross K/V)")
+
+    # (f) the decode FFN products per launch, each layer's in turn; the
+    # encoder's launches in the two caches at the prefill's rows
+    blocks = params["dec_blocks"]
+    x_in = torch.randn((B, d), generator=gen, device=dev).to(torch.bfloat16)
+    x_mid = torch.randn((B, f), generator=gen, device=dev).to(torch.bfloat16)
+    rows = [ffn_row(say, "encdec_decode", x_in,
+                    bf16_copies(blocks, ("ffn", "w_up")), "gelu",
+                    NL * n_steps, H100_SXM,
+                    bf16_copies(blocks, ("ffn", "b_up"))),
+            ffn_row(say, "encdec_decode", x_mid,
+                    bf16_copies(blocks, ("ffn", "w_down")), None,
+                    NL * n_steps, H100_SXM,
+                    bf16_copies(blocks, ("ffn", "b_down")))]
+    enc_again = [dict(r, path="encdec_decode (init_encdec_cache)",
+                      launches=2 * NE) for r in encoder_rows]
+    del cache
+    point = {
+        "arch": cfg.name, "shape": f"decode_b{B}_s{L}", "mesh": "1",
+        "kind": "decode", "variant": "use_kernel_matmul", "flops": flops,
+        "mem_bytes": nbytes, "wire_bytes": 0.0, "by_kind": {}, "peak": 0.0,
+        "params": float(n_params), "tokens": float(B),
+        "seconds": host.median, "main": True,
+        "source": "chip_smoke encdec_decode host median",
+        "notes": "one step at pos 447 against 1500 frames' cross K/V; F and "
+                 "B_M counted on the plain path"}
+    return {"blocked_matmul": launched, "flash": flashed,
+            "mm_rows": rows + enc_again[1:], "flash_rows": enc_again[:1],
+            "point": point}
+
+
+@torch.no_grad()
+def vlm_prefill(dev, say, params, cfg, tokens: torch.Tensor,
+                patches: torch.Tensor, gen: torch.Generator) -> dict:
+    """The internvl2-26b prefill, full width at ``VLM_LAYERS`` layers, bf16,
+    with ``use_flash`` (dh 128, GQA 6) and ``use_kernel_matmul``: (a) the
+    main path, one forward of the visual prefix and ``tokens``, its counts
+    set to 0 before and read after and each launch recorded; (b) its
+    logits held to the plain path's by ``recurrent_rule``, and at a depth
+    cut to ``VLM_F32_LAYERS`` the fp32 kernel path (the f32 kernels) to the
+    fp32 plain path within ``DECODE_TOL``; (c) the forward timed, profiled
+    and counted against the bound, the weight casts alone; (d) both
+    kernels per launch at the forward's shapes.  Returns the launches by
+    variant, the summary rows and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import kernel_ms
+    from repro_torch.models import vlm
+    from repro_torch.models.common import count_params
+
+    kcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    f32 = plain.replace(compute_dtype=torch.float32)
+    (B, S), Nv, Dv = tokens.shape, patches.shape[1], patches.shape[2]
+    T, M = Nv + S, B * (Nv + S)
+    V, NL, d, f = cfg.vocab_size, cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    n_params = count_params(params)
+    say(f"{cfg.name} prefill ({B}, {Nv} visual + {S} text = {T}): {NL} "
+        f"layers, GQA {H}/{K} (group {H // K}) at dh {dh}; use_flash and "
+        f"use_kernel_matmul on")
+
+    # (a) the main path
+    reset_counts()
+    log = []
+    with launches_recorded(log):
+        logits, aux = vlm.forward(params, tokens, patches, kcfg)
+    torch.cuda.synchronize()
+    mm_made = dict(bm.blocked_matmul.launches_by_variant)
+    fa_made = dict(fa.flash_attention_bhsd.launches_by_variant)
+    say(f"(a) main path, one forward: {launch_tally(log)}")
+    check(launch_tally(log) == {
+        ("flash", B, H, K, T, dh, True, "sm90"): NL,
+        ("mm", M, d, f, "silu", False, "sm90"): NL,
+        ("mm", M, d, f, None, False, "sm90"): NL,
+        ("mm", M, f, d, None, False, "sm90"): NL},
+          f"the vlm prefill's launches: {launch_tally(log)}")
+    check(mm_made == {**dict.fromkeys(bm.VARIANTS, 0), "sm90": 3 * NL}
+          and fa_made == {**dict.fromkeys(fa.VARIANTS, 0), "sm90": NL},
+          f"the counters disagree with the launches: {mm_made}, {fa_made}")
+    check(logits.shape == (B, T, V) and torch.isfinite(logits).all().item()
+          and float(aux) == 0.0, "vlm prefill logits malformed")
+
+    # (b) against the plain path; fp32 at a depth cut
+    want = vlm.forward(params, tokens, patches, plain)[0]
+    exact = vlm.forward(params, tokens, patches, f32)[0]
+    recurrent_rule(say, "(b) logits over the joined sequence, kernel path "
+                   "vs plain path", logits, want, exact)
+    del logits, want, exact
+    cut = dict(params, lm=dict(params["lm"], blocks=params["lm"]["blocks"]
+                               [:VLM_F32_LAYERS]))
+    c32 = f32.replace(n_layers=VLM_F32_LAYERS)
+    k32 = vlm.forward(cut, tokens, patches,
+                      c32.replace(use_flash=True, use_kernel_matmul=True))[0]
+    e32 = row_rel_err(k32, vlm.forward(cut, tokens, patches, c32)[0])
+    say(f"(b) fp32 at a depth cut to {VLM_F32_LAYERS} layers (full width): "
+        f"the kernel path (the f32 kernels) vs the plain path, row_rel_err "
+        f"{e32:.3e} (tol {DECODE_TOL[torch.float32]:g})")
+    check(e32 < DECODE_TOL[torch.float32],
+          f"the fp32 vlm kernel path disagrees: {e32}")
+    del k32
+
+    # (c) timed, profiled, counted
+    least = 4.0 * n_params + 4.0 * B * Nv * Dv + 2.0 * B * T * V + 8.0 * B * S
+    host, flops, peak = prefill_report(
+        say, f"internvl2_prefill_b{B}_s{T}",
+        lambda: vlm.forward(params, tokens, patches, kcfg), dev,
+        lambda: vlm.forward(params, tokens, patches, plain),
+        lambda: counters.count(vlm.forward, params, tokens, patches, plain),
+        least, 5)
+    casts, cast_bytes = weight_casts(params["lm"])
+    cast_ms = kernel_ms(casts, iters=1, warmup=1)
+    say(f"(c) {B * T / host.median:.0f} tokens/s; the weight casts alone "
+        f"{cast_ms:.4f} ms for {cast_bytes:.6g} bytes "
+        f"({cast_bytes / cast_ms / 1e9:.3f} TB/s)")
+
+    # (d) per launch at the forward's shapes, three layers' weights in turn
+    flash_rows = [flash_row(say, "vlm_prefill", fa._launcher(), gen, B, T, H,
+                            K, dh, NL)]
+    blocks = params["lm"]["blocks"][:3]
+    x_in = torch.randn((M, d), generator=gen, device=dev).to(torch.bfloat16)
+    x_mid = torch.randn((M, f), generator=gen, device=dev).to(torch.bfloat16)
+    rows = [ffn_row(say, "vlm_prefill", a_, bf16_copies(blocks, ("ffn", w)),
+                    act, NL, H100_SXM)
+            for a_, w, act in ((x_in, "w_gate", "silu"), (x_in, "w_up", None),
+                               (x_mid, "w_down", None))]
+    point = {
+        "arch": cfg.name, "shape": f"prefill_b{B}_s{T}_l{NL}", "mesh": "1",
+        "kind": "prefill", "variant": "use_flash+use_kernel_matmul",
+        "flops": flops, "mem_bytes": least, "wire_bytes": 0.0, "by_kind": {},
+        "peak": float(peak), "params": float(n_params),
+        "tokens": float(B * T), "seconds": host.median, "main": True,
+        "source": "chip_smoke vlm_prefill host median",
+        "notes": f"depth cut to {NL} layers; F counted on the plain path; "
+                 f"least bytes: params once, patches read, logits written"}
+    return {"blocked_matmul": mm_made, "flash": fa_made, "mm_rows": rows,
+            "flash_rows": flash_rows, "point": point}
+
+
+@torch.no_grad()
+def vlm_decode(dev, say, params, cfg, rng: np.random.Generator,
+               gen: torch.Generator) -> dict:
+    """The internvl2-26b serving path at ``VLM_LAYERS`` layers, B =
+    ``VLM_B`` against a cache of ``VLM_MAX``, bf16, the FFN products in the
+    blocked matmul (``use_flash`` on and unused: decode never takes it).
+    Decode is text only from pos 0, as in the reference (the visual prefix
+    is never in the cache).  The main path, its counts set to 0 before (a)
+    and read after (c): (a) ``VLM_TF`` teacher-forced steps, held to the
+    plain LM forward's rows by ``recurrent_rule``; (b) greedy generation of
+    ``VLM_PROMPT`` + ``VLM_NEW`` tokens, held to the plain path teacher-
+    forced on them; (c) one step at pos ``VLM_MAX - 1`` on a cache of seeded
+    random content.  Then (d) that step timed, profiled and counted; (e) the
+    FFN products per launch.  Returns the launches by variant, the summary
+    rows and the Ridgeline point."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.measure import counters
+    from repro_torch.models import transformer, vlm
+    from repro_torch.models.common import count_params
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serve import engine
+
+    V, NL, d, f = cfg.vocab_size, cfg.n_layers, cfg.d_model, cfg.d_ff
+    dcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    f32 = plain.replace(compute_dtype=torch.float32)
+    B, per_step, pos = VLM_B, 3 * NL, VLM_MAX - 1
+    n_params = count_params(params)
+    mm, flash = bm.blocked_matmul, fa.flash_attention_bhsd
+    toks = torch.from_numpy(rng.integers(0, V, (B, VLM_TF))).to(dev)
+    last = torch.from_numpy(rng.integers(0, V, (B, 1))).to(dev)
+    say(f"{cfg.name} decode ({NL} layers): B={B}, cache {VLM_MAX}; {VLM_TF} "
+        f"teacher-forced steps, greedy {VLM_PROMPT} + {VLM_NEW}, the step at "
+        f"pos {pos}")
+    want = transformer.forward(params["lm"], toks, plain)[0]
+    exact = transformer.forward(params["lm"], toks, f32)[0]
+    warm = vlm.init_cache(dcfg, B, VLM_MAX, device=dev)
+    for t in warm.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+
+    # ---- the main path: (a), (b), (c) -----------------------------------------
+    reset_counts()
+    cache = vlm.init_cache(dcfg, B, VLM_MAX, device=dev)
+    steps_seen, rows_k = set(), []
+    for t in range(VLM_TF):
+        m0, f0 = mm.launches, flash.launches
+        lg, out = vlm.decode_step(params, toks[:, t:t + 1], cache, t, dcfg)
+        steps_seen.add((mm.launches - m0, flash.launches - f0))
+        check(out is cache and lg.shape == (B, 1, V)
+              and torch.isfinite(lg).all().item(),
+              f"vlm decode step {t}: logits malformed or the cache replaced")
+        rows_k.append(lg[:, 0])
+    del cache
+    REGISTRY.reset()
+    prompt = toks[:, :VLM_PROMPT]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_k = engine.greedy_generate(params, dcfg, prompt, steps=VLM_NEW,
+                                   max_len=VLM_MAX)
+    gen_s = time.perf_counter() - t0
+    hist = REGISTRY.snapshot()["histograms"]["serve.step_seconds"]
+    step_lg = vlm.decode_step(params, last, warm, pos, dcfg)[0]
+    torch.cuda.synchronize()
+    n_steps = VLM_TF + VLM_PROMPT + VLM_NEW - 1 + 1
+    launched = dict(mm.launches_by_variant)
+    say(f"(blocked_matmul, flash) launches per teacher-forced step "
+        f"{sorted(steps_seen)}; main path ({n_steps} steps): blocked_matmul "
+        f"by variant {launched}, flash {flash.launches}")
+    check(steps_seen == {(per_step, 0)},
+          f"expected {per_step} blocked-matmul launches and no flash launch "
+          f"a step, got {steps_seen}")
+    check(launched == {**dict.fromkeys(bm.VARIANTS, 0),
+                       "sm90": per_step * n_steps} and flash.launches == 0,
+          f"every vlm decode launch must take the sm90 kernel and none the "
+          f"flash kernel: {launched}, flash {flash.launches}")
+    check(torch.isfinite(step_lg).all().item(),
+          "the step on the full cache gave non-finite logits")
+    got = torch.stack(rows_k, dim=1)
+    recurrent_rule(say, f"  (a) {VLM_TF} teacher-forced steps, kernel path "
+                   f"vs the plain LM forward's rows", got, want, exact)
+    tf_abs = max_abs(got, want)
+    del got, want, exact, rows_k
+    cp = vlm.init_cache(plain, B, VLM_MAX, device=dev)
+    hold_generation(say, gen_k, prompt, VLM_NEW, lambda t, tok:
+                    vlm.decode_step(params, tok, cp, t, plain)[0],
+                    tf_abs, gen_s, hist)
+    del cp
+
+    # (d) the step at pos VLM_MAX - 1 on the full cache
+    c_bytes = 2.0 * warm["k"].numel() * warm["k"].element_size()
+    least = 4.0 * count_params(params["lm"]) + c_bytes + 2.0 * B * V
+    host, flops, nbytes = step_report(
+        say, f"internvl2_decode_b{B}",
+        lambda: vlm.decode_step(params, last, warm, pos, dcfg),
+        lambda: vlm.decode_step(params, last, warm, pos, plain),
+        lambda: counters.count(vlm.decode_step, params, last, warm, pos,
+                               plain), dev, least, per_step,
+        weight_casts(params["lm"]))
+    say(f"  (d) {B / host.median:.1f} tokens/s at B={B}; the KV cache "
+        f"{c_bytes:.6g} bytes")
+    del warm
+
+    # (e) the FFN products per launch, three layers' weights in turn
+    blocks = params["lm"]["blocks"][:3]
+    x_in = torch.randn((B, d), generator=gen, device=dev).to(torch.bfloat16)
+    x_mid = torch.randn((B, f), generator=gen, device=dev).to(torch.bfloat16)
+    rows = [ffn_row(say, "vlm_decode", a_, bf16_copies(blocks, ("ffn", w)),
+                    act, NL * n_steps, H100_SXM)
+            for a_, w, act in ((x_in, "w_gate", "silu"), (x_in, "w_up", None),
+                               (x_mid, "w_down", None))]
+    point = {
+        "arch": cfg.name, "shape": f"decode_b{B}_s{VLM_MAX}_l{NL}",
+        "mesh": "1", "kind": "decode", "variant": "use_kernel_matmul",
+        "flops": flops, "mem_bytes": nbytes, "wire_bytes": 0.0,
+        "by_kind": {}, "peak": 0.0, "params": float(n_params),
+        "tokens": float(B), "seconds": host.median, "main": True,
+        "source": "chip_smoke vlm_decode host median",
+        "notes": f"depth cut to {NL} layers; one step at pos {pos}; F and "
+                 f"B_M counted on the plain path"}
+    return {"blocked_matmul": launched, "mm_rows": rows, "point": point}
+
+
+def encdec_vlm_paths(dev, say, gen: torch.Generator) -> dict:
+    """whisper-tiny at full width and depth, then internvl2-26b at full
+    width and ``VLM_LAYERS`` layers, on the card, each model's weights drawn
+    there from a seeded ``torch.Generator`` with their vector leaves moved
+    off their init: the ``encdec_prefill``, ``encdec_decode``,
+    ``vlm_prefill`` and ``vlm_decode`` phases; each model's weights are
+    dropped and the allocator's cache emptied after its phases."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, vlm
+    from repro_torch.models.common import count_params
+
+    out = {}
+    phase("encdec_prefill")
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    params = encdec.init_encdec(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    jitter_vectors(params, gen)
+    say(f"{cfg.name}: {cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.dh}, d_ff {cfg.d_ff} ({cfg.ffn_activation}, biased), vocab "
+        f"{cfg.vocab_size} tied, {cfg.encoder_seq} frames, "
+        f"{cfg.max_seq_len} positions; {count_params(params)} fp32 params "
+        f"drawn on the card from seed 0")
+    rng = np.random.default_rng(11)
+    frames = torch.from_numpy(rng.standard_normal(
+        (ENCDEC_B, cfg.encoder_seq, cfg.d_model), np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (ENCDEC_B, cfg.max_seq_len))).to(dev)
+    out["encdec_prefill"] = encdec_prefill(dev, say, params, cfg, frames,
+                                           tokens, gen)
+    say(f"encdec_prefill took {time.perf_counter() - t_phase:.1f} s")
+    phase("encdec_decode")
+    t_phase = time.perf_counter()
+    out["encdec_decode"] = encdec_decode(
+        dev, say, params, cfg, frames, rng, gen,
+        out["encdec_prefill"]["encoder_rows"])
+    say(f"encdec_decode took {time.perf_counter() - t_phase:.1f} s")
+    del params, frames, tokens
+    torch.cuda.empty_cache()
+
+    phase("vlm_prefill")
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM_ARCH).replace(n_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    params = vlm.init_vlm(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    jitter_vectors(params, gen)
+    torch.cuda.synchronize()
+    say(f"{cfg.name}: {cfg.n_layers} of its 48 layers (the depth cut: 48 "
+        f"are 79.7 GB in fp32), d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} untied, {cfg.visual_tokens} visual tokens of "
+        f"width {cfg.visual_width}; {count_params(params)} fp32 params drawn "
+        f"on the card from seed 0 in {time.perf_counter() - t0:.2f}s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    rng = np.random.default_rng(13)
+    B, S = VLM_PREFILL
+    patches = torch.randn((B, cfg.visual_tokens, cfg.visual_width),
+                          generator=gen, device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    out["vlm_prefill"] = vlm_prefill(dev, say, params, cfg, tokens, patches,
+                                     gen)
+    say(f"vlm_prefill took {time.perf_counter() - t_phase:.1f} s")
+    phase("vlm_decode")
+    t_phase = time.perf_counter()
+    out["vlm_decode"] = vlm_decode(dev, say, params, cfg, rng, gen)
+    say(f"vlm_decode took {time.perf_counter() - t_phase:.1f} s")
+    del params, patches, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
 def f32_row(dev, say, s: int, launches: int, path: str) -> dict:
     """The f32 kernel at ``s``^3 per launch (``f32_plan``'s tile) beside its
     earlier design f32_edge (called past the wrapper), the plain version and
@@ -2638,6 +3487,11 @@ def main() -> int:
     rec = recurrent_paths(dev, say, gen)
     hyb_pre, hyb_dec = rec["hybrid_prefill"], rec["hybrid_decode"]
 
+    # ---- encdec_prefill, encdec_decode, vlm_prefill, vlm_decode ---------------
+    ev = encdec_vlm_paths(dev, say, gen)
+    ed_pre, ed_dec = ev["encdec_prefill"], ev["encdec_decode"]
+    vl_pre, vl_dec = ev["vlm_prefill"], ev["vlm_decode"]
+
     # ---- 11. mlp_serve: the first main path ----------------------------------------
     phase("mlp_serve")
     from repro_torch.configs import get_config
@@ -2763,7 +3617,8 @@ def main() -> int:
         p.update(peak=float(peak), params=mlp_params)
     points += [moe_pre["point"], moe_dec["point"], hyb_pre["point"],
                hyb_dec["point"], rec["xlstm_prefill"]["point"],
-               rec["xlstm_decode"]["point"]]
+               rec["xlstm_decode"]["point"], ed_pre["point"],
+               ed_dec["point"], vl_pre["point"], vl_dec["point"]]
     say(f"peak memory allocated {peak / 1e9:.3f} GB; weight casts "
         f"{cast_ms:.4f} ms per forward (bound "
         f"{L * 6.0 * (W * W + W) / H100_SXM.hbm_bw * 1e3:.4f} ms)")
@@ -3124,10 +3979,14 @@ def main() -> int:
                if all("mma_ms" in r for r in rows) else {}),
             "card": card, "per_launch": rows}
 
+    new_paths = (ed_pre, ed_dec, vl_pre, vl_dec)
     mm_paths = (mlp_variants, lm_variants, dec_variants, cal_variants,
                 cli_variants, moe_pre["blocked_matmul"],
                 moe_dec["blocked_matmul"], hyb_pre["blocked_matmul"],
-                hyb_dec["blocked_matmul"])
+                hyb_dec["blocked_matmul"]) \
+        + tuple(p["blocked_matmul"] for p in new_paths)
+    fa_paths = (flash_variants, moe_pre["flash"]) \
+        + tuple(p["flash"] for p in new_paths if "flash" in p)
     summary = {"kernels": [
         entry("blocked_matmul",
               "src/repro_torch/kernels/csrc/blocked_matmul.cu",
@@ -3135,16 +3994,16 @@ def main() -> int:
               sum(sum(made.values()) for made in mm_paths),
               per_batch + ffn_rows + dec_rows + f32_rows + cli_rows
               + moe_pre["mm_rows"] + moe_dec["mm_rows"] + hyb_pre["mm_rows"]
-              + hyb_dec["mm_rows"],
+              + hyb_dec["mm_rows"]
+              + [r for p in new_paths for r in p["mm_rows"]],
               {v: sum(made[v] for made in mm_paths) for v in bm.VARIANTS}),
         entry("flash_attention_bhsd",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:75",
-              lm_launches["flash_attention_bhsd"]
-              + sum(moe_pre["flash"].values()),
-              flash_rows + moe_pre["flash_rows"],
-              {v: flash_variants[v] + moe_pre["flash"][v]
-               for v in fa.VARIANTS}),
+              sum(sum(made.values()) for made in fa_paths),
+              flash_rows + moe_pre["flash_rows"]
+              + [r for p in new_paths for r in p.get("flash_rows", [])],
+              {v: sum(made[v] for made in fa_paths) for v in fa.VARIANTS}),
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

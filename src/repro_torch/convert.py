@@ -118,13 +118,39 @@ def lm_params_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
     return out
 
 
+def encdec_params_from_numpy(tree: Mapping,
+                             device: DeviceLike = None) -> Params:
+    """The JAX package's ``encdec.init_encdec`` tree, as numpy, for the
+    port's ``models.encdec``: ``enc_blocks`` and ``dec_blocks``, stacked on
+    a leading layer axis there, become lists of per-layer trees."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in tree.items():
+        if k in ("enc_blocks", "dec_blocks"):
+            blocks = _unstack(v) if isinstance(v, Mapping) else v
+            out[k] = [_tree(blk, dev) for blk in blocks]
+        else:
+            out[k] = _tree(v, dev)
+    return out
+
+
+def vlm_params_from_numpy(tree: Mapping, device: DeviceLike = None) -> Params:
+    """The JAX package's ``vlm.init_vlm`` tree, as numpy, for the port's
+    ``models.vlm``: ``lm`` through ``lm_params_from_numpy``, the connector
+    leaf by leaf."""
+    dev = resolve_device(device)
+    return {"lm": lm_params_from_numpy(tree["lm"], dev),
+            "connector": _tree(tree["connector"], dev)}
+
+
 def cache_from_numpy(cache: Mapping, device: DeviceLike = None
                      ) -> Dict[str, Any]:
     """Any family's decode cache from the JAX package (its ``init_cache``,
     or one a run of its ``decode_step`` filled), as numpy -> the port's,
-    same layout and dtypes: the dense ``{"k", "v"}``, hymba's ``layer{i}``
-    ``{"k", "v", "mM", "mn"}``, xLSTM's ``layer{i}`` ``{"M", "n"}`` (mLSTM)
-    or ``{"c", "n", "h", "m"}`` (sLSTM).  Every leaf is a tensor of its
+    same layout and dtypes: the dense ``{"k", "v"}`` (a VLM's too), hymba's
+    ``layer{i}`` ``{"k", "v", "mM", "mn"}``, xLSTM's ``layer{i}``
+    ``{"M", "n"}`` (mLSTM) or ``{"c", "n", "h", "m"}`` (sLSTM), an enc-dec
+    model's ``{"self": {"k", "v"}, "cross_k", "cross_v"}``.  Every leaf is a tensor of its
     own, so a cache whose layers shared one array (the reference's zeroed
     Mamba state) can be updated layer by layer."""
     return _tree(cache, resolve_device(device))

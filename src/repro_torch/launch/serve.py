@@ -5,10 +5,13 @@
 
 The port of ``repro.launch.serve``: random params from ``--seed`` on a
 generator of the target device (on the card, so a full-width model is not
-drawn on the host first) and a random prompt from ``--seed + 1`` on the CPU
+drawn on the host first), drawn by family (``init_encdec``, ``init_vlm`` or
+``init_lm``), and a random prompt from ``--seed + 1`` on the CPU
 (``torch.Generator`` streams, not JAX's), then
-``serve.engine.greedy_generate``.  ``--device`` defaults to the card;
-the CPU runs only when asked.  A mesh other than ``1x1`` waits for the
+``serve.engine.greedy_generate``.  A VLM serves on its language model's
+path, text only; an enc-dec model fails, as the reference's CLI does,
+because the CLI passes no encoder frames and the engine needs them.
+``--device`` defaults to the card; the CPU runs only when asked.  A mesh other than ``1x1`` waits for the
 port's sharding (ROADMAP Queue 1, item 12).
 """
 from __future__ import annotations
@@ -21,7 +24,9 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import init_encdec
 from repro_torch.models.transformer import init_lm
+from repro_torch.models.vlm import init_vlm
 from repro_torch.serve.engine import greedy_generate
 
 
@@ -48,8 +53,9 @@ def main(argv=None) -> int:
         cfg = cfg.replace(compute_dtype=torch.float32)
     dev = resolve_device(args.device)
 
-    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                     device=dev)
+    init = {"encdec": init_encdec, "vlm": init_vlm}.get(cfg.family, init_lm)
+    params = init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                  device=dev)
     prompt = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator().manual_seed(args.seed + 1)).to(dev)

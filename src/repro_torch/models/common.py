@@ -4,8 +4,7 @@ The port of ``src/repro/models/common.py``: plain functions on tensors over
 dict params.  Parameters stay fp32 and are cast to ``cfg.compute_dtype`` at
 use; norms, rope and the loss compute in fp32.  Initializers draw from an
 explicit ``torch.Generator`` on its own device and place the weights on the
-caller's device: ``None`` is the card.  ``sinusoidal_positions``
-comes with the enc-dec family.
+caller's device: ``None`` is the card.
 """
 from __future__ import annotations
 
@@ -115,6 +114,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (seq, d) in fp32: sin in the
+    even columns, cos in the odd ones, the exponent's step
+    ``log(10000) / (d // 2 - 1)`` (1 for ``d <= 2``), as the reference's."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    step = -math.log(10000.0) / (d // 2 - 1 if d > 2 else 1)
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) * step)
+    tab = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    tab[:, 0::2] = torch.sin(pos * div)
+    tab[:, 1::2] = torch.cos(pos * div)
+    return tab
+
+
+def clamped_row(table: torch.Tensor, pos: int) -> torch.Tensor:
+    """Row ``pos`` of ``table`` as a (1, d) view, ``pos`` clamped into
+    ``[0, rows - 1]`` as ``jax.lax.dynamic_slice_in_dim`` clamps its start."""
+    i = min(max(int(pos), 0), table.shape[0] - 1)
+    return table[i:i + 1]
 
 
 # --- activations ----------------------------------------------------------------

@@ -28,8 +28,11 @@ experts and a Hymba block's FFN included) the blocked-matmul kernel.
 ``cfg.remat`` recomputes each block in the backward: ``"full"`` keeps only
 the block's input, ``"dots"`` also the products' outputs.
 
-Enc-dec and VLM come with a later slice (ROADMAP Queue 1, item 10): they
-raise here.
+The VLM family's language model is the dense decoder: ``init_lm``,
+``forward``, ``init_cache`` and ``decode_step`` run it on the dense path,
+as the reference's do (``models/vlm.py`` adds the visual prefix in front of
+it).  The enc-dec family is not a decoder LM: its entry points are in
+``models/encdec.py``, and the ones here raise ``ValueError`` for it.
 """
 from __future__ import annotations
 
@@ -47,27 +50,21 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       init_norm, init_rng)
+from repro_torch.models.common import (apply_norm, clamped_row, dense_init,
+                                       embed_init, init_norm, init_rng)
 from repro_torch.models.config import ModelConfig, Params
 
-#: where each family the port does not run yet stands in ROADMAP Queue 1
-_NOT_PORTED = {"encdec": "item 10 (enc-dec and VLM)",
-               "vlm": "item 10 (enc-dec and VLM)"}
-
-
-#: the families this module runs
-_PORTED = ("dense", "moe", "hybrid", "ssm")
+#: the families this module runs (``vlm`` on the dense path)
+_PORTED = ("dense", "moe", "hybrid", "ssm", "vlm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP Queue 1, "
-            f"{_NOT_PORTED[cfg.family]}")
+    if cfg.family == "encdec":
+        raise ValueError("family 'encdec' is not a decoder LM: its forward, "
+                         "cache and decode step are in models/encdec.py")
     if cfg.family not in _PORTED:
         raise ValueError(f"family {cfg.family!r} is not a decoder LM: "
-                         f"{', '.join(_PORTED + tuple(_NOT_PORTED))}")
+                         f"{', '.join(_PORTED)}")
 
 
 def init_block(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -252,11 +249,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _embed_decode(params: Params, tokens: torch.Tensor, pos: int,
                   cfg: ModelConfig) -> torch.Tensor:
     """The token rows in the compute dtype, plus the learned position row
-    at ``pos``."""
+    at ``pos`` (the last row for a ``pos`` past the table, as the
+    reference's ``dynamic_slice_in_dim`` clamps it)."""
     dt = cfg.compute_dtype
     x = F.embedding(tokens, params["embed"]).to(dt)
     if cfg.pos_emb == "learned":
-        x = x + params["pos_embed"][pos:pos + 1].to(dt)
+        x = x + clamped_row(params["pos_embed"], pos).to(dt)
     return x
 
 

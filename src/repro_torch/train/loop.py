@@ -1,11 +1,13 @@
-"""Train-step construction, as ``repro.train.loop``, for the mlp and dense
-families.  The moe family serves (``models/moe.py``) but does not train
-yet: its train step waits for ROADMAP Queue 1 item 8 (MoE training).
+"""Train-step construction, as ``repro.train.loop``, for the mlp, dense,
+enc-dec and VLM families.  The moe, hybrid and ssm families serve but do
+not train yet: their train steps wait for ROADMAP Queue 1 items 8 (MoE
+training) and 9 (recurrent-family training).
 
 ``build_train_step(cfg, optimizer)`` returns ``train_step(state, batch) ->
 (state, metrics)``; a batch is a dict of tensors (``features`` and
 ``click`` for the mlp family, ``tokens`` and ``labels`` for the dense
-one).  The step is functional: it returns a new
+one, with ``frames`` for enc-dec and ``patches`` for a VLM, whose loss
+covers the text positions only).  The step is functional: it returns a new
 state and leaves the old one as it was.
 
 Gradient sync.  The JAX step's sync is implicit in its global-mean loss
@@ -18,9 +20,9 @@ unchanged.  The params are a dict of tensors, not a ``Module``, so the sync
 is plain ``dist.all_reduce``, not ``DistributedDataParallel``.
 
 The other families, and gradient compression, raise naming the ROADMAP
-Queue 1 item that ports them.  The kernels are forward-only: a dense
-config with ``use_flash`` or ``use_kernel_matmul`` trains on the CPU's
-plain versions and raises on the card.
+Queue 1 item that ports them.  The kernels are forward-only: a config
+with ``use_flash`` or ``use_kernel_matmul`` trains on the CPU's plain
+versions and raises on the card.
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import mlp_dlrm as mlp_mod
 from repro_torch.models import transformer as lm_mod
+from repro_torch.models import vlm as vlm_mod
 from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import trace
@@ -42,9 +46,9 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 #: where each family that is not ported yet waits (ROADMAP Queue 1)
 _WAITS = {"moe": "8 (MoE training)",
           "ssm": "9 (recurrent-family training)",
-          "hybrid": "9 (recurrent-family training)", "encdec": 10, "vlm": 10}
+          "hybrid": "9 (recurrent-family training)"}
 #: the families the port trains
-_TRAINS = ("mlp", "dense")
+_TRAINS = ("mlp", "dense", "encdec", "vlm")
 
 
 def _require_ported(cfg: ModelConfig, what: str) -> None:
@@ -53,8 +57,8 @@ def _require_ported(cfg: ModelConfig, what: str) -> None:
         raise NotImplementedError(
             f"{what} for the {cfg.family!r} family ({cfg.name}) is not "
             f"ported yet" + (f": ROADMAP Queue 1 item {item}" if item
-                             else "") + "; the port trains the mlp and "
-            "dense families")
+                             else "") + "; the port trains the "
+            + ", ".join(_TRAINS) + " families")
 
 
 class TrainState(NamedTuple):
@@ -74,11 +78,26 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
         loss = ce + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
+    def encdec_loss(params, batch):
+        logits, aux = encdec_mod.forward(params, batch["tokens"],
+                                         batch["frames"], cfg)
+        ce = softmax_cross_entropy(logits, batch["labels"])
+        return ce, {"ce": ce, "aux": aux}
+
+    def vlm_loss(params, batch):
+        logits, aux = vlm_mod.forward(params, batch["tokens"],
+                                      batch["patches"], cfg)
+        ce = softmax_cross_entropy(logits[:, cfg.visual_tokens:],
+                                   batch["labels"])
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
+
     def mlp_loss(params, batch):
         loss = mlp_mod.loss_fn(params, batch["features"], batch["click"], cfg)
         return loss, {"ce": loss, "aux": torch.zeros((), device=loss.device)}
 
-    return mlp_loss if cfg.family == "mlp" else lm_loss
+    return {"encdec": encdec_loss, "vlm": vlm_loss,
+            "mlp": mlp_loss}.get(cfg.family, lm_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,11 +174,12 @@ def build_train_step(cfg: ModelConfig, optimizer,
 
 def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
                      optimizer, device: DeviceLike = None) -> TrainState:
-    """Params from ``generator`` (``init_mlp``, or ``init_lm`` for the
-    dense family), a fresh optimizer state and step 0 on ``device`` (None:
-    the card)."""
+    """Params from ``generator`` (``init_mlp``, ``init_encdec``,
+    ``init_vlm``, or ``init_lm`` for the dense family), a fresh optimizer
+    state and step 0 on ``device`` (None: the card)."""
     _require_ported(cfg, "the train state")
-    init = mlp_mod.init_mlp if cfg.family == "mlp" else lm_mod.init_lm
+    init = {"mlp": mlp_mod.init_mlp, "encdec": encdec_mod.init_encdec,
+            "vlm": vlm_mod.init_vlm}.get(cfg.family, lm_mod.init_lm)
     with trace.span("train.init_state", arch=cfg.name, family=cfg.family):
         params = init(cfg, generator, device=device)
         return TrainState(
@@ -170,12 +190,13 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def model_param_specs(cfg: ModelConfig):
-    """The mlp family's specs; the dense family's (``lm_specs``) have no
-    reader before the port's mesh and come with it."""
+    """The mlp family's specs; the other trained families' (``lm_specs``,
+    ``encdec_specs``, ``vlm_specs``) have no reader before the port's mesh
+    and come with it."""
     if cfg.family == "mlp":
         return mlp_mod.mlp_specs(cfg)
-    if cfg.family == "dense":
+    if cfg.family in _TRAINS:
         raise NotImplementedError(
-            f"param specs for the dense family ({cfg.name}) are not ported "
-            f"yet: ROADMAP Queue 1 item 12 (mesh and sharding)")
+            f"param specs for the {cfg.family} family ({cfg.name}) are not "
+            f"ported yet: ROADMAP Queue 1 item 12 (mesh and sharding)")
     _require_ported(cfg, "param specs")

@@ -144,6 +144,32 @@ def test_decode_step_matches_jax_per_token(case, dtype):
         assert _rel_err(_np(cache[name]), want_cache[name]) < TOL[dtype]
 
 
+def test_learned_position_past_the_table_is_clamped_as_in_jax():
+    """Learned positions with ``max_seq_len`` 8 and a 12-row cache: the
+    steps at pos 8 … 11 read the table's last row, as the reference's
+    ``dynamic_slice_in_dim`` clamps it, and the logits match its to 1e-5."""
+    case, n = "smollm_learned_pos", 12
+    jcfg, cfg = _cfgs(case, "float32")
+    jcfg, cfg = jcfg.replace(max_seq_len=8), cfg.replace(max_seq_len=8)
+    tree = dict(_tree(case))
+    tree["pos_embed"] = tree["pos_embed"][:8]
+    step = jax.jit(lambda p, t, c, pos: jax_tf.decode_step(p, t, c, pos, jcfg))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jcache = jax_tf.init_cache(jcfg, B, n)
+    params = lm_params_from_numpy(tree, device="cpu")
+    cache = transformer.init_cache(cfg, B, n, device="cpu")
+    toks = _tokens(cfg.vocab_size, n=n, seed=3)
+    for t in range(n):
+        want, jcache = step(jparams, jnp.asarray(toks[:, t:t + 1]), jcache,
+                            jnp.int32(t))
+        got, _ = transformer.decode_step(
+            params, torch.from_numpy(toks[:, t:t + 1]).long(), cache, t, cfg)
+        assert got.shape == (B, 1, cfg.vocab_size)
+        assert _rel_err(_np(got), _np(want)) < TOL["float32"], t
+    for name in ("k", "v"):
+        assert _rel_err(_np(cache[name]), _np(jcache[name])) < TOL["float32"]
+
+
 def _teacher_forced(cfg, params, toks):
     cache = transformer.init_cache(cfg, B, toks.shape[1], device="cpu")
     rows = [transformer.decode_step(params, toks[:, t:t + 1], cache, t,
@@ -201,7 +227,7 @@ def test_cache_layout_and_device():
         return                            # None resolves to the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_cache(cfg, 3, 5)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="models/encdec.py"):
         transformer.init_cache(cfg.replace(family="encdec"), 3, 5,
                                device="cpu")
 

@@ -551,3 +551,122 @@ def test_hybrid_decode_step_launches_the_ffn_kernel_and_no_flash(cuda):
             want, _ = transformer.decode_step(params, tokens[:, t:t + 1],
                                               caches[1], t, plain)
             assert row_rel_err(got, want) < LM_TOL
+
+
+@pytest.mark.parametrize("case", [
+    # whisper-tiny's encoder (bidirectional, S = 1500: not a multiple of the
+    # tile) and decoder prefill; internvl2-26b's dh 128 at GQA 6 (48 / 8)
+    (8, 1500, 6, 6, 64, False), (2, 448, 6, 6, 64, True),
+    (1, 1024, 48, 8, 128, True), (2, 300, 48, 8, 128, False)],
+    ids=lambda c: "B{}S{}H{}K{}d{}c{:d}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_at_encdec_and_vlm_shapes(cuda, dtype, case):
+    from repro_torch.kernels.flash_attention import variant
+    B, S, H, K, dh, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=cuda)
+               .to(dtype) for n in (H, K, K))
+    kind = variant(dtype, dh, True)
+    before = dict(flash_attention_bhsd.launches_by_variant)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches_by_variant == {
+        **before, kind: before[kind] + 1}
+    want = ref_flash_attention(q, k, v, causal=causal)
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert _row_rel_err(got, want) < FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("mkn, act", [
+    ((1500, 384, 1536), "gelu"), ((8, 384, 1536), "gelu"),
+    ((1500, 1536, 384), None), ((8, 1536, 384), None)],
+    ids=["enc_up", "dec_up", "enc_down", "dec_down"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_at_whisper_ffn_shapes(cuda, dtype, mkn, act):
+    """whisper-tiny's FFN: the up product with its bias and the tanh GELU in
+    the epilogue, the down product with its bias; 1500 encoder frames and a
+    decode step of 8."""
+    from repro_torch.kernels.blocked_matmul import aligned, variant
+    M, K, N = mkn
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    a = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5).to(dtype)
+    bias = torch.randn((N,), generator=gen, device=cuda).to(dtype)
+    kind = variant(M, N, K, dtype, aligned(a, b, bias))
+    assert kind == ("f32" if dtype == torch.float32 else "sm90")
+    before = dict(blocked_matmul.launches_by_variant)
+    got = blocked_matmul(a, b, bias=bias, act=act)
+    torch.cuda.synchronize()
+    assert blocked_matmul.launches_by_variant == {
+        **before, kind: before[kind] + 1}
+    assert _rel_err(got, ref_matmul(a, b, bias=bias, act=act)) < TOL[dtype]
+
+
+def test_encdec_paths_launch_the_kernels(cuda):
+    """whisper-tiny at full width, one layer each side, on the card with
+    use_flash and use_kernel_matmul: encode launches the flash kernel once
+    (non-causal) and the FFN kernel twice; the forward adds the decoder's
+    causal one and its two; a decode step launches the FFN kernel twice a
+    layer and no flash.  Logits within LM_TOL of the plain path by row."""
+    from chip_smoke import LM_TOL, row_rel_err
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.models import encdec
+    cfg = get_config("whisper-tiny").replace(
+        n_layers=1, encoder_layers=1, vocab_size=512, use_flash=True,
+        use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    params = encdec.init_encdec(cfg, torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    frames = torch.randn((2, 300, cfg.d_model), generator=gen, device=cuda)
+    tokens = torch.randint(0, 512, (2, 20), device=cuda)
+    mm, flash = bm.blocked_matmul, flash_attention_bhsd
+    with torch.no_grad():
+        m0, f0 = dict(mm.launches_by_variant), flash.launches
+        encdec.encode(params, frames, cfg)
+        assert (mm.launches_by_variant["sm90"] - m0["sm90"],
+                flash.launches - f0) == (2, 1)
+        m0, f0 = mm.launches, flash.launches
+        got, _ = encdec.forward(params, tokens, frames, cfg)
+        assert (mm.launches - m0, flash.launches - f0) == (4, 2)
+        want, _ = encdec.forward(params, tokens, frames, plain)
+        assert row_rel_err(got, want) < LM_TOL
+        caches = [encdec.init_encdec_cache(params, frames, 2, 20, c)
+                  for c in (cfg, plain)]
+        for t in range(20):
+            m0, f0 = mm.launches, flash.launches
+            got, _ = encdec.decode_step(params, tokens[:, t:t + 1],
+                                        caches[0], t, cfg)
+            assert (mm.launches - m0, flash.launches - f0) == (2, 0)
+            want, _ = encdec.decode_step(params, tokens[:, t:t + 1],
+                                         caches[1], t, plain)
+            assert row_rel_err(got, want) < LM_TOL
+
+
+def test_vlm_forward_launches_the_dh128_flash_kernel(cuda):
+    """internvl2-26b at full width, one layer, with use_flash and
+    use_kernel_matmul: the prefixed forward launches the flash kernel once
+    at dh 128 and GQA 6 (sm90) and the FFN kernel three times; the logits
+    within LM_TOL of the plain path by row."""
+    from chip_smoke import LM_TOL, row_rel_err
+    from repro_torch.kernels import blocked_matmul as bm
+    from repro_torch.models import vlm
+    cfg = get_config("internvl2-26b").replace(
+        n_layers=1, vocab_size=512, visual_tokens=16, visual_width=64,
+        use_flash=True, use_kernel_matmul=True)
+    plain = cfg.replace(use_flash=False, use_kernel_matmul=False)
+    params = vlm.init_vlm(cfg, torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    patches = torch.randn((2, 16, 64), generator=gen, device=cuda)
+    tokens = torch.randint(0, 512, (2, 100), device=cuda)
+    mm, flash = bm.blocked_matmul, flash_attention_bhsd
+    with torch.no_grad():
+        m0 = dict(mm.launches_by_variant)
+        f0 = dict(flash.launches_by_variant)
+        got, _ = vlm.forward(params, tokens, patches, cfg)
+        assert mm.launches_by_variant == {**m0, "sm90": m0["sm90"] + 3}
+        assert flash.launches_by_variant == {**f0, "sm90": f0["sm90"] + 1}
+        want, _ = vlm.forward(params, tokens, patches, plain)
+        assert got.shape == (2, 116, 512)
+        assert row_rel_err(got, want) < LM_TOL

@@ -53,7 +53,8 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
             "repro_torch.launch.serve",
             "repro_torch.models.moe", "repro_torch.models.ssd",
             "repro_torch.models.mamba", "repro_torch.models.hybrid",
-            "repro_torch.models.ssm"} <= set(probe["names"])
+            "repro_torch.models.ssm", "repro_torch.models.encdec",
+            "repro_torch.models.vlm"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 

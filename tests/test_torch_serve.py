@@ -88,11 +88,32 @@ def test_serve_step_is_decode_step_and_the_cache_lives_with_the_params():
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-26b"])
 def test_enc_dec_and_vlm_raise_naming_their_item(arch):
-    cfg = get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.build_serve_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.init_cache({}, cfg, 1, 4)
+    """Both families serve now (their parity with the JAX package is in
+    tests/test_torch_encdec.py and tests/test_torch_vlm.py): the engine
+    builds each one's cache on the params' device and steps it in place;
+    an enc-dec cache without the encoder's frames raises, naming them."""
+    from repro_torch.models import encdec, vlm
+    cfg = get_reduced(arch).replace(compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    if cfg.family == "encdec":
+        params = encdec.init_encdec(cfg, gen, device="cpu")
+        with pytest.raises(ValueError, match="frames"):
+            engine.init_cache(params, cfg, 2, 6)
+        frames = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                             generator=gen)
+        cache = engine.init_cache(params, cfg, 2, 6, frames=frames)
+        assert cache["cross_k"].shape == (cfg.n_layers, 2, cfg.encoder_seq,
+                                          cfg.n_kv_heads, cfg.dh)
+        kv = cache["self"]
+    else:
+        params = vlm.init_vlm(cfg, gen, device="cpu")
+        cache = kv = engine.init_cache(params, cfg, 2, 6)
+    assert kv["k"].device.type == "cpu"
+    assert kv["k"].shape == (cfg.n_layers, 2, 6, cfg.n_kv_heads, cfg.dh)
+    tok = torch.tensor([[3], [4]])
+    logits, out = engine.build_serve_step(cfg)(params, tok, cache, 0)
+    assert out is cache and logits.shape == (2, 1, cfg.vocab_size)
+    assert kv["k"][:, :, 0].any() and not kv["k"][:, :, 1:].any()
 
 
 def test_cli_generates_on_the_cpu(capsys):

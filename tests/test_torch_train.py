@@ -117,8 +117,8 @@ def test_step_leaves_its_input_state_alone():
 
 
 def test_other_families_and_compression_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        loop.build_train_step(get_config("whisper-tiny"), opt.AdamW())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        loop.build_train_step(get_config("hymba-1.5b"), opt.AdamW())
     with pytest.raises(NotImplementedError, match="item 12"):
         loop.model_param_specs(get_config("smollm-135m"))
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -98,6 +98,18 @@ def _jax_logits(dtype):
     return _np(logits), float(aux)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_vlm_logits():
+    """The reference's ``transformer.forward`` of a VLM config (its dense
+    path), fp32."""
+    tree, tokens = _case()
+    jcfg, _ = _cfgs("float32")
+    jcfg = jcfg.replace(family="vlm")
+    logits, _ = jax_tf.forward(jax.tree.map(jnp.asarray, tree),
+                               jnp.asarray(tokens), jcfg)
+    return _np(logits)
+
+
 # --- the whole forward ---------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -181,21 +193,31 @@ def test_init_without_a_device_means_the_card(init):
     dict(family="encdec"), dict(family="vlm"),
     dict(family="vlm", use_flash=True, use_kernel_matmul=True)])
 def test_what_is_not_ported_raises(change):
-    """Enc-dec and VLM (item 10) raise at every entry point, whatever the
-    kernel flags; the recurrent families are ported (tests/test_torch_ssd,
-    _hybrid, _xlstm)."""
+    """Enc-dec is not a decoder LM: every entry point here raises naming
+    ``models/encdec.py``, whatever the kernel flags.  A VLM's language
+    model runs the dense path (with the kernel flags, their plain versions
+    on the CPU) and matches the JAX package's.  The mlp family raises."""
     tree, tokens = _case()
     _, cfg = _cfgs("float32")
     cfg = cfg.replace(**change)
     params = lm_params_from_numpy(tree, device="cpu")
     toks = torch.from_numpy(tokens)
-    for call in (lambda: transformer.forward(params, toks, cfg),
-                 lambda: transformer.init_lm(cfg, device="cpu"),
-                 lambda: transformer.init_cache(cfg, 2, 4, device="cpu"),
-                 lambda: transformer.decode_step(params, toks[:, :1], {}, 0,
-                                                 cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-            call()
+    if change["family"] == "encdec":
+        for call in (lambda: transformer.forward(params, toks, cfg),
+                     lambda: transformer.init_lm(cfg, device="cpu"),
+                     lambda: transformer.init_cache(cfg, 2, 4, device="cpu"),
+                     lambda: transformer.decode_step(params, toks[:, :1], {},
+                                                     0, cfg)):
+            with pytest.raises(ValueError, match="models/encdec.py"):
+                call()
+    else:
+        got, aux = transformer.forward(params, toks, cfg)
+        assert float(aux) == 0.0
+        assert _rel_err(_np(got), _jax_vlm_logits()) < TOL["float32"]
+        cache = transformer.init_cache(cfg, 2, 4, device="cpu")
+        assert cache["k"].shape == (cfg.n_layers, 2, 4, cfg.n_kv_heads,
+                                    cfg.dh)
+        assert "blocks" in transformer.init_lm(cfg, device="cpu")
     with pytest.raises(ValueError, match="not a decoder LM"):
         transformer.forward(params, toks, cfg.replace(family="mlp"))
 
