@@ -98,6 +98,20 @@ after:
               count; the step timed and profiled at B = 256, 1024, 4096.
               It launches no kernel of the port (the blocked matmul is
               forward-only, as the JAX package's is);
+  train_cli   the training launcher (``launch.train``) on smollm-135m at
+              full width and depth, bf16 compute, (8, 512): 20 steps with
+              checkpoints at 10 and 20, the state restored from step 20 bit
+              for bit equal to the one saved, a second invocation with 30
+              steps resuming at 20, its CE held to an uninterrupted 30-step
+              run's (``RESUME_TOL``); the step timed, profiled and counted,
+              the data pipeline's batch and the checkpointer's save, async
+              stall, crc32 and restore timed;
+  train_replay
+              the fault-plan replay (``resilience.harness.replay``) of the
+              seed-6, 200-step plan through the resilient runner and real
+              checkpoint files on the card, reduced dlrm-mlp in fp32: the
+              reference's exact counters.  Neither training phase launches
+              a kernel of the port (both kernels are forward-only);
   calibrate   the smoke calibration suite (fp32 GEMMs through the blocked
               matmul's f32 kernel: a cp.async K ring, 16-byte fragment
               reads, the tile ``f32_plan`` picks; saxpy streams, two train
@@ -338,6 +352,24 @@ FLOP_RATIO = (0.9, 1.3)
 #: fp32 GEMMs the calibration fit also reads beyond the smoke suite's sizes
 #: (the peak is reached only there)
 CAL_BIG = (2048, 4096)
+#: the training launcher at smollm-135m's full width and depth, bf16 compute:
+#: (8, 512), not 2048, because the reference's train path has no flash and
+#: the plain attention keeps B·H·S² fp32 scores and probabilities for the
+#: backward (~0.2 GB a layer at 512, ~2.4 GB at 2048: 70-100 GB over 30)
+TRAIN_CLI = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
+             "--ckpt-every", "10"]
+#: resumed steps 20-29 against an uninterrupted run's, CE relative.  The
+#: card's embedding backward and cuBLAS may sum in another order from run to
+#: run (~1e-7 relative a step); ten AdamW steps carry that to ~1e-5 at most.
+#: A resume that restored the wrong step, moment or counter moves CE by
+#: 1e-2 or more (the warmup-cosine rate alone changes 5% a step there)
+RESUME_TOL = 1e-3
+#: the acceptance replay of tests/test_resilience.py: seed-6 plan of 200
+#: steps, a checkpoint every 10, and the reference's exact counters
+REPLAY_SEED, REPLAY_STEPS, REPLAY_EVERY = 6, 200, 10
+REPLAY_COUNTERS = {"executed_steps": 233, "saves": 22, "restarts": 4,
+                   "quarantined": 1}
+REPLAY_GOODPUT = 0.7181328
 
 
 class SmokeFailure(RuntimeError):
@@ -768,6 +800,198 @@ def mlp_train(dev, say, cfg, rng: np.random.Generator) -> list:
                 f"{name[:110]}")
         del g, b_
     return placed
+
+
+def leaves_equal(saved, restored) -> bool:
+    """Bit for bit, leaf by leaf in the checkpoint's order: each tensor's
+    device, dtype and bytes, each generator's state."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+    a, b = _flatten(saved)[0], _flatten(restored)[0]
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Generator):
+            if not torch.equal(x.get_state(), y.get_state()):
+                return False
+        elif (x.device != y.device or x.dtype != y.dtype
+              or not torch.equal(x, y)):
+            return False
+    return True
+
+
+def train_cli(dev, say, tmp: str) -> dict:
+    """The training launcher (``launch.train``) on smollm-135m at full width
+    and depth: 20 steps with checkpoints at 10 and 20, the state restored
+    from step 20 held bit for bit to the one saved, a resume to 30 from the
+    same directory, and an uninterrupted 30-step run as the yardstick of the
+    resumed steps' CE; then the step, the data pipeline and the
+    checkpointer timed.  Returns the step's numbers for the plane."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer, _crc32_of
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_stream, to_device
+    from repro_torch.launch import train as launcher
+    from repro_torch.measure.timers import cuda_event_ms, time_callable
+    from repro_torch.models.common import count_params
+
+    def run(steps: int, ckpt_dir: str):
+        t0 = time.perf_counter()
+        out = launcher.train(launcher.parse_args(
+            TRAIN_CLI + ["--steps", str(steps), "--ckpt-dir", ckpt_dir]))
+        return out, time.perf_counter() - t0
+
+    d, yard = os.path.join(tmp, "resumed"), os.path.join(tmp, "straight")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first, wall1 = run(20, d)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = count_params(first.state.params)
+    ce1 = [h["ce"] for h in first.history]
+    say(f"run 1 ({' '.join(TRAIN_CLI)} --steps 20): {n_params} fp32 params, "
+        f"AdamW state 2 x fp32, {wall1:.2f} s (init, 20 steps, saves at 10 "
+        f"and 20, the final sync save, the report's counted step); CE "
+        + " ".join(f"{x:.4f}" for x in ce1) + f"; peak {peak / 1e9:.3f} GB")
+    check([h["step"] for h in first.history] == list(range(20)),
+          "run 1 did not run steps 0-19")
+    check(all(np.isfinite(ce1)) and np.mean(ce1[-5:]) < np.mean(ce1[:5]),
+          f"run 1's CE does not fall: {ce1}")
+    ck = Checkpointer(d)
+    check(ck.latest_step() == 20, f"newest committed step {ck.latest_step()}")
+    t0 = time.perf_counter()
+    restored, _ = ck.restore(first.state, step=20)
+    torch.cuda.synchronize()
+    say(f"step 20 restored on the card in {time.perf_counter() - t0:.3f} s; "
+        f"bit for bit equal to the saved state: "
+        f"{leaves_equal(first.state, restored)}")
+    check(leaves_equal(first.state, restored),
+          "the restored step-20 state differs from the one saved")
+    del restored
+
+    second, wall2 = run(30, d)
+    steps2 = [h["step"] for h in second.history]
+    say(f"run 2 (--steps 30, same directory): resumed at {steps2[0]}, ran "
+        f"{steps2[0]}..{steps2[-1]} in {wall2:.2f} s")
+    check(steps2 == list(range(20, 30)), f"run 2 ran steps {steps2}")
+    check(int(second.state.step) == 30, "run 2's state is not at step 30")
+    del first
+    shutil.rmtree(d)
+
+    straight, wall3 = run(30, yard)
+    check([h["step"] for h in straight.history] == list(range(30)),
+          "the uninterrupted run did not run steps 0-29")
+    ce2 = [h["ce"] for h in second.history]
+    ce3 = [h["ce"] for h in straight.history]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ce2, ce3[20:]))
+    rel1 = max(abs(a - b) / abs(b) for a, b in zip(ce1, ce3[:20]))
+    say(f"run 3 (--steps 30, fresh directory): {wall3:.2f} s; CE steps "
+        f"20-29 resumed vs uninterrupted: max rel {rel:.3e} (tol "
+        f"{RESUME_TOL:g}); steps 0-19 of run 1 vs run 3: max rel "
+        f"{rel1:.3e}")
+    check(rel < RESUME_TOL, f"resumed CE off the uninterrupted run: {rel}")
+    del second
+
+    # the step, the pipeline and the checkpointer timed, at step 30's state
+    cfg = get_config("smollm-135m")
+    stream = make_stream(cfg, DataConfig(seed=0, global_batch=8, seq_len=512))
+    t0 = time.perf_counter()
+    for s in range(5):
+        stream.batch(s)
+    data_ms = (time.perf_counter() - t0) * 1e3 / 5
+    state, step = straight.state, straight.train_step
+    batch = to_device(stream.batch(0), dev)
+    host = time_callable(step, state, batch, device=dev, repeats=10, warmup=2)
+    p90 = float(np.percentile(host.samples, 90))
+    card_ms = cuda_event_ms(lambda i: step(state, batch), iters=5)
+    kern = profile_kernels(lambda: step(state, batch))
+    launches = sum(n for _, n, _ in kern)
+    k_ms = sum(ms for _, _, ms in kern)
+    gemm_ms = sum(ms for n, _, ms in kern if is_gemm(n))
+    a = straight.report
+    say(f"step (8, 512): host median {host.median * 1e3:.3f} ms, p90 "
+        f"{p90 * 1e3:.3f} ms (n={len(host.samples)}); card {card_ms:.3f} ms; "
+        f"{launches} launches, {k_ms:.3f} ms of kernels, GEMMs {gemm_ms:.3f} "
+        f"ms; data pipeline {data_ms:.3f} ms a batch (host)")
+    say(f"step counted: F {a.work.flops:.6g}, B_M {a.work.mem_bytes:.6g}; "
+        f"h100_sxm: {a.summary()}; bound {a.runtime * 1e3:.3f} ms = "
+        f"{100 * a.runtime / host.median:.1f}% of the host median")
+    for name, n, ms in sorted(kern, key=lambda x: -x[2])[:8]:
+        say(f"    {ms:9.4f} ms {100 * ms / k_ms:5.1f}% x{n:<5d} {name[:100]}")
+
+    bench = os.path.join(tmp, "bench")
+    ckb = Checkpointer(bench, keep=2)
+    t0 = time.perf_counter()
+    ckb.save(100, state)
+    sync_s = time.perf_counter() - t0
+    shard = os.path.join(bench, "step_000000100", "shard_00000.npz")
+    nbytes = os.path.getsize(shard)
+    t0 = time.perf_counter()
+    crc_s = (_crc32_of(shard), time.perf_counter() - t0)[1]
+    t0 = time.perf_counter()
+    ckb.save(101, state, async_=True)
+    stall_s = time.perf_counter() - t0
+    ckb.wait()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = ckb.restore(state, step=101)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(leaves_equal(state, back), "the benched restore differs")
+    say(f"checkpoint: {nbytes} bytes a step ({nbytes / 1e9:.3f} GB); sync "
+        f"save {sync_s:.3f} s; async save stalls the caller {stall_s:.3f} s "
+        f"(the write behind it {write_s:.3f} s); crc32 {crc_s:.3f} s "
+        f"({nbytes / crc_s / 1e9:.2f} GB/s); restore with verify "
+        f"{restore_s:.3f} s")
+    del back, straight
+    shutil.rmtree(yard)
+    shutil.rmtree(bench)
+    return {"flops": a.work.flops, "mem_bytes": a.work.mem_bytes,
+            "seconds": host.median, "params": float(n_params)}
+
+
+def train_replay(dev, say, tmp: str) -> None:
+    """``resilience.harness.replay`` on the card, built as
+    ``tests/test_resilience.py`` builds it (reduced dlrm-mlp in fp32, AdamW
+    1e-3, the stream of seed 11 at batch 8, the seed-6 plan of 200 steps):
+    the counters must be the reference's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, make_stream, to_device
+    from repro_torch.optim.optimizer import AdamW
+    from repro_torch.resilience.faults import FaultPlan
+    from repro_torch.resilience.harness import replay
+    from repro_torch.train import loop
+
+    cfg = get_reduced("dlrm-mlp").replace(compute_dtype=torch.float32)
+    opt = AdamW(learning_rate=1e-3)
+    step = loop.build_train_step(cfg, opt, loop.TrainStepConfig())
+    stream = make_stream(cfg, DataConfig(seed=11, global_batch=8))
+    state = loop.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, opt, device=dev)
+    plan = FaultPlan.generate(REPLAY_SEED, REPLAY_STEPS)
+    t0 = time.perf_counter()
+    res = replay(lambda s, b: step(s, to_device(b, dev)), state, stream, plan,
+                 os.path.join(tmp, "replay"), ckpt_every=REPLAY_EVERY,
+                 straggler_sleep_s=0.02, keep_history=True)
+    wall = time.perf_counter() - t0
+    got = {k: getattr(res, k) for k in REPLAY_COUNTERS}
+    analytic = res.goodput_analytic(REPLAY_EVERY, plan.n_restart_faults)
+    say(f"plan seed {REPLAY_SEED}, {REPLAY_STEPS} steps: "
+        + ", ".join(f"{e.kind}@{e.step}" for e in plan.events))
+    say(f"replay: {got}, stragglers flagged {res.stragglers_flagged}, goodput "
+        f"measured {res.goodput_measured:.7f} (reference {REPLAY_GOODPUT}), "
+        f"analytic {analytic:.7f}; final step {int(res.final_state.step)} on "
+        f"{res.final_state.step.device}; {wall:.2f} s for "
+        f"{res.executed_steps} steps and {res.saves} saves "
+        f"({wall / res.executed_steps * 1e3:.2f} ms a step, host)")
+    check(got == REPLAY_COUNTERS, f"replay counters {got}")
+    check(abs(res.goodput_measured - REPLAY_GOODPUT) <= 1e-6,
+          f"goodput {res.goodput_measured}")
+    check(res.stragglers_flagged >= 1, "no straggler flagged")
+    check(int(res.final_state.step) == REPLAY_STEPS
+          and res.final_state.step.device.type == "cuda",
+          "the replay did not end at step 200 on the card")
+    check(set(h["step"] for h in res.history) == set(range(REPLAY_STEPS)),
+          "the replay lost committed progress")
 
 
 #: the blocked matmul's kernels, by the names the profiler shows
@@ -3829,6 +4053,33 @@ def main() -> int:
                 "params": mlp_params, "tokens": float(B), "seconds": host_s,
                 "main": True, "source": "chip_smoke mlp_train host median",
                 "notes": "one card, no all-reduce in the measured step"})
+
+    # ---- 14b. train_cli, train_replay: the training substrate ------------------
+    phase("train_cli")
+    reset_counts()
+    t_phase = time.perf_counter()
+    train_tmp = tempfile.TemporaryDirectory()
+    lm_train = train_cli(dev, say, train_tmp.name)
+    say(f"train_cli took {time.perf_counter() - t_phase:.1f} s")
+    phase("train_replay")
+    t_phase = time.perf_counter()
+    train_replay(dev, say, train_tmp.name)
+    train_tmp.cleanup()
+    torch.cuda.synchronize()
+    say(f"train_replay took {time.perf_counter() - t_phase:.1f} s; kernel "
+        f"launches during train_cli and train_replay: blocked_matmul "
+        f"{blocked_matmul.launches}, flash {flash_attention_bhsd.launches}")
+    check(blocked_matmul.launches == 0 and flash_attention_bhsd.launches == 0,
+          "the training launcher reached a forward-only kernel")
+    points.append({
+        "arch": "smollm-135m", "shape": "train_b8_s512", "mesh": "1",
+        "kind": "train_step", "variant": "counted",
+        "flops": lm_train["flops"], "mem_bytes": lm_train["mem_bytes"],
+        "wire_bytes": 0.0, "by_kind": {}, "peak": 0.0,
+        "params": lm_train["params"], "tokens": 8.0 * 512,
+        "seconds": lm_train["seconds"], "main": True,
+        "source": "chip_smoke train_cli host median",
+        "notes": "one card; F and B_M counted by launch.train's report"})
 
     # ---- 15. calibrate: the fifth main path -------------------------------------
     phase("calibrate")

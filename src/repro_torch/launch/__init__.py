@@ -1,5 +1,6 @@
-"""Entry points: the serve CLI (``python -m repro_torch.launch.serve``).
+"""Entry points: the serve and train CLIs (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``).
 
-The planner, dry-run and train CLIs of ``repro.launch`` come with the mesh
-(ROADMAP Queue 1, item 12).
+The planner and dry-run CLIs of ``repro.launch`` come with the mesh (ROADMAP
+Queue 1, item 12).
 """

@@ -19,8 +19,15 @@ the reported loss is averaged the same way.  With one process the step is
 unchanged.  The params are a dict of tensors, not a ``Module``, so the sync
 is plain ``dist.all_reduce``, not ``DistributedDataParallel``.
 
-The other families, and gradient compression, raise naming the ROADMAP
-Queue 1 item that ports them.  The kernels are forward-only: a config
+Gradient compression (``TrainStepConfig.compression``, e.g.
+``optim.compression.StatelessRoundTrip``) round-trips the grads after the
+microbatch mean and, with a world above 1, after the all-reduce: the
+reference's SPMD step compresses the global-mean gradient, and this order
+keeps that arithmetic.  It sees the grads in the reference's layout, where
+a model's blocks are stacked on a leading layer axis (``stack_blocks``), so
+an int8 chunk spans the same elements, and takes the same scale, in both
+packages.  The other families raise naming the ROADMAP Queue 1
+item that ports them.  The kernels are forward-only: a config
 with ``use_flash`` or ``use_kernel_matmul`` trains on the CPU's plain
 versions and raises on the card.
 """
@@ -103,7 +110,7 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
     n_micro: int = 1                  # gradient-accumulation microbatches
-    compression: Optional[Any] = None  # not ported: ROADMAP Queue 1 item 11
+    compression: Optional[Any] = None  # optim.compression round trip
 
 
 def _world() -> int:
@@ -113,13 +120,41 @@ def _world() -> int:
     return 1
 
 
+def _stacked(key: str, cfg: ModelConfig) -> bool:
+    """Whether the reference stacks the per-layer trees under ``key``: an
+    enc-dec model's always (``jax.vmap`` of the block init), the others'
+    ``blocks`` with ``scan_layers`` (an xLSTM's never: its blocks differ)."""
+    if key in ("enc_blocks", "dec_blocks"):
+        return True
+    return key == "blocks" and cfg.scan_layers and cfg.family != "ssm"
+
+
+def stack_blocks(tree: Any, cfg: ModelConfig) -> Any:
+    """``tree`` (params or grads) in the reference's layout: each list of
+    per-layer trees that the reference stacks becomes one tree whose leaves
+    have a leading layer axis."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (tree_map(lambda *xs: torch.stack(xs), *v)
+                if isinstance(v, list) and _stacked(k, cfg)
+                else stack_blocks(v, cfg))
+            for k, v in tree.items()}
+
+
+def unstack_blocks(stacked: Any, like: Any) -> Any:
+    """``stack_blocks`` undone: ``stacked`` in the structure of ``like``."""
+    if not isinstance(like, dict):
+        return stacked
+    return {k: ([tree_map(lambda x, i=i: x[i], stacked[k])
+                 for i in range(len(v))]
+                if isinstance(v, list) and not isinstance(stacked[k], list)
+                else unstack_blocks(stacked[k], v))
+            for k, v in like.items()}
+
+
 def build_train_step(cfg: ModelConfig, optimizer,
                      ts_cfg: TrainStepConfig = TrainStepConfig()):
     loss_fn = make_loss_fn(cfg)
-    if ts_cfg.compression is not None:
-        raise NotImplementedError(
-            "gradient compression (optim/compression.py) is not ported yet: "
-            "ROADMAP Queue 1 item 11")
     if ts_cfg.n_micro < 1:
         raise ValueError(f"n_micro must be >= 1, got {ts_cfg.n_micro}")
 
@@ -159,6 +194,9 @@ def build_train_step(cfg: ModelConfig, optimizer,
             for x in tree_leaves(grads) + [loss]:
                 dist.all_reduce(x, op=dist.ReduceOp.SUM)
                 x.div_(world)
+        if ts_cfg.compression is not None:
+            grads = unstack_blocks(ts_cfg.compression.round_trip(
+                stack_blocks(grads, cfg)), grads)
         metrics = {"ce": loss, "aux": torch.zeros((), device=loss.device)}
 
         updates, opt_state = optimizer.update(grads, state.opt_state, params)

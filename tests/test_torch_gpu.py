@@ -670,3 +670,65 @@ def test_vlm_forward_launches_the_dh128_flash_kernel(cuda):
         want, _ = vlm.forward(params, tokens, patches, plain)
         assert got.shape == (2, 116, 512)
         assert row_rel_err(got, want) < LM_TOL
+
+
+def test_checkpoint_round_trips_card_state_bit_for_bit(cuda, tmp_path):
+    """fp32, bf16 and int32 leaves on the card and a CUDA generator: an
+    async save snapshots them when it is called (the leaves are changed in
+    place at once), and the restore puts each back on the card, bit for
+    bit, the generator with its state."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((300, 577), generator=gen, device=cuda)
+    tree = {"w": w, "h": w.to(torch.bfloat16), "rng": gen,
+            "n": torch.arange(7, dtype=torch.int32, device=cuda)}
+    want = {k: v.clone() for k, v in tree.items() if k != "rng"}
+    want_rng = gen.get_state()
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, tree, async_=True)
+    for k in want:
+        tree[k].add_(1)
+    torch.rand(3, generator=gen, device=cuda)
+    ck.wait()
+    like = {"w": torch.zeros_like(w), "h": torch.zeros_like(want["h"]),
+            "rng": torch.Generator(device=cuda),
+            "n": torch.zeros(7, dtype=torch.int32, device=cuda)}
+    got, step = ck.restore(like)
+    assert step == 1
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v), k
+    assert got["rng"].device.type == "cuda"
+    assert torch.equal(got["rng"].get_state(), want_rng)
+
+
+def test_runner_times_the_step_on_the_card(cuda, tmp_path):
+    """A step whose card work outlasts its enqueue: the runner's timed
+    window waits for the loss's device, so each step observes the card's
+    ~20 ms, not the host's microseconds."""
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.train.fault_tolerance import ResilientRunner, RunnerConfig
+    cycles = int(0.02 * torch.cuda.get_device_properties(
+        cuda).clock_rate * 1e3)           # clock_rate is in kHz
+
+    class Stream:
+        def batch(self, step):
+            return {"x": np.zeros(1, np.float32)}
+
+    def step(state, batch):
+        torch.cuda._sleep(cycles)
+        state = state + 1.0
+        return state, {"loss": state.sum(), "ce": state.sum()}
+
+    hist = REGISTRY.histogram("train.step_seconds")
+    before = (hist.count, hist.snapshot()["sum"])
+    runner = ResilientRunner(step, Checkpointer(str(tmp_path)),
+                             RunnerConfig(ckpt_every=100, async_ckpt=False))
+    state, history = runner.run(torch.zeros(4, device=cuda), Stream(), 5)
+    assert [h["step"] for h in history] == list(range(5))
+    assert state.device.type == "cuda" and float(state[0]) == 5.0
+    assert hist.count - before[0] == 5
+    assert hist.snapshot()["sum"] - before[1] >= 5 * 0.015

@@ -54,7 +54,14 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
             "repro_torch.models.moe", "repro_torch.models.ssd",
             "repro_torch.models.mamba", "repro_torch.models.hybrid",
             "repro_torch.models.ssm", "repro_torch.models.encdec",
-            "repro_torch.models.vlm"} <= set(probe["names"])
+            "repro_torch.models.vlm", "repro_torch.data.pipeline",
+            "repro_torch.optim.compression",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.train.fault_tolerance",
+            "repro_torch.resilience.failures",
+            "repro_torch.resilience.faults",
+            "repro_torch.resilience.harness",
+            "repro_torch.launch.train"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 

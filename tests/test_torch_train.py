@@ -123,9 +123,16 @@ def test_other_families_and_compression_raise_naming_their_item():
         loop.model_param_specs(get_config("smollm-135m"))
     with pytest.raises(NotImplementedError, match="item 8"):
         loop.model_param_specs(get_config("qwen2-moe-a2.7b"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        loop.build_train_step(get_reduced("dlrm-mlp"), opt.AdamW(),
-                              loop.TrainStepConfig(compression=object()))
+    # compression (item 11) is ported: the step builds and trains with it
+    from repro_torch.optim.compression import (Int8Compressor,
+                                               StatelessRoundTrip)
+    _, cfg = _cfgs()
+    o = opt.AdamW()
+    state = loop.init_train_state(torch.Generator().manual_seed(0), cfg, o,
+                                  device="cpu")
+    step = loop.build_train_step(cfg, o, loop.TrainStepConfig(
+        compression=StatelessRoundTrip(Int8Compressor())))
+    assert int(step(state, _to_torch(_batches(1)[0]))[0].step) == 1
     assert loop.model_param_specs(get_reduced("dlrm-mlp")) == \
         mlp_dlrm.mlp_specs(get_reduced("dlrm-mlp"))
 
