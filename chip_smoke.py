@@ -135,7 +135,18 @@ after:
               measurements) as a cell report on h100_sxm and on the CLI's
               fitted spec, its host median attached; the paper's quadrant
               construction must classify each point as the times do on the
-              spec's bandwidth-only plane; the tables and the plane printed.
+              spec's bandwidth-only plane; the tables and the plane printed;
+  plan        the analytic parallelism planner (``launch.plan``, numpy; no
+              kernel): parameter counts on fake tensors, exactly the drawn
+              params' numel of the seven models above; the one-card
+              prediction of each measured train step on the datasheet plane
+              beside its host median, smollm's working set beside its
+              measured peak, the capacity cut against what the card trained
+              and qwen3-moe's 122 GB; the planner CLI on calibrate_cli's
+              fitted plane with --explain and --trace (the JSON, the terms
+              summing to each step, the band, the spans); the host's
+              candidates/s over a 24-point qwen2-7b grid; the CLI in a
+              process of its own, which must open no CUDA context.
 
 Every blocked-matmul and flash-attention launch of the MoE, hybrid,
 enc-dec and VLM paths and the three after them must take the sm90 variant
@@ -162,6 +173,7 @@ reports them.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -370,6 +382,22 @@ REPLAY_SEED, REPLAY_STEPS, REPLAY_EVERY = 6, 200, 10
 REPLAY_COUNTERS = {"executed_steps": 233, "saves": 22, "restarts": 4,
                    "quarantined": 1}
 REPLAY_GOODPUT = 0.7181328
+#: the planner's throughput grid, timed on the host: qwen2-7b at every
+#: power-of-two chip budget from 8 to 1024 by three global batches, pp up to
+#: 8, every ZeRO stage and each all-reduce algorithm as its own candidate
+PLAN_GRID_ARCH = "qwen2-7b"
+PLAN_GRID_CHIPS = tuple(8 * 2 ** i for i in range(8))
+PLAN_GRID_BATCHES = (256, 512, 1024)
+#: the planner CLI on the card's fitted fp32 plane (calibrate_cli's registry)
+PLAN_CLI = ["--arch", "dlrm-mlp", "--chips-grid", "1,2,4,8", "--hardware",
+            "h100_sxm_fp32", "--calibrated", "--explain", "--json"]
+#: the planner CLI in a process of its own (no CUDA context may open):
+#: qwen3-moe-30b-a3b training on eight cards, ZeRO searched
+PLAN_ALONE = ["--arch", "qwen3-moe-30b-a3b", "--chips", "8", "--batch", "8",
+              "--seq", "512", "--zero", "auto", "--top", "3"]
+#: the planner's spans (``launch.plan_grid``), every one in the CLI's trace
+PLAN_SPANS = {"plan_grid", "plan_grid.enumerate", "plan_grid.feasibility",
+              "plan_grid.price_collectives", "plan_grid.sweep_classify"}
 
 
 class SmokeFailure(RuntimeError):
@@ -946,7 +974,8 @@ def train_cli(dev, say, tmp: str) -> dict:
     shutil.rmtree(yard)
     shutil.rmtree(bench)
     return {"flops": a.work.flops, "mem_bytes": a.work.mem_bytes,
-            "seconds": host.median, "params": float(n_params)}
+            "seconds": host.median, "params": float(n_params),
+            "peak": float(peak)}
 
 
 def train_replay(dev, say, tmp: str) -> None:
@@ -3538,6 +3567,214 @@ def ridgeline(say, tmp: str, points: list, fitted) -> None:
             f"have no wire bytes: x = inf)")
 
 
+def rss_bytes() -> int:
+    """This process's resident set now (not its high-water mark)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def plan_phase(dev, say, reg: str, tmp: str, drawn: dict, steps: dict) -> None:
+    """The analytic planner (``launch.specs``, ``launch.memory``,
+    ``launch.plan_grid``, ``launch.plan``, ``obs.explain``) held to what the
+    card did in the phases above.  (a) Parameter counts on fake tensors for
+    every assigned config and dlrm-mlp at full width, each model the smoke
+    drew on the card (``drawn``: label -> (config, the drawn params'
+    numel)) counted exactly, with no device memory and the process's RSS
+    read before and after.  (b) One card on the datasheet plane: each
+    measured train step (``steps``) beside the planner's prediction and its
+    three terms, smollm's working set beside ``train_cli``'s peak; what the
+    card trained must fit, qwen3-moe's 122 GB of fp32 params must not.
+    (c) The CLI on ``calibrate_cli``'s fitted plane (``reg``), traced: its
+    JSON, its explain terms summing to each step, the band from the fitted
+    ``model_rel_error``, a valid trace with every planner span; the best
+    plans on both planes.  (d) ``plan_grid``'s throughput on this host.
+    (e) The CLI in a process of its own opens no CUDA context.  The planner
+    launches no kernel."""
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.core.hardware import H100_SXM, H100_SXM_FP32, \
+        get_hardware
+    from repro_torch.distributed.collectives import ALGORITHMS
+    from repro_torch.launch import memory, specs
+    from repro_torch.launch import plan as planner
+    from repro_torch.obs import trace
+
+    # (a) counts on fake tensors
+    alloc0, rss0 = torch.cuda.memory_allocated(dev), rss_bytes()
+    t0 = time.perf_counter()
+    counts = {arch: (specs.param_counts(get_config(arch)),
+                     specs.expert_param_counts(get_config(arch)))
+              for arch in ASSIGNED + ("dlrm-mlp",)}
+    counted = {label: specs.param_counts(cfg)[0]
+               for label, (cfg, _) in drawn.items()}
+    secs = time.perf_counter() - t0
+    alloc1, rss1 = torch.cuda.memory_allocated(dev), rss_bytes()
+    say(f"param_counts on fake tensors, {len(counts)} configs at full width "
+        f"+ {len(drawn)} drawn: {secs:.2f} s on the host; RSS "
+        f"{rss0 / 1e9:.3f} -> {rss1 / 1e9:.3f} GB; card allocated "
+        f"{alloc0} -> {alloc1} bytes")
+    for arch, ((total, active), (e_total, _)) in counts.items():
+        say(f"  {arch}: {total:.0f} params ({4 * total / 1e9:.2f} GB in "
+            f"fp32), {active:.0f} active a token"
+            + (f", {e_total:.0f} in routed experts" if e_total else ""))
+    check(alloc1 == alloc0, "counting allocated device memory")
+    check(rss1 - rss0 < 2 ** 30, f"counting grew the RSS by "
+          f"{(rss1 - rss0) / 1e9:.3f} GB")
+    for label, (cfg, n) in drawn.items():
+        say(f"  {label}: counted {counted[label]:.0f}, drawn on the card "
+            f"{n:.0f}")
+        check(counted[label] == n, f"{label}: counted {counted[label]}, "
+              f"drawn {n}")
+
+    # (b) one card, datasheet plane: prediction against measurement
+    cap = H100_SXM.hbm_capacity_bytes
+    one = [("dlrm-mlp", B, 1, s) for B, s in sorted(steps["dlrm-mlp"].items())]
+    one.append(("smollm-135m", 8, 512, steps["smollm-135m"]["seconds"]))
+    for arch, B, S, measured in one:
+        (p,) = planner.plan(get_config(arch), H100_SXM, 1, batch=B, seq=S)
+        say(f"  h100_sxm, one card, {arch} train B={B}"
+            + (f" S={S}" if S > 1 else "") + f": predicted "
+            f"{p.runtime * 1e3:.4f} ms, {p.bottleneck}-bound (t_comp "
+            f"{p.t_compute * 1e3:.4f}, t_mem {p.t_memory * 1e3:.4f}, t_net "
+            f"{p.t_network * 1e3:.4f} ms); measured host median "
+            f"{measured * 1e3:.4f} ms = {measured / p.runtime:.2f}x the "
+            f"prediction; working set {p.hbm_bytes / 1e9:.3f} GB, fits "
+            f"{p.fits}")
+        check(p.fits and p.hbm_bytes <= cap,
+              f"{arch} B={B}: the card trained it, the planner prunes it")
+    ws = memory.training_working_set(get_config("smollm-135m"), batch=8,
+                                     seq=512)
+    peak = steps["smollm-135m"]["peak"]
+    say(f"  smollm-135m (8, 512) working set: params "
+        f"{float(ws.params) / 1e9:.3f} + grads {float(ws.grads) / 1e9:.3f} + "
+        f"AdamW {float(ws.opt) / 1e9:.3f} + activations "
+        f"{float(ws.activations) / 1e9:.3f} = {float(ws.total) / 1e9:.3f} GB;"
+        f" train_cli's measured peak {peak / 1e9:.3f} GB = "
+        f"{peak / float(ws.total):.2f}x the model")
+    check(float(ws.params + ws.grads + ws.opt) <= float(ws.total) <= peak,
+          "the working set exceeds what the card held")
+    q3 = get_config("qwen3-moe-30b-a3b")
+    try:
+        planner.plan(q3, H100_SXM, 1, batch=8, seq=512)
+        why = "ranked"
+    except ValueError as e:
+        why = str(e)
+    check("no candidate fits" in why,
+          f"qwen3-moe training on one card was not pruned: {why}")
+    (w,) = planner.plan(q3, H100_SXM, 1, batch=8, seq=512,
+                        check_capacity=False)
+    check(not w.fits and float(w.hbm_bytes) > cap, "qwen3-moe marked fit")
+    say(f"  qwen3-moe-30b-a3b train (8, 512) on one card: pruned ({why}); "
+        f"with the check off {w.hbm_bytes / 1e9:.1f} GB, fit {w.fits} "
+        f"(params alone {4 * counts['qwen3-moe-30b-a3b'][0][0] / 1e9:.1f} "
+        f"GB)")
+
+    # (c) the CLI on the fitted plane, traced
+    fitted = get_hardware(H100_SXM_FP32.name, calibrated=True,
+                          registry_dir=reg)
+    tpath = os.path.join(tmp, "plan_trace.json")
+    old = os.environ.get("REPRO_TORCH_CALIBRATION_DIR")
+    os.environ["REPRO_TORCH_CALIBRATION_DIR"] = reg
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = planner.main(PLAN_CLI + ["--trace", tpath])
+    finally:
+        wall = time.perf_counter() - t0
+        trace.disable()
+        if old is None:
+            del os.environ["REPRO_TORCH_CALIBRATION_DIR"]
+        else:
+            os.environ["REPRO_TORCH_CALIBRATION_DIR"] = old
+    check(rc == 0, f"the planner CLI returned {rc}")
+    doc = json.loads(out.getvalue())
+    e = fitted.model_rel_error
+    check(doc["hardware"]["name"] == fitted.name
+          and doc["hardware"]["source"] == "calibrated" and e > 0,
+          f"the CLI did not plan on the fitted spec: {doc['hardware']}")
+    for pt in doc["points"]:
+        b = pt["best"]
+        check(b["runtime_lo"] == max(b["runtime"] * (1.0 - e), 0.0)
+              and b["runtime_hi"] == b["runtime"] * (1.0 + e),
+              f"chips {pt['chips']}: the band is not the fitted error's")
+    n_rec = 0
+    for pt in doc["explain"]["points"]:
+        for rec in pt["candidates"]:
+            total = sum(rec["breakdown"].values())
+            check(abs(total - rec["runtime"]) <= 1e-9 * rec["runtime"],
+                  f"{rec['mesh']}: explain terms sum to {total}, the step "
+                  f"is {rec['runtime']}")
+            n_rec += 1
+    summary = trace.validate_chrome_trace(tpath)
+    with open(tpath) as f:
+        names = {ev["name"] for ev in json.load(f)["traceEvents"]}
+    check(PLAN_SPANS <= names, f"trace lacks {sorted(PLAN_SPANS - names)}")
+    say(f"planner CLI ({' '.join(PLAN_CLI)}) on {fitted.name} (model_rel_"
+        f"error {e:.4f}): rc {rc}, {wall:.3f} s; {doc['n_candidates']} "
+        f"candidates, {n_rec} explained, every breakdown summing to its "
+        f"step; trace valid ({summary['n_spans']} spans, depth "
+        f"{summary['max_depth']})")
+    dlrm = get_config("dlrm-mlp")
+    chips = [pt["chips"] for pt in doc["points"]]
+    for hw in (H100_SXM, H100_SXM_FP32, fitted):
+        g = planner.plan_grid(dlrm, hw, chips, [512])
+        say(f"  best plans, dlrm-mlp B=512, {hw.name}: " + "; ".join(
+            f"{c} chips {b.mesh} {b.algo_label} {b.runtime * 1e3:.4f} ms "
+            + (f"[{b.runtime_lo * 1e3:.4f}, {b.runtime_hi * 1e3:.4f}] "
+               if b.runtime_hi > b.runtime else "") + b.bottleneck
+            for c, b in ((c, g.best(c)) for c in chips)))
+        if hw is fitted:
+            check([g.best(c).runtime for c in chips]
+                  == [pt["best"]["runtime"] for pt in doc["points"]],
+                  "the CLI's best plans are not plan_grid's")
+    for B, s in sorted(steps["dlrm-mlp"].items()):
+        (p,) = planner.plan(dlrm, fitted, 1, batch=B)
+        say(f"  {fitted.name}, one card, dlrm-mlp train B={B}: predicted "
+            f"{p.runtime * 1e3:.4f} ms [{p.runtime_lo * 1e3:.4f}, "
+            f"{p.runtime_hi * 1e3:.4f}] {p.bottleneck}-bound; measured "
+            f"{s * 1e3:.4f} ms = {s / p.runtime:.2f}x")
+
+    # (d) throughput of one large grid on this host
+    cfg = get_config(PLAN_GRID_ARCH)
+    kw = dict(seq=4096, algorithms=ALGORITHMS, max_pp=8,
+              zero_stages=(0, 1, 2, 3))
+    t0 = time.perf_counter()
+    g = planner.plan_grid(cfg, H100_SXM, PLAN_GRID_CHIPS, PLAN_GRID_BATCHES,
+                          **kw)
+    cold = time.perf_counter() - t0
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        planner.plan_grid(cfg, H100_SXM, PLAN_GRID_CHIPS, PLAN_GRID_BATCHES,
+                          **kw)
+        warm.append(time.perf_counter() - t0)
+    n = g.n_candidates
+    say(f"plan_grid throughput (host CPU, not the card): {PLAN_GRID_ARCH}, "
+        f"chips {PLAN_GRID_CHIPS} x batch {PLAN_GRID_BATCHES}, max_pp 8, "
+        f"ZeRO 0-3, {len(ALGORITHMS)} algorithms: {n} candidates of "
+        f"{g.n_enumerated} enumerated ({int(g.n_pruned.sum())} cut by "
+        f"capacity); first pass {cold:.4f} s = {n / cold:.0f} candidates/s, "
+        f"warm (best of 3) {min(warm):.4f} s = {n / min(warm):.0f} "
+        f"candidates/s")
+
+    # (e) the planner in a process of its own opens no CUDA context
+    code = ("import sys, torch; from repro_torch.launch import plan; "
+            "rc = plan.main(sys.argv[1:]); "
+            "sys.exit(rc or (3 if torch.cuda.is_initialized() else 0))")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code] + PLAN_ALONE,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ,
+                            "PYTHONPATH": os.path.join(ROOT, "src")})
+    check(r.returncode == 0, f"the planner alone exited {r.returncode} (3: "
+          f"it opened a CUDA context): {r.stderr[-2000:]}")
+    best = [ln for ln in r.stdout.splitlines() if ln.startswith("best:")]
+    say(f"planner alone ({' '.join(PLAN_ALONE)}): rc 0, no CUDA context, "
+        f"{time.perf_counter() - t0:.2f} s with the interpreter's start; "
+        + "; ".join(best + [ln for ln in r.stdout.splitlines()
+                            if ln.startswith("capacity:")]))
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------------
     phase("device")
@@ -4114,7 +4351,34 @@ def main() -> int:
             "source": "calibrate_cli host median",
             "notes": "calibration measurement"})
     ridgeline(say, tmp.name, points, cli_calib.spec())
+
+    # ---- 17b. plan: the planner against what the card did -----------------------
+    phase("plan")
+    reset_counts()
+    t_phase = time.perf_counter()
+    drawn = {
+        "dlrm-mlp": (get_config("dlrm-mlp"), mlp_params),
+        "smollm-135m": (get_config("smollm-135m"), float(n_params)),
+        "smollm-135m (trained)": (get_config("smollm-135m"),
+                                  lm_train["params"]),
+        MOE_ARCH: (get_config(MOE_ARCH), moe_pre["point"]["params"]),
+        HYMBA_ARCH: (get_config(HYMBA_ARCH), hyb_pre["point"]["params"]),
+        XLSTM_ARCH: (get_config(XLSTM_ARCH),
+                     rec["xlstm_prefill"]["point"]["params"]),
+        WHISPER_ARCH: (get_config(WHISPER_ARCH), ed_pre["point"]["params"]),
+        f"{VLM_ARCH} at {VLM_LAYERS} layers": (
+            get_config(VLM_ARCH).replace(n_layers=VLM_LAYERS),
+            vl_pre["point"]["params"])}
+    plan_phase(dev, say, os.path.join(tmp.name, "calibration_torch"),
+               tmp.name, drawn,
+               {"dlrm-mlp": {B: s for B, _, s in placed},
+                "smollm-135m": lm_train})
     tmp.cleanup()
+    say(f"plan took {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"during plan: blocked_matmul {blocked_matmul.launches}, flash "
+        f"{flash_attention_bhsd.launches}")
+    check(blocked_matmul.launches == 0 and flash_attention_bhsd.launches == 0,
+          "the planner launched a kernel")
 
     # ---- 18. tile_options -----------------------------------------------------
     phase("tile_options")

@@ -168,13 +168,25 @@ class HardwareSpec:
 #: NVIDIA H100 SXM5, datasheet (dense, no sparsity): 989 TFLOP/s bf16 tensor
 #: core, 3.35 TB/s HBM3, 80 GB; NVLink 4 at 900 GB/s total = 450 GB/s each
 #: way; 228 KB of shared memory per SM.
+#:
+#: ``pod`` is the network between nodes (the planner's ``--pod-size``): a
+#: DGX H100 board gives each GPU its own ConnectX-7 at InfiniBand NDR
+#: 400 Gb/s = 50 GB/s each way (NVIDIA's DGX H100 datasheet).
+#:
+#: ``ckpt_bw`` (the planner's ``--goodput``) is measured, not a datasheet
+#: number: ``chip_smoke.py``'s ``train_cli`` phase saved smollm-135m's
+#: training state, 1,614,374,844 bytes, synchronously in 3.130 s on the
+#: host of an NVIDIA H100 80GB HBM3 at its 700 W limit (PERF.md), about
+#: 0.52 GB/s to local disk through the port's checkpointer.
 H100_SXM = HardwareSpec(
     name="h100_sxm",
     peak_flops=989e12,
     hbm_bw=3.35e12,
     net_bw=450e9,
+    extra_links={"pod": 50e9},
     vmem_bytes=228 * 1024,
     hbm_capacity_bytes=80e9,
+    ckpt_bw=1_614_374_844 / 3.130,
 )
 
 #: The same card priced for fp32 work outside the tensor cores (datasheet:

@@ -1,6 +1,7 @@
-"""Observability: span tracing and metrics, copied from ``repro.obs``.
+"""Observability: span tracing, metrics and plan cost attribution, copied
+from ``repro.obs``.
 
-Two standard-library layers:
+Three standard-library layers:
 
   * :mod:`repro_torch.obs.trace` — nested context-manager span tracer with
     thread-safe counters, exporting Chrome-trace-event JSON that loads
@@ -12,12 +13,15 @@ Two standard-library layers:
     capture (git sha, torch and CUDA versions, the device, hostname, wall
     clock) stamped into calibration registry entries and traces.
 
-The reference's third layer, ``obs.explain`` (the planner's cost
-attribution), comes with the planner (ROADMAP Queue 1 item 12).
+  * :mod:`repro_torch.obs.explain` — the attribution layer:
+    ``plan_grid(..., explain=True)`` / the planner CLI's ``--explain``
+    decompose each surviving candidate's projected step time into additive
+    terms (compute, memory, per-axis α·steps vs bytes/bw network, pipeline
+    bubble, ZeRO sync) and report structured prune reasons.
 """
-from repro_torch.obs import metrics, trace  # noqa: F401  (import surface)
+from repro_torch.obs import explain, metrics, trace  # noqa: F401
 from repro_torch.obs.metrics import REGISTRY, provenance  # noqa: F401
 from repro_torch.obs.trace import count, enabled, span  # noqa: F401
 
-__all__ = ["trace", "metrics", "span", "count", "enabled", "REGISTRY",
+__all__ = ["trace", "metrics", "explain", "span", "count", "enabled", "REGISTRY",
            "provenance"]

@@ -61,7 +61,10 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
             "repro_torch.resilience.failures",
             "repro_torch.resilience.faults",
             "repro_torch.resilience.harness",
-            "repro_torch.launch.train"} <= set(probe["names"])
+            "repro_torch.launch.train", "repro_torch.configs.shapes",
+            "repro_torch.launch.specs", "repro_torch.launch.memory",
+            "repro_torch.launch.plan_grid", "repro_torch.launch.plan",
+            "repro_torch.obs.explain"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 
