@@ -146,7 +146,29 @@ after:
               fitted plane with --explain and --trace (the JSON, the terms
               summing to each step, the band, the spans); the host's
               candidates/s over a 24-point qwen2-7b grid; the CLI in a
-              process of its own, which must open no CUDA context.
+              process of its own, which must open no CUDA context;
+  mesh_serve  smollm-135m through ``launch.serve --mesh 1x1`` (its tokens
+              those of no mesh), then, in a bound 1x1 NCCL mesh with the
+              params placed through the logical specs, the (8, 2048)
+              prefill with use_flash and use_kernel_matmul and greedy
+              generation of 8 sequences with the FFN in the blocked matmul:
+              logits bit for bit, tokens and both kernels' launches those of
+              the same calls with no mesh (these launches join lm_prefill's
+              and lm_decode's rows); ``--mesh 2x1`` exits 2;
+  mesh_train  smollm-135m trained at (8, 512) through ``launch.train --mesh
+              1x1`` with checkpoints, then ``resilience.degraded
+              .degraded_restart`` on one surviving card: the plan dp1 x tp1,
+              the state restored bit for bit; a corrupted latest step
+              quarantined and the restart landing on the step before, the
+              steps after it resumed within ``RESUME_TOL`` of the
+              uninterrupted run; the restore timed;
+  dryrun      ``launch.dryrun.lower_cell`` on ``DRYRUN_CELLS`` (fake
+              DTensors over a fake process group: no card byte, no kernel):
+              dlrm-mlp 1x1 held to the card's own B = 256 step (F equal, the
+              fake peak within ``PEAK_TOL`` of the allocator's), dlrm-mlp
+              16x16's wire bytes to the ring all-reduce of its fp32 params
+              and the planner's dp-16 term within 1%, and a report with its
+              bottleneck and memory per device for each cell.
 
 Every blocked-matmul and flash-attention launch of the MoE, hybrid,
 enc-dec and VLM paths and the three after them must take the sm90 variant
@@ -3775,6 +3797,316 @@ def plan_phase(dev, say, reg: str, tmp: str, drawn: dict, steps: dict) -> None:
                             if ln.startswith("capacity:")]))
 
 
+#: mesh_serve: the serve CLI's and greedy generation's batch, prompt and
+#: new tokens (the prefill runs at PREFILL[0], as lm_prefill's does)
+MESH_B, MESH_PROMPT, MESH_NEW = 8, 16, 16
+#: mesh_train: the train CLI on the card's 1x1 mesh, checkpoints at 2 and 4
+MESH_TRAIN = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
+              "--ckpt-every", "2", "--steps", "4", "--mesh", "1x1"]
+#: dryrun: the cells lowered on the card's host (the paper's case study on
+#: one card and on a pod, its serving forward on a pod, a dense train cell
+#: on a pod, a decode cell, a two-pod train cell) and the phase's budget in
+#: seconds
+DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
+                ("dlrm-mlp", "train_4k", "16x16"),
+                ("dlrm-mlp", "decode_32k", "16x16"),
+                ("smollm-135m", "train_4k", "16x16"),
+                ("qwen2-7b", "decode_32k", "16x16"),
+                ("qwen2-7b", "train_4k", "2x16x16"))
+DRYRUN_BUDGET_S = 120.0
+#: dryrun: the fake peak per device against the card's allocator peak of
+#: the same step, relative
+PEAK_TOL = 0.15
+
+
+def launch_counts() -> dict:
+    """Both wrappers' launch counts by variant."""
+    from repro_torch.kernels.blocked_matmul import blocked_matmul
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    return {"blocked_matmul": dict(blocked_matmul.launches_by_variant),
+            "flash_attention_bhsd": dict(
+                flash_attention_bhsd.launches_by_variant)}
+
+
+def first_sequence(text: str) -> list:
+    """The token list of the serve CLI's ``first sequence:`` line."""
+    line = [ln for ln in text.splitlines()
+            if ln.startswith("first sequence: ")][0]
+    return json.loads(line.removeprefix("first sequence: "))
+
+
+def mesh_serve(dev, say, params, cfg, tokens: torch.Tensor) -> dict:
+    """smollm-135m served under a 1x1 mesh on the card.  (a) The serve CLI
+    (``launch.serve``, the plain path) with ``--mesh 1x1``: its tokens
+    those of ``greedy_generate`` on the same seed with no mesh.  (b) The
+    main path, counts set to 0 before it and read after: in a bound 1x1
+    NCCL mesh, the params placed through ``specs_to_shardings`` (local
+    tensors on one device), the prefill ``forward`` of ``tokens`` with
+    ``use_flash`` and ``use_kernel_matmul`` and ``greedy_generate`` of its
+    first ``MESH_B`` rows with the FFN products in the blocked matmul.
+    (c) The same calls with no mesh: logits bit for bit, tokens and both
+    kernels' launches equal.  (d) ``--mesh 2x1`` exits 2 naming several
+    cards.  Returns the main path's launches and its greedy steps."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (gqa_safe_rules, place_tree,
+                                                  specs_to_shardings,
+                                                  use_sharding)
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import open_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import greedy_generate
+    from repro_torch.train.loop import model_param_specs
+    from repro_torch.tree import tree_leaves
+
+    args = ["--arch", "smollm-135m", "--batch", str(MESH_B), "--prompt-len",
+            str(MESH_PROMPT), "--new-tokens", str(MESH_NEW), "--seed", "3"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve_cli.main(args + ["--mesh", "1x1"])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"serve --mesh 1x1 exited {rc}")
+    check(not dist.is_initialized(), "the serve CLI left its world up")
+    plain = get_config("smollm-135m")
+    p = transformer.init_lm(plain, torch.Generator(device=dev).manual_seed(3),
+                            device=dev)
+    prompt = torch.randint(0, plain.vocab_size, (MESH_B, MESH_PROMPT),
+                           generator=torch.Generator().manual_seed(4)).to(dev)
+    want = greedy_generate(p, plain, prompt, steps=MESH_NEW,
+                           max_len=MESH_PROMPT + MESH_NEW)[0].tolist()
+    del p
+    got = first_sequence(out.getvalue())
+    say(f"(a) launch.serve --mesh 1x1 ({' '.join(args)}): {cli_s:.2f} s; "
+        f"first sequence equals greedy_generate with no mesh: {got == want}")
+    check(got == want, "the serve CLI's tokens under --mesh 1x1 differ")
+
+    kcfg = cfg.replace(use_flash=True, use_kernel_matmul=True)
+    g_prompt = tokens[:MESH_B, :MESH_PROMPT]
+    steps = MESH_PROMPT + MESH_NEW - 1
+
+    def drive(tree):
+        logits = transformer.forward(tree, tokens, kcfg)[0]
+        gen = greedy_generate(tree, kcfg, g_prompt, steps=MESH_NEW,
+                              max_len=MESH_PROMPT + MESH_NEW)
+        torch.cuda.synchronize()
+        return logits, gen
+
+    t0 = time.perf_counter()
+    with open_mesh((1, 1), ("data", "model")) as mesh, \
+            use_sharding(mesh, gqa_safe_rules(cfg.n_kv_heads, mesh)):
+        placed = place_tree(params, specs_to_shardings(
+            model_param_specs(cfg), mesh))
+        local = all(a is b for a, b in zip(tree_leaves(params),
+                                           tree_leaves(placed)))
+        reset_counts()
+        logits_m, gen_m = drive(placed)
+        main = launch_counts()
+    mesh_s = time.perf_counter() - t0
+    check(local, "a 1x1 mesh placed a param as anything but itself")
+    check(not dist.is_initialized(), "the 1x1 mesh's world outlived it")
+    reset_counts()
+    logits_0, gen_0 = drive(params)
+    unbound = launch_counts()
+    same = torch.equal(logits_m, logits_0)
+    say(f"(b) in a bound 1x1 NCCL mesh ({mesh_s:.2f} s): prefill "
+        f"{tuple(tokens.shape)} use_flash + use_kernel_matmul, then "
+        f"{steps} greedy steps of B={MESH_B}: launches {main}; params "
+        f"placed as the local tensors they were: {local}")
+    say(f"(c) the same with no mesh: launches {unbound}; logits bit for bit "
+        f"equal: {same}; tokens equal: {torch.equal(gen_m, gen_0)}")
+    check(same, "prefill logits under the 1x1 mesh differ from no mesh")
+    check(torch.equal(gen_m, gen_0), "greedy tokens under the mesh differ")
+    check(main == unbound, f"launches differ: mesh {main}, none {unbound}")
+    nl = cfg.n_layers
+    check(sum(main["flash_attention_bhsd"].values()) == nl
+          and sum(main["blocked_matmul"].values()) == 3 * nl * (1 + steps),
+          f"expected {nl} flash and {3 * nl * (1 + steps)} blocked matmul "
+          f"launches, got {main}")
+    del logits_m, logits_0
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = serve_cli.main(args + ["--mesh", "2x1"])
+    say(f"(d) launch.serve --mesh 2x1 on one card: exit {rc}: "
+        f"{err.getvalue().strip()}")
+    check(rc == 2 and "several cards" in err.getvalue(),
+          "--mesh 2x1 on one card must exit 2 naming several cards")
+    return {"launches": main, "steps": steps}
+
+
+def mesh_train(dev, say, tmp: str) -> dict:
+    """smollm-135m trained under ``--mesh 1x1`` on the card (the train CLI,
+    (8, 512), checkpoints at 2 and 4), then a degraded restart on one
+    surviving card: the plan dp1 x tp1, the state restored onto the card's
+    mesh bit for bit the saved one; a corrupted latest step quarantined and
+    the restart landing on the step before; the steps after it resumed
+    from the restored state, their CE held to the uninterrupted run's
+    (``RESUME_TOL``).  Neither launches a kernel (training is plain)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_stream, to_device
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.specs import train_state_specs
+    from repro_torch.resilience.degraded import degraded_restart
+    from repro_torch.resilience.harness import _corrupt_latest
+
+    d = os.path.join(tmp, "mesh_train")
+    t0 = time.perf_counter()
+    run = launcher.train(launcher.parse_args(MESH_TRAIN + ["--ckpt-dir", d]))
+    wall = time.perf_counter() - t0
+    check(run is not None and [h["step"] for h in run.history]
+          == [0, 1, 2, 3], "the train CLI under --mesh 1x1 did not run 0-3")
+    check(not dist.is_initialized(), "the train CLI left its world up")
+    say(f"launch.train {' '.join(MESH_TRAIN)}: {wall:.2f} s; CE "
+        + " ".join(f"{h['ce']:.4f}" for h in run.history))
+    cfg = get_config("smollm-135m")
+    specs = train_state_specs(cfg, zero1=False)
+    ck = Checkpointer(d)
+
+    def restart():
+        t0 = time.perf_counter()
+        out = degraded_restart(ck, run.state, specs, cfg, "h100_sxm",
+                               surviving_chips=1, global_batch=8, seq=512)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        dist.destroy_process_group()
+        return out, secs
+
+    out, secs = restart()
+    equal = leaves_equal(run.state, out.state)
+    t0 = time.perf_counter()
+    back, _ = ck.restore(run.state, step=4)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del back
+    say(f"degraded_restart(h100_sxm, surviving_chips=1): plan "
+        f"{out.plan.mesh} ({out.plan.bottleneck}-bound, "
+        f"{out.plan.runtime * 1e3:.3f} ms, {out.plan.hbm_used_gb:.2f} GB), "
+        f"mesh {tuple(out.mesh.shape)}, landed on step {out.step}, "
+        f"{secs:.3f} s (re-plan, mesh, restore with verify; "
+        f"Checkpointer.restore alone {plain_s:.3f} s); bit for bit the saved "
+        f"state: {equal}")
+    check((out.plan.dp, out.plan.tp) == (1, 1), f"plan {out.plan.mesh}")
+    check(out.step == 4 and equal, "the restart did not restore step 4 as "
+          "it was saved")
+    del out
+
+    check(_corrupt_latest(ck), "nothing to corrupt")
+    out, secs2 = restart()
+    quarantined = [n for n in os.listdir(d) if ".quarantined_" in n]
+    say(f"step 4 corrupted: the restart landed on step {out.step} in "
+        f"{secs2:.3f} s; quarantined {quarantined}")
+    check(out.step == 2 and len(quarantined) == 1,
+          "the corrupt step was not quarantined or the restart did not fall "
+          "back to step 2")
+    stream = make_stream(cfg, DataConfig(seed=0, global_batch=8, seq_len=512))
+    state, ces = out.state, []
+    for s in (2, 3):
+        state, m = run.train_step(state, to_device(stream.batch(s), dev))
+        ces.append(m["ce"].item())
+    want = [h["ce"] for h in run.history[2:]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ces, want))
+    say(f"steps 2-3 resumed from the restart: CE {ces} against the "
+        f"uninterrupted run's {want}: max rel {rel:.3e} (tol {RESUME_TOL:g})")
+    check(rel < RESUME_TOL, f"resumed CE off the uninterrupted run: {rel}")
+    del out, state, run
+    return {"restore_s": secs, "fallback_s": secs2, "plain_s": plain_s}
+
+
+def dryrun_phase(dev, say) -> None:
+    """The dry-run (``launch.dryrun.lower_cell``) of ``DRYRUN_CELLS`` on the
+    card's host: fake DTensors over a fake process group, no card byte and
+    no kernel.  dlrm-mlp at 1x1 is held to the card's own step at B = 256
+    (F to ``counters.count``'s, the fake peak to the allocator's peak
+    within ``PEAK_TOL``); at 16x16 its wire bytes to the ring all-reduce of
+    its fp32 params, the planner's dp-16 term, within 1%."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.plan import plan
+    from repro_torch.launch.specs import param_counts
+    from repro_torch.measure import counters
+    from repro_torch.optim.optimizer import AdamW
+    from repro_torch.train import loop
+
+    reset_counts()
+    m0 = torch.cuda.memory_allocated(dev)
+    t_all = time.perf_counter()
+    cells = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rep, low = dryrun.lower_cell(arch, shape, mesh)
+        cells[(arch, shape, mesh)] = low
+        kinds = ", ".join(f"{k} {v / 1e9:.4f}" for k, v in
+                          sorted(low.wire_bytes_by_kind.items()))
+        say(f"  {arch} {shape} {mesh}: {time.perf_counter() - t0:.1f} s; "
+            f"{rep.bottleneck}-bound on h100_sxm, runtime "
+            f"{rep.runtime * 1e3:.3f} ms (t_C {rep.t_compute * 1e3:.3f}, t_M "
+            f"{rep.t_memory * 1e3:.3f}, t_N {rep.t_network * 1e3:.3f}); "
+            f"per device F {low.flops:.6g}, B_M {low.mem_bytes:.6g}, wire "
+            f"{low.wire_bytes / 1e9:.4f} GB ({kinds or 'none'}), cross-pod "
+            f"{low.cross_pod_wire_bytes / 1e9:.4f} GB, peak "
+            f"{low.peak_memory_per_device / 1e9:.3f} GB; useful/counted F "
+            f"{rep.useful_flops_ratio:.3f}; {rep.notes}")
+    total_s = time.perf_counter() - t_all
+    grown = torch.cuda.memory_allocated(dev) - m0
+    say(f"dry-run of {len(DRYRUN_CELLS)} cells: {total_s:.1f} s (budget "
+        f"{DRYRUN_BUDGET_S:g} s); card bytes allocated {grown}; launches "
+        f"{launch_counts()}")
+    check(grown == 0, f"the dry-run allocated {grown} card bytes")
+    check(all(sum(v.values()) == 0 for v in launch_counts().values()),
+          "the dry-run launched a kernel")
+    check(total_s < DRYRUN_BUDGET_S, f"the dry-run took {total_s:.1f} s")
+
+    cfg = get_config("dlrm-mlp")
+    one = cells[("dlrm-mlp", "train_4k", "1x1")]
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = AdamW(learning_rate=1e-3)
+    state = loop.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, opt, device=dev)
+    batch = click_batch(np.random.default_rng(5), 256, cfg.mlp_widths[0], dev)
+    step = loop.build_train_step(cfg, opt)
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    del out
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    flops, _ = counters.count(step, state, batch)
+    gap = (one.peak_memory_per_device - peak) / peak
+    say(f"dlrm-mlp train_4k 1x1 against the card's step at B=256: F "
+        f"dry-run {one.flops:.9g}, card counters.count {flops:.9g} (rel "
+        f"{abs(one.flops - flops) / flops:.2e}, tol 1e-6); peak dry-run "
+        f"{one.peak_memory_per_device / 1e9:.4f} GB, card "
+        f"max_memory_allocated {peak / 1e9:.4f} GB: gap {100 * gap:+.2f}% "
+        f"(tol {100 * PEAK_TOL:g}%)")
+    check(abs(one.flops - flops) <= 1e-6 * flops, "F differs at 1x1")
+    check(abs(gap) < PEAK_TOL, f"fake peak {100 * gap:+.1f}% off the card's")
+    del state, batch
+
+    pod = cells[("dlrm-mlp", "train_4k", "16x16")]
+    want = 2 * 15 / 16 * 4 * param_counts(cfg)[0]
+    dp16 = [p for p in plan(cfg, H100_SXM, 16, batch=256,
+                            algorithms=("ring",)) if (p.dp, p.tp) == (16, 1)]
+    say(f"dlrm-mlp train_4k 16x16: wire per device {pod.wire_bytes:.6g} B "
+        f"against 2 x 15/16 x fp32 params {want:.6g} B (rel "
+        f"{abs(pod.wire_bytes - want) / want:.2e}) and the planner's dp16 "
+        f"term {dp16[0].net_bytes:.6g} B")
+    check(abs(pod.wire_bytes - want) <= 0.01 * want, "dp-16 wire bytes")
+    check(abs(pod.wire_bytes - dp16[0].net_bytes)
+          <= 0.01 * dp16[0].net_bytes, "wire bytes off the planner's term")
+    two = cells[("qwen2-7b", "train_4k", "2x16x16")]
+    check(two.cross_pod_wire_bytes > 0, "no cross-pod bytes at 2x16x16")
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------------
     phase("device")
@@ -4380,6 +4712,35 @@ def main() -> int:
     check(blocked_matmul.launches == 0 and flash_attention_bhsd.launches == 0,
           "the planner launched a kernel")
 
+    # ---- 17c. mesh_serve, mesh_train, dryrun: the mesh --------------------------
+    phase("mesh_serve")
+    t_phase = time.perf_counter()
+    served = mesh_serve(dev, say, lm_params, lm_cfg, tokens[PREFILL[0]])
+    # the main path's launches at lm_prefill's (8, 2048) shapes and
+    # lm_decode's B = 8 shapes: their per-launch rows carry them
+    flash_rows[0]["launches"] += sum(
+        served["launches"]["flash_attention_bhsd"].values())
+    for r in ffn_rows:
+        r["launches"] += NL
+    for r in dec_rows:
+        if r["path"] == "lm_decode" and r["shape"][0] == MESH_B:
+            r["launches"] += NL * served["steps"]
+    say(f"mesh_serve took {time.perf_counter() - t_phase:.1f} s")
+    phase("mesh_train")
+    t_phase = time.perf_counter()
+    reset_counts()
+    mesh_tmp = tempfile.TemporaryDirectory()
+    mesh_train(dev, say, mesh_tmp.name)
+    mesh_tmp.cleanup()
+    say(f"mesh_train took {time.perf_counter() - t_phase:.1f} s; kernel "
+        f"launches: {launch_counts()}")
+    check(all(sum(v.values()) == 0 for v in launch_counts().values()),
+          "mesh_train reached a forward-only kernel")
+    phase("dryrun")
+    t_phase = time.perf_counter()
+    dryrun_phase(dev, say)
+    say(f"dryrun took {time.perf_counter() - t_phase:.1f} s")
+
     # ---- 18. tile_options -----------------------------------------------------
     phase("tile_options")
     # the sm90 kernel at every main-path shape under each tile width and
@@ -4498,9 +4859,11 @@ def main() -> int:
     mm_paths = (mlp_variants, lm_variants, dec_variants, cal_variants,
                 cli_variants, moe_pre["blocked_matmul"],
                 moe_dec["blocked_matmul"], hyb_pre["blocked_matmul"],
-                hyb_dec["blocked_matmul"]) \
+                hyb_dec["blocked_matmul"],
+                served["launches"]["blocked_matmul"]) \
         + tuple(p["blocked_matmul"] for p in new_paths)
-    fa_paths = (flash_variants, moe_pre["flash"]) \
+    fa_paths = (flash_variants, moe_pre["flash"],
+                served["launches"]["flash_attention_bhsd"]) \
         + tuple(p["flash"] for p in new_paths if "flash" in p)
     summary = {"kernels": [
         entry("blocked_matmul",

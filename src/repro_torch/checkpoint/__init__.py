@@ -1,2 +1,3 @@
-"""Checkpointing (``checkpointer``); the elastic restore onto a mesh
-(``repro.checkpoint.elastic``) comes with the mesh (ROADMAP Queue 1 item 12)."""
+"""Checkpointing (``checkpointer``) and the elastic restore onto a mesh
+(``elastic``: shardings from logical specs, per-host data configs after a
+resize)."""

@@ -41,8 +41,12 @@ restores in the other's.  Three leaves need a form numpy can hold:
     tensor too, whose ``.numpy()`` would share its memory), so an async
     save writes the values of that moment whatever the caller then does.
 
-``restore(like)`` puts each leaf on its proto's device and dtype.
-Re-sharding onto a mesh waits for the port's mesh (ROADMAP Queue 1 item 12).
+``restore(like)`` puts each leaf on its proto's device and dtype;
+``restore(like, shardings=...)`` then lays each leaf out on its mesh
+(``distributed.sharding.place``: each rank keeps its slice of the full
+array it read; a mesh of one device keeps the tensor local).
+``checkpoint/elastic.restore_on_mesh`` derives the shardings from logical
+specs.
 """
 from __future__ import annotations
 
@@ -140,6 +144,8 @@ def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
         return leaf.get_state().numpy().copy(), "uint8"
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if hasattr(t, "full_tensor"):        # a DTensor: the whole array
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return (t.view(torch.int16).to("cpu", copy=True).numpy()
                     .view(np.uint16), BF16)
@@ -151,7 +157,8 @@ def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
 
 def _from_host(arr: np.ndarray, dtype: str, proto: Any) -> Any:
     """The saved array as a leaf like ``proto``: a generator with its state,
-    a tensor on the proto's device and dtype, or (any other proto) a CPU
+    a tensor on the proto's device and dtype (a DTensor proto: laid out as
+    it is, each rank keeping its slice), or (any other proto) a CPU
     tensor."""
     if isinstance(proto, torch.Generator):
         gen = torch.Generator(device=proto.device)
@@ -159,8 +166,13 @@ def _from_host(arr: np.ndarray, dtype: str, proto: Any) -> Any:
         return gen
     t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
          if dtype == BF16 else torch.from_numpy(arr))
-    if isinstance(proto, torch.Tensor):
-        return t.to(device=proto.device, dtype=proto.dtype)
+    if not isinstance(proto, torch.Tensor):
+        return t
+    t = t.to(device=proto.device, dtype=proto.dtype)
+    if hasattr(proto, "full_tensor"):        # a DTensor: laid out as it is
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, proto.device_mesh, proto.placements,
+                                 src_data_rank=None)
     return t
 
 
@@ -298,22 +310,28 @@ class Checkpointer:
         previous committed step until one verifies.  An explicitly
         requested ``step`` is also verified, but corruption raises (the
         caller asked for those exact bytes — silently substituting older
-        ones would be worse than failing)."""
+        ones would be worse than failing).
+
+        ``shardings``: a tree of ``like``'s structure whose leaves are
+        ``distributed.sharding.NamedSharding`` (or None: the leaf stays as
+        restored); each restored leaf is laid out on its mesh."""
+        if step is None:
+            while True:
+                step = self.latest_step()
+                if step is None:
+                    raise FileNotFoundError(
+                        f"no committed checkpoint in {self.root}")
+                try:
+                    tree = self._restore_step(like, step)
+                    break
+                except CheckpointCorruptionError:
+                    self._quarantine(step)
+        else:
+            tree = self._restore_step(like, step)
         if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (shardings) is not ported yet: "
-                "ROADMAP Queue 1 item 12 (mesh and sharding)")
-        if step is not None:
-            return self._restore_step(like, step), step
-        while True:
-            step = self.latest_step()
-            if step is None:
-                raise FileNotFoundError(
-                    f"no committed checkpoint in {self.root}")
-            try:
-                return self._restore_step(like, step), step
-            except CheckpointCorruptionError:
-                self._quarantine(step)
+            from repro_torch.distributed.sharding import place_tree
+            tree = place_tree(tree, shardings)
+        return tree, step
 
     def _restore_step(self, like: Any, step: int) -> Any:
         d = _step_dir(self.root, step)

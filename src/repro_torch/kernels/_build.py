@@ -104,6 +104,19 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, BuildResult]:
     return results
 
 
+def refuse_dtensor(**tensors) -> None:
+    """Raise ``TypeError`` for a DTensor on the card: a launcher reads a
+    local tensor's ``data_ptr()``, and a DTensor's is not the shard.  On
+    the card the model runs on local tensors (a mesh of one device places
+    nothing); a CPU DTensor takes the plain version and passes here."""
+    from torch.distributed.tensor import DTensor
+    for name, x in tensors.items():
+        if isinstance(x, DTensor) and x.device.type == "cuda":
+            raise TypeError(
+                f"{name}: the CUDA kernel takes local tensors, got a DTensor "
+                f"laid out as {tuple(x.placements)} on {x.device_mesh}")
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``name``, building it first if needed."""

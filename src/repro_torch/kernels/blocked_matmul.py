@@ -159,6 +159,7 @@ def f32_plan(M: int, N: int, K: int, num_sms: int) -> F32Tile:
 
 def _check(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
            act: Optional[str]) -> None:
+    _build.refuse_dtensor(a=a, b=b, bias=bias)
     if act not in _ACT_CODE:
         raise ValueError(f"unsupported activation {act!r}; have {ACTS}")
     if a.dim() != 2 or b.dim() != 2:

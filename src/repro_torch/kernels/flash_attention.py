@@ -75,6 +75,7 @@ def variant(dtype: torch.dtype, dh: int, is_tma_readable: bool) -> str:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
            seq_len: Optional[int]) -> None:
+    _build.refuse_dtensor(q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"need 4-D (B, heads, S, dh) q, k, v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -2,6 +2,7 @@
 ``python -m repro_torch.launch.train``) and the analytic parallelism planner
 (``python -m repro_torch.launch.plan``; numpy only, it touches no device).
 
-The dry-run CLI of ``repro.launch`` comes with the mesh (ROADMAP Queue 1,
-item 12).
+``mesh`` builds the ``DeviceMesh`` (and the dry-run's fake one); ``specs``
+lays trees out on it; the multi-pod dry-run is ``python -m
+repro_torch.launch.dryrun`` (fake DTensors over a fake process group).
 """

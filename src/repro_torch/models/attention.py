@@ -5,9 +5,11 @@ optional QKV bias (Qwen2), per-head QK RMS-norm (Qwen3), RoPE, causal or
 bidirectional, sliding-window masks, the flash-attention kernel path
 (``cfg.use_flash``), the chunked ``_blockwise_sdpa``
 (``cfg.attn_impl == "chunked"``) and one-token decode against a KV cache.
-The reference's ``shard_hint`` calls constrain sharding under a mesh and do
-nothing without one, so they are left out; so are the specs functions,
-which have no reader in the port until its mesh (ROADMAP Queue 1, item 12).
+The reference's ``shard_hint`` calls are kept: under a mesh binding they
+lay a DTensor out (``distributed.sharding``), without one they do nothing.
+Under a mesh the products run on the shards (``sharding.sp_matmul``) and
+so does the attention core (``_sdpa_on_shards``); ``attention_specs`` and
+``kv_cache_specs`` give the logical axes of the params and the cache.
 
 Shapes: activations (B, S, D); per-head tensors (B, S, H, dh).  KV cache:
 dict(k=(L, B, S_max, K, dh), v=...), one layer's view (B, S_max, K, dh).
@@ -17,12 +19,16 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (replicate_inner, shard_hint,
+                                              sp_matmul)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (apply_rope, dense_init, init_rng, ones,
                                        rms_norm_head, zeros)
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -49,15 +55,32 @@ def init_attention(cfg: ModelConfig,
     return p
 
 
+def attention_specs(cfg: ModelConfig) -> Specs:
+    p = {
+        "wq": ("embed", "q_proj"),
+        "wk": ("embed", "kv_proj"),
+        "wv": ("embed", "kv_proj"),
+        "wo": ("q_proj", "embed"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("q_proj",)
+        p["bk"] = ("kv_proj",)
+        p["bv"] = ("kv_proj",)
+    if cfg.qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    return p
+
+
 def _project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor,
                  cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     dt = cfg.compute_dtype
     B, S = x.shape[0], x.shape[1]
     Skv = kv_src.shape[1]
-    q = x @ p["wq"].to(dt)
-    k = kv_src @ p["wk"].to(dt)
-    v = kv_src @ p["wv"].to(dt)
+    q = sp_matmul(x, p["wq"].to(dt))
+    k = sp_matmul(kv_src, p["wk"].to(dt))
+    v = sp_matmul(kv_src, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -104,6 +127,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax in fp32, and the weights are cast to ``v.dtype``, as the JAX
     package's ``_sdpa`` does.
     """
+    if isinstance(q, DTensor):
+        return _sdpa_on_shards(q, k, v, bias, cfg)
     B, Sq, H, dh = q.shape
     K = k.shape[2]
     if K != H:
@@ -116,6 +141,39 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + bias
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", w, v)
+
+
+def _sdpa_on_shards(q: DTensor, k: DTensor, v: DTensor,
+                    bias: Optional[torch.Tensor], cfg: ModelConfig
+                    ) -> DTensor:
+    """``_sdpa`` on DTensors: each device attends with its own query rows
+    (its shard of the batch, of the heads and, under the ``attn_seq`` rule,
+    of the sequence) over every key of its batch and heads, through the
+    plain ``_sdpa`` on the shards; the output takes q's layout.  The keys
+    are gathered along the sequence and sliced along the heads as q's are
+    (kv heads that are replicated are first repeated up to q's).  Left to
+    DTensor, the einsum flattens (batch, heads) while both are sharded,
+    which some torch versions refuse and others do by replicating the
+    attention or by laying the batch over every mesh axis."""
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    if K != H and not any(isinstance(p, Shard) and p.dim == 2
+                          for p in k.placements):
+        k, v = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+    kept = (Shard(0), Shard(2))                 # batch and heads as q's
+    layout = [p if p in kept else Replicate() for p in q.placements]
+    grad = [p if isinstance(p, Shard) else
+            Partial() if isinstance(pq, Shard) else Replicate()
+            for p, pq in zip(layout, q.placements)]
+    k, v = (t.redistribute(mesh, layout).to_local(grad_placements=grad)
+            for t in (k, v))
+    if bias is not None:                        # rows of q's seq shard
+        bias = distribute_tensor(
+            bias, mesh, [Shard(0) if p == Shard(1) else Replicate()
+                         for p in q.placements], src_data_rank=None
+        ).to_local()
+    out = _sdpa(q.to_local(), k, v, bias, cfg)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
 
 
 def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -136,6 +194,13 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             positions = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    # "attn_seq" is the SP-fallback axis: mapped to the model axis only when
+    # heads can't shard it (dryrun._rules_for), so head-TP archs keep
+    # collective-free attention and odd-head archs still shard the O(S^2)
+    # scores over seq
+    q = shard_hint(q, ("batch", "attn_seq", "heads", None))
+    k = shard_hint(k, ("batch", "attn_seq", "kv_heads", None))
+    v = shard_hint(v, ("batch", "attn_seq", "kv_heads", None))
     if cfg.use_flash and not cross and q.shape[1] == k.shape[1]:
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     elif cfg.attn_impl == "chunked" and not cross \
@@ -146,7 +211,7 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                           device=x.device)
         out = _sdpa(q, k, v, bias, cfg)
     out = out.reshape(B, S, cfg.q_dim)
-    return out @ p["wo"].to(dt)
+    return sp_matmul(out, p["wo"].to(dt))
 
 
 def _blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,7 +238,10 @@ def _blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kpos = torch.arange(S, device=q.device)[None, :]
     outs = []
     for i in range(Sp // bq):
-        qi = q[:, i * bq:(i + 1) * bq]
+        # re-assert the SP sharding of the block (a slice of the seq axis
+        # would otherwise leave it as its parent's layout gives it)
+        qi = shard_hint(q[:, i * bq:(i + 1) * bq],
+                        ("batch", "attn_seq", "heads", None))
         s = (torch.einsum("bqhd,bshd->bhqs", qi, k) / scale).float()
         qpos = i * bq + torch.arange(bq, device=q.device)[:, None]
         ok = torch.ones((bq, S), dtype=torch.bool, device=q.device)
@@ -199,6 +267,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
 
 
+def kv_cache_specs() -> Specs:
+    """The stacked cache keeps its leading layer axis (it is one tensor)."""
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", None)}
+
+
 def decode_attention(p: Params, x: torch.Tensor,
                      layer_cache: Dict[str, torch.Tensor], pos: int,
                      cfg: ModelConfig, *, window: int = 0
@@ -212,8 +286,9 @@ def decode_attention(p: Params, x: torch.Tensor,
     stacked cache they view), which are returned, so a caller that kept
     them sees them change.  The reference builds a new cache with a select
     over the whole sequence axis, a form its comment keeps for GSPMD's
-    partitioning; here that would read and write the whole cache every step.
-    The values are the same.  Keys at ``kpos <= pos`` (and, with a window,
+    partitioning; here that would read and write the whole cache every step,
+    so only a cache laid out on a mesh takes it (``_write_row``).  The
+    values are the same.  Keys at ``kpos <= pos`` (and, with a window,
     ``kpos > pos - window``) are visible; the rest get an additive fp32
     ``NEG_INF`` over the whole ``S_max``, as in the reference.
     """
@@ -227,12 +302,24 @@ def decode_attention(p: Params, x: torch.Tensor,
         q = apply_rope(q, pos_arr, cfg.rope_theta)
         k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
     k, v = layer_cache["k"], layer_cache["v"]
-    k[:, pos] = k_new[:, 0]
-    v[:, pos] = v_new[:, 0]
+    _write_row(k, k_new, pos)
+    _write_row(v, v_new, pos)
     bias = _decode_bias(k.shape[1], pos, window, x.device)
     out = _sdpa_grouped(q, k, v, bias, cfg)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(dt)
     return out, {"k": k, "v": v}
+
+
+def _write_row(buf: torch.Tensor, row: torch.Tensor, pos: int) -> None:
+    """``buf[:, pos] = row[:, 0]``, in place.  On a DTensor (a cache laid
+    out on a mesh, its sequence axis perhaps sharded) the write is the
+    reference's select over the whole sequence axis, which every shard
+    does on its own rows; a row write would gather the axis first."""
+    if isinstance(buf, DTensor):
+        at = (torch.arange(buf.shape[1], device=buf.device) == pos)
+        buf.copy_(torch.where(at[None, :, None, None], row, buf))
+    else:
+        buf[:, pos] = row[:, 0]
 
 
 def _decode_bias(s_max: int, pos: int, window: int,
@@ -259,7 +346,9 @@ def _sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     B, Sq, H, dh = q.shape
     K = k.shape[2]
-    qg = q.reshape(B, Sq, K, H // K, dh)
+    # under a mesh the cache's sequence carries the model axis: one token's
+    # q gathers its heads (DTensor cannot split sharded heads into groups)
+    qg = replicate_inner(q).reshape(B, Sq, K, H // K, dh)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / _scale(dh, q.dtype)
     scores = scores.float()
     if bias is not None:

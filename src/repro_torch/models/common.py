@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 
 # --- initializers -------------------------------------------------------------
@@ -66,6 +66,13 @@ def init_norm(cfg: ModelConfig, d: Optional[int] = None,
     p = {"scale": ones((d,), device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = zeros((d,), device=device)
+    return p
+
+
+def norm_specs(cfg: ModelConfig) -> Specs:
+    p = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        p["bias"] = ("embed",)
     return p
 
 
@@ -157,13 +164,39 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
 
 # --- losses ---------------------------------------------------------------------
 
-def softmax_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE; logits (..., V) any dtype -> fp32 loss."""
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's CE, in fp32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - gold).mean()
+    return lse - gold
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE; logits (..., V) any dtype -> fp32 loss.
+
+    On a DTensor each device sums its own rows' CE (the vocab gathered
+    first where it is sharded; the training rules shard batch and seq and
+    leave it whole) and the sum is a partial over the mesh: the gather
+    along the vocab and its backward stay local, where DTensor's own
+    ``gather`` backward would build the gradient replicated at its global
+    size.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        whole = [Replicate() if isinstance(p, Shard)
+                 and p.dim == logits.ndim - 1 else p
+                 for p in logits.placements]
+        logits = logits.redistribute(mesh, whole)
+        labels = labels.redistribute(mesh, logits.placements)
+        total = _token_ce(logits.to_local(), labels.to_local()).sum()
+        partial = [Partial() if isinstance(p, Shard) else p
+                   for p in logits.placements]
+        total = DTensor.from_local(total, mesh, partial, run_check=False)
+        return total / labels.numel()
+    return _token_ce(logits, labels).mean()
 
 
 # --- param counting ---------------------------------------------------------------

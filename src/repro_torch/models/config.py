@@ -14,6 +14,8 @@ from typing import Any, Tuple
 import torch
 
 Params = Any  # nested dict of tensors
+#: a tree of logical-axis tuples, one per param (``*_specs``)
+Specs = Any
 
 
 @dataclasses.dataclass(frozen=True)

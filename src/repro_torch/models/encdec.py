@@ -36,9 +36,9 @@ from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (apply_norm, clamped_row, embed_init,
-                                       init_norm, init_rng,
+                                       init_norm, init_rng, norm_specs,
                                        sinusoidal_positions)
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 
 def init_encdec(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -68,6 +68,28 @@ def init_encdec(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "dec_pos": embed_init(gen, cfg.max_seq_len, cfg.d_model, device=dev),
         "dec_blocks": [dec_block() for _ in range(cfg.n_layers)],
         "dec_norm": init_norm(cfg, device=dev),
+    }
+
+
+def encdec_specs(cfg: ModelConfig) -> Specs:
+    """Per-layer lists, as ``init_encdec`` builds them (the reference's
+    stacked ``"layers"`` axis stripped)."""
+    enc_blk = lambda: {"attn_norm": norm_specs(cfg),
+                       "attn": attn_mod.attention_specs(cfg),
+                       "ffn_norm": norm_specs(cfg),
+                       "ffn": ffn_mod.ffn_specs(cfg)}
+    dec_blk = lambda: {"self_norm": norm_specs(cfg),
+                       "self_attn": attn_mod.attention_specs(cfg),
+                       "cross_norm": norm_specs(cfg),
+                       "cross_attn": attn_mod.attention_specs(cfg),
+                       "ffn_norm": norm_specs(cfg),
+                       "ffn": ffn_mod.ffn_specs(cfg)}
+    return {
+        "enc_blocks": [enc_blk() for _ in range(cfg.encoder_layers)],
+        "enc_norm": norm_specs(cfg),
+        "dec_embed": ("vocab", "embed"), "dec_pos": (None, "embed"),
+        "dec_blocks": [dec_blk() for _ in range(cfg.n_layers)],
+        "dec_norm": norm_specs(cfg),
     }
 
 

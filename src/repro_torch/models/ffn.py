@@ -12,9 +12,10 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import sp_matmul
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import activation, dense_init, init_rng, zeros
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 
 def init_ffn(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -30,6 +31,18 @@ def init_ffn(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.ffn_bias:
         p["b_up"] = zeros((d_ff,), device=dev)
         p["b_down"] = zeros((cfg.d_model,), device=dev)
+    return p
+
+
+def ffn_specs(cfg: ModelConfig) -> Specs:
+    if cfg.ffn_activation == "swiglu":
+        p = {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+             "w_down": ("ffn", "embed")}
+    else:
+        p = {"w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+    if cfg.ffn_bias:
+        p["b_up"] = ("ffn",)
+        p["b_down"] = ("embed",)
     return p
 
 
@@ -58,7 +71,7 @@ def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _mm(a: torch.Tensor, b: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
         act: Optional[str] = None) -> torch.Tensor:
-    y = a @ b
+    y = sp_matmul(a, b)
     if bias is not None:
         y = y + bias.to(y.dtype)
     if act is not None:

@@ -31,8 +31,8 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.attention import (NEG_INF, _project_qkv, _sdpa,
                                           _sdpa_grouped)
 from repro_torch.models.common import (apply_norm, apply_rope, init_norm,
-                                       init_rng, ones)
-from repro_torch.models.config import ModelConfig, Params
+                                       init_rng, norm_specs, ones)
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 
 def init_hymba_block(cfg: ModelConfig,
@@ -51,6 +51,20 @@ def init_hymba_block(cfg: ModelConfig,
         "beta_mamba": ones((cfg.d_model,), device=dev),
         "ffn_norm": init_norm(cfg, device=dev),
         "ffn": ffn_mod.init_ffn(cfg, gen, dev),
+    }
+
+
+def hymba_block_specs(cfg: ModelConfig) -> Specs:
+    return {
+        "pre_norm": norm_specs(cfg),
+        "attn": attn_mod.attention_specs(cfg),
+        "mamba": mamba_mod.mamba_specs(cfg),
+        "attn_out_norm": norm_specs(cfg),
+        "mamba_out_norm": norm_specs(cfg),
+        "beta_attn": ("embed",),
+        "beta_mamba": ("embed",),
+        "ffn_norm": norm_specs(cfg),
+        "ffn": ffn_mod.ffn_specs(cfg),
     }
 
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike
 from repro_torch.models.common import dense_init, init_rng, ones, zeros
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 from repro_torch.models.ssd import (State, chunked_linear_recurrence,
                                     decode_linear_step, init_linear_state)
 
@@ -40,6 +40,15 @@ def init_mamba(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "A_log": zeros((H,), device=dev),      # a = exp(-dt * exp(A_log))
         "D_skip": ones((H, dh), device=dev),
         "w_out": dense_init(gen, H * dh, D, device=dev),
+    }
+
+
+def mamba_specs(cfg: ModelConfig) -> Specs:
+    return {
+        "w_v": ("embed", "q_proj"), "w_B": ("embed", "kv_proj"),
+        "w_C": ("embed", "kv_proj"), "w_dt": ("embed", None),
+        "b_dt": (None,), "A_log": (None,), "D_skip": ("heads", None),
+        "w_out": ("q_proj", "embed"),
     }
 
 

@@ -20,6 +20,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig, Params
 
@@ -69,7 +70,7 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     it in fp32.
     """
     dt = cfg.compute_dtype
-    h = x.to(dt)
+    h = shard_hint(x.to(dt), ("batch", None))
     if cfg.use_kernel_matmul:
         for lyr in params["layers"]:
             h = kops.matmul(h, lyr["w"].to(dt), bias=lyr["b"].to(dt),

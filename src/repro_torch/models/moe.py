@@ -22,8 +22,8 @@ reference's primitives differ from torch's, kept the reference's way:
     gates, rounded to the compute dtype first, as the reference's
     ``einsum("gtec,gtk->gtec")`` computes it.
 
-``moe_specs`` has no reader before the port's mesh (ROADMAP Queue 1,
-item 12).
+``moe_specs`` gives the logical axes of ``init_moe``'s tree (the dry-run
+of this family waits for ROADMAP Queue 1 item 12 step 7).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from repro_torch.device import DeviceLike
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import dense_init, init_rng
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 
 def _padded_e(cfg: ModelConfig) -> int:
@@ -64,6 +64,21 @@ def init_moe(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.n_shared_experts:
         p["shared"] = ffn_mod.init_ffn(
             cfg, gen, dev, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+def moe_specs(cfg: ModelConfig) -> Specs:
+    # "experts" is EP (mesh model axis) when the count divides it; otherwise
+    # the launcher maps "expert_ffn" to the model axis instead (per-expert
+    # hidden TP: 60-expert qwen2-moe against a 16-wide axis).
+    p = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "expert_ffn"),
+        "w_up": ("experts", "embed", "expert_ffn"),
+        "w_down": ("experts", "expert_ffn", "embed"),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_mod.ffn_specs(cfg)
     return p
 
 

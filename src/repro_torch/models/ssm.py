@@ -27,7 +27,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import _scale
 from repro_torch.models.common import (activation, dense_init, init_rng, ones,
                                        zeros)
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 from repro_torch.models.ssd import (State, chunked_linear_recurrence,
                                     decode_linear_step, init_linear_state)
 
@@ -59,6 +59,15 @@ def init_mlstm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "b_if": zeros((2 * H,), device=dev),
         "skip_scale": ones((d_inner,), device=dev),
         "w_down": dense_init(gen, d_inner, cfg.d_model, device=dev),
+    }
+
+
+def mlstm_specs(cfg: ModelConfig) -> Specs:
+    return {
+        "w_up": ("embed", "ffn"), "w_gate": ("embed", "ffn"),
+        "wq": ("ffn", "ffn"), "wk": ("ffn", "ffn"), "wv": ("ffn", "ffn"),
+        "w_if": ("ffn", None), "b_if": (None,),
+        "skip_scale": ("ffn",), "w_down": ("ffn", "embed"),
     }
 
 
@@ -130,6 +139,11 @@ def init_slstm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "w_ffn_up": dense_init(gen, D, (4 * D) // 3 * 2, device=dev),
         "w_ffn_down": dense_init(gen, (4 * D) // 3, D, device=dev),
     }
+
+
+def slstm_specs(cfg: ModelConfig) -> Specs:
+    return {"w_x": ("embed", None), "r_diag": (None, "embed"), "b": (None,),
+            "w_ffn_up": ("embed", "ffn"), "w_ffn_down": ("ffn", "embed")}
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int,

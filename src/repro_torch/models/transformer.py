@@ -45,14 +45,17 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import (shard_hint, sp_embedding,
+                                              sp_matmul)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, clamped_row, dense_init,
-                                       embed_init, init_norm, init_rng)
-from repro_torch.models.config import ModelConfig, Params
+                                       embed_init, init_norm, init_rng,
+                                       norm_specs)
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 #: the families this module runs (``vlm`` on the dense path)
 _PORTED = ("dense", "moe", "hybrid", "ssm", "vlm")
@@ -84,6 +87,21 @@ def init_block(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return p
 
 
+def block_specs(cfg: ModelConfig) -> Specs:
+    if cfg.family == "hybrid":
+        return hybrid_mod.hymba_block_specs(cfg)
+    p = {
+        "attn_norm": norm_specs(cfg),
+        "attn": attn_mod.attention_specs(cfg),
+        "ffn_norm": norm_specs(cfg),
+    }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        p["ffn"] = ffn_mod.ffn_specs(cfg)
+    return p
+
+
 def init_xlstm_block(cfg: ModelConfig, layer: int,
                      generator: Optional[torch.Generator] = None,
                      device: DeviceLike = None) -> Params:
@@ -95,6 +113,12 @@ def init_xlstm_block(cfg: ModelConfig, layer: int,
                 "slstm": ssm_mod.init_slstm(cfg, gen, dev)}
     return {"norm": init_norm(cfg, device=dev),
             "mlstm": ssm_mod.init_mlstm(cfg, gen, dev)}
+
+
+def xlstm_block_specs(cfg: ModelConfig, layer: int) -> Specs:
+    if layer in cfg.slstm_layers:
+        return {"norm": norm_specs(cfg), "slstm": ssm_mod.slstm_specs(cfg)}
+    return {"norm": norm_specs(cfg), "mlstm": ssm_mod.mlstm_specs(cfg)}
 
 
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -121,12 +145,29 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return p
 
 
+def lm_specs(cfg: ModelConfig) -> Specs:
+    """The specs of ``init_lm``'s tree: ``blocks`` a list of per-layer
+    specs, so the reference's leading ``"layers"`` axis (always None) is
+    not in them."""
+    p: Dict[str, Any] = {"embed": ("vocab", "embed")}
+    if cfg.family == "ssm":
+        p["blocks"] = [xlstm_block_specs(cfg, i) for i in range(cfg.n_layers)]
+    else:
+        p["blocks"] = [block_specs(cfg) for _ in range(cfg.n_layers)]
+    p["final_norm"] = norm_specs(cfg)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ("embed", "vocab")
+    if cfg.pos_emb == "learned":
+        p["pos_embed"] = (None, "embed")
+    return p
+
+
 def _embed(params: Params, tokens: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """Rows of the table cast to the compute dtype (the same values as the
     reference's cast of the whole table, then gather)."""
     dt = cfg.compute_dtype
-    x = F.embedding(tokens, params["embed"]).to(dt)
+    x = sp_embedding(tokens, params["embed"]).to(dt)
     if cfg.pos_emb == "learned":
         S = tokens.shape[1]
         x = x + params["pos_embed"][:S].to(dt)
@@ -146,11 +187,19 @@ def _apply_dense_block(blk: Params, x: torch.Tensor, cfg: ModelConfig
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One pre-norm block -> (x, the block's aux or None)."""
     h = apply_norm(blk["attn_norm"], x, cfg)
-    x = x + attn_mod.apply_attention(blk["attn"], h, cfg,
-                                     window=cfg.sliding_window)
+    a = attn_mod.apply_attention(blk["attn"], h, cfg,
+                                 window=cfg.sliding_window)
+    if cfg.sp_outputs:
+        # Megatron-SP: the row-parallel sublayer output (a partial sum over
+        # the model axis) goes seq-sharded before the residual add, so the
+        # sync is a reduce-scatter, not an all-reduce
+        a = shard_hint(a, ("batch", "seq", "embed"))
+    x = shard_hint(x + a, ("batch", "seq", "embed"))
     h = apply_norm(blk["ffn_norm"], x, cfg)
     out, aux = _apply_ffn_or_moe(blk, h, cfg)
-    return x + out, aux
+    if cfg.sp_outputs:
+        out = shard_hint(out, ("batch", "seq", "embed"))
+    return shard_hint(x + out, ("batch", "seq", "embed")), aux
 
 
 def _apply_xlstm_block(blk: Params, x: torch.Tensor, cfg: ModelConfig
@@ -197,7 +246,7 @@ def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The final norm, then the logits ``x @ head`` in the compute dtype."""
     x = apply_norm(params["final_norm"], x, cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(cfg.compute_dtype)
+    return sp_matmul(x, head.to(cfg.compute_dtype))
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
@@ -205,7 +254,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
     """tokens (B, S) int -> (logits (B, S, V) in compute dtype, aux fp32:
     the MoE layers' load-balance losses summed, 0 for the other families)."""
     _require_ported(cfg)
-    x = _embed(params, tokens, cfg)
+    x = shard_hint(_embed(params, tokens, cfg), ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         blocks = [_hybrid_block(w)
@@ -216,9 +265,11 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
         blocks = [fn] * len(params["blocks"])
     for blk, fn in zip(params["blocks"], blocks, strict=True):
         x, a = _maybe_remat(fn, cfg)(blk, x, cfg)
+        if cfg.family == "ssm":
+            x = shard_hint(x, ("batch", "seq", "embed"))
         if a is not None:
             aux = aux + a
-    return _head(params, x, cfg), aux
+    return shard_hint(_head(params, x, cfg), ("batch", "seq", "vocab")), aux
 
 
 # --- decode ------------------------------------------------------------------
@@ -252,7 +303,7 @@ def _embed_decode(params: Params, tokens: torch.Tensor, pos: int,
     at ``pos`` (the last row for a ``pos`` past the table, as the
     reference's ``dynamic_slice_in_dim`` clamps it)."""
     dt = cfg.compute_dtype
-    x = F.embedding(tokens, params["embed"]).to(dt)
+    x = sp_embedding(tokens, params["embed"]).to(dt)
     if cfg.pos_emb == "learned":
         x = x + clamped_row(params["pos_embed"], pos).to(dt)
     return x
@@ -279,7 +330,8 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     """
     _require_ported(cfg)
     pos = int(pos)
-    x = _embed_decode(params, tokens, pos, cfg)
+    x = shard_hint(_embed_decode(params, tokens, pos, cfg),
+                   ("batch", None, "embed"))
     if cfg.family == "ssm":
         for i, blk in enumerate(params["blocks"]):
             h = apply_norm(blk["norm"], x, cfg)

@@ -24,7 +24,7 @@ import torch
 from repro_torch.device import DeviceLike
 from repro_torch.models import transformer as lm
 from repro_torch.models.common import activation, dense_init, init_rng, zeros
-from repro_torch.models.config import ModelConfig, Params
+from repro_torch.models.config import ModelConfig, Params, Specs
 
 
 def init_vlm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -40,6 +40,14 @@ def init_vlm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             "w2": dense_init(gen, cfg.d_model, cfg.d_model, device=dev),
             "b2": zeros((cfg.d_model,), device=dev),
         },
+    }
+
+
+def vlm_specs(cfg: ModelConfig) -> Specs:
+    return {
+        "lm": lm.lm_specs(cfg),
+        "connector": {"w1": (None, "embed"), "b1": ("embed",),
+                      "w2": ("embed", "embed"), "b2": ("embed",)},
     }
 
 

@@ -11,14 +11,13 @@ Layers, mirroring the model↔measurement discipline everywhere else:
 * :mod:`repro_torch.resilience.harness` — replays a fault plan through the
   resilient training runner and measures the goodput actually delivered,
   to be compared against the analytic prediction.
-
-The reference's fourth layer, ``resilience.degraded`` (re-plan on the
-surviving chips, restore onto the new mesh), comes with the port's mesh
-(ROADMAP Queue 1 item 12).
+* :mod:`repro_torch.resilience.degraded` — re-plan on the surviving chips
+  (``launch.plan_grid``), restore the checkpoint onto the new mesh
+  (``checkpoint.elastic``), remap the data schedule.
 
 Importing the package pulls only the numpy-backed layers (analytic
-kernels + fault plans); the torch-backed harness stays behind its own
-module import.
+kernels + fault plans); the torch-backed harness and degraded restart stay
+behind their own module imports.
 """
 from repro_torch.resilience.failures import (  # noqa: F401
     FailureModel,

@@ -63,6 +63,21 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int,
                              device=params["embed"].device)
 
 
+def _laid_out(cache: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The cache laid out on the bound mesh by its logical specs (the
+    decode rules), when the mesh spans more than one device; as it is
+    otherwise (no binding, or one device, where tensors stay local)."""
+    from repro_torch.distributed.sharding import (bound_mesh, place_tree,
+                                                  specs_to_shardings)
+    from repro_torch.launch.mesh import mesh_size
+    from repro_torch.launch.specs import cache_logical_specs
+    mesh = bound_mesh()
+    if mesh is None or mesh_size(mesh) == 1:
+        return cache
+    return place_tree(cache, specs_to_shardings(
+        cache_logical_specs(cfg, cache), mesh))
+
+
 def greedy_generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
                     steps: int, max_len: int,
                     frames: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -79,7 +94,8 @@ def greedy_generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
     B, S = prompt.shape
     serve_step = build_serve_step(cfg)
     with torch.no_grad():
-        cache = init_cache(params, cfg, B, max_len, frames=frames)
+        cache = _laid_out(init_cache(params, cfg, B, max_len, frames=frames),
+                          cfg)
     sync = _synchronizer(prompt.device)
     tok = prompt[:, :1]
     out = [tok]

@@ -19,6 +19,13 @@ the reported loss is averaged the same way.  With one process the step is
 unchanged.  The params are a dict of tensors, not a ``Module``, so the sync
 is plain ``dist.all_reduce``, not ``DistributedDataParallel``.
 
+Under a mesh (the state laid out as DTensors by ``distributed.sharding``,
+the batch sharded on its ``"batch"`` axes) the sync is DTensor's, as the
+reference's is GSPMD's: each grad leaves autograd as a partial sum and is
+reduced once into its optimizer state's layout (an all-reduce, or a
+reduce-scatter where ZeRO shards the moments), and each updated param is
+gathered back to its own layout.
+
 Gradient compression (``TrainStepConfig.compression``, e.g.
 ``optim.compression.StatelessRoundTrip``) round-trips the grads after the
 microbatch mean and, with a world above 1, after the all-reduce: the
@@ -152,6 +159,27 @@ def unstack_blocks(stacked: Any, like: Any) -> Any:
             for k, v in like.items()}
 
 
+def _on_mesh(params: Any) -> bool:
+    """Whether the params are DTensors (laid out on a mesh of more than
+    one device; on one device they stay local tensors)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(tree_leaves(params)[0], DTensor)
+
+
+def _to_layout(x, like):
+    """DTensor ``x`` redistributed to ``like``'s placements."""
+    if tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def _state_layout(state: "TrainState", params: Any) -> Any:
+    """The tree whose layout the grads take: the optimizer's first moment
+    (AdamW's ``mu``, SGD's ``momentum``), else the params."""
+    opt = state.opt_state
+    return getattr(opt, "mu", getattr(opt, "momentum", params))
+
+
 def build_train_step(cfg: ModelConfig, optimizer,
                      ts_cfg: TrainStepConfig = TrainStepConfig()):
     loss_fn = make_loss_fn(cfg)
@@ -189,8 +217,14 @@ def build_train_step(cfg: ModelConfig, optimizer,
         else:
             loss, _, grads = grads_of(params, batch)
 
-        world = _world()
-        if world > 1:
+        if _on_mesh(params):
+            # autograd leaves each grad a partial sum over the batch's mesh
+            # axes: reduce it once into its optimizer state's layout (an
+            # all-reduce; a reduce-scatter where the state is DP-sharded)
+            grads = tree_map(_to_layout, grads, _state_layout(state, params))
+            loss = loss.full_tensor()
+        elif _world() > 1:
+            world = _world()
             for x in tree_leaves(grads) + [loss]:
                 dist.all_reduce(x, op=dist.ReduceOp.SUM)
                 x.div_(world)
@@ -200,7 +234,9 @@ def build_train_step(cfg: ModelConfig, optimizer,
         metrics = {"ce": loss, "aux": torch.zeros((), device=loss.device)}
 
         updates, opt_state = optimizer.update(grads, state.opt_state, params)
-        params = apply_updates(params, updates)
+        new_params = apply_updates(params, updates)
+        params = (tree_map(_to_layout, new_params, params)
+                  if _on_mesh(params) else new_params)
         metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads),
                        step=state.step)
         new_state = TrainState(params=params, opt_state=opt_state,
@@ -228,13 +264,13 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def model_param_specs(cfg: ModelConfig):
-    """The mlp family's specs; the other trained families' (``lm_specs``,
-    ``encdec_specs``, ``vlm_specs``) have no reader before the port's mesh
-    and come with it."""
+    """The logical specs of the params ``init_train_state`` builds, for
+    every family (the dry-run lowers the ones that do not train here too):
+    per-layer lists, as the port's params are."""
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_specs(cfg)
+    if cfg.family == "vlm":
+        return vlm_mod.vlm_specs(cfg)
     if cfg.family == "mlp":
         return mlp_mod.mlp_specs(cfg)
-    if cfg.family in _TRAINS:
-        raise NotImplementedError(
-            f"param specs for the {cfg.family} family ({cfg.name}) are not "
-            f"ported yet: ROADMAP Queue 1 item 12 (mesh and sharding)")
-    _require_ported(cfg, "param specs")
+    return lm_mod.lm_specs(cfg)

@@ -84,10 +84,19 @@ class TestRoundtrip:
             ck.restore(_tree())
 
     def test_shardings_wait_for_the_mesh(self, tmp_path):
+        """Restoring onto a mesh is ported: a None sharding keeps the leaf,
+        and a mesh of one device keeps every leaf local."""
+        from repro_torch.distributed.sharding import NamedSharding
+        from repro_torch.launch.mesh import make_abstract_mesh
         ck = Checkpointer(str(tmp_path))
         ck.save(1, _tree())
-        with pytest.raises(NotImplementedError, match="item 12"):
-            ck.restore(_tree(), shardings={"a": None})
+        got, step = ck.restore(_tree(), shardings={"a": None})
+        assert step == 1 and torch.equal(got["a"], _tree()["a"])
+        one = NamedSharding(make_abstract_mesh((1, 1), ("data", "model")),
+                            ("data",))
+        got, _ = ck.restore(_tree(), shardings={"a": one})
+        assert type(got["a"]) is torch.Tensor
+        assert torch.equal(got["a"], _tree()["a"])
 
     def test_wrong_structure_raises(self, tmp_path):
         ck = Checkpointer(str(tmp_path))

@@ -1,0 +1,216 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) and its per-device
+counter (``measure.counters.MeshCounter``) on the CPU.
+
+A cell lowers by running the real step once on fake DTensors over the
+``"fake"`` process group: the rules, the mesh names and the config
+preparation are held to the reference's (``repro.launch.dryrun``, imported
+with ``XLA_FLAGS`` put back as it was), the data-parallel wire bytes to the
+ring all-reduce of the fp32 params and to the planner's dp term, the
+counts to the plain step's, and the k = 2, 4 fit to the full depth.  Cells
+run at reduced widths (``overrides``), so each takes a second or two.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro import configs as jax_configs
+from repro.configs import shapes as jax_shapes
+from repro_torch import configs
+from repro_torch.configs import shapes
+from repro_torch.core import H100_SXM, CellReport
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.plan import plan
+from repro_torch.measure import counters
+from repro_torch.optim.optimizer import AdamW
+from repro_torch.train import loop
+
+_XLA_FLAGS = os.environ.get("XLA_FLAGS")
+from repro.core import hlo_analysis  # noqa: E402
+from repro.launch import dryrun as jax_dryrun  # noqa: E402  (sets XLA_FLAGS)
+from repro.launch.mesh import make_abstract_mesh as jax_abstract_mesh  # noqa: E402
+if _XLA_FLAGS is None:
+    os.environ.pop("XLA_FLAGS", None)
+else:
+    os.environ["XLA_FLAGS"] = _XLA_FLAGS
+
+ARCHS = configs.list_archs()
+MESHES = ["16x16", "2x16x16", "64x4", "1x1"]
+#: dlrm-mlp at its reduced widths, as ``configs.get_reduced`` gives them
+SMALL_MLP = dict(mlp_widths=(64,) * 3, n_layers=3, d_model=64)
+#: smollm-135m at its reduced widths: 3 heads, which no even axis divides
+SMALL_LM = dict(n_layers=3, d_model=48, n_heads=3, n_kv_heads=3, d_ff=128,
+                vocab_size=512)
+
+
+def _mesh_pair(name):
+    shape, axes = dryrun._mesh_from_name(name)
+    return (mesh_mod.make_abstract_mesh(shape, axes),
+            jax_abstract_mesh(shape, axes))
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_rules_and_config_equal_the_reference(arch, mesh):
+    pm, jm = _mesh_pair(mesh)
+    assert dryrun._mesh_from_name(mesh) == (tuple(jm.axis_sizes),
+                                           tuple(jm.axis_names))
+    for name, shape in shapes.SHAPES.items():
+        jshape = jax_shapes.SHAPES[name]
+        cfg = dryrun._prepare_cfg(configs.get_config(arch), shape)
+        jcfg = jax_dryrun._prepare_cfg(jax_configs.get_config(arch), jshape)
+        assert (cfg.remat, cfg.max_seq_len) == (jcfg.remat, jcfg.max_seq_len)
+        assert dryrun._rules_for(cfg, pm, shape) == \
+            jax_dryrun._rules_for(jcfg, jm, jshape), name
+    assert dryrun.FSDP_THRESHOLD == jax_dryrun.FSDP_THRESHOLD
+    assert dryrun.POD_SIZE == jax_dryrun.POD_SIZE
+
+
+def test_a_two_pod_mesh_lowers_as_pod_by_data_rows():
+    assert dryrun._lowering_mesh((2, 16, 16), ("pod", "data", "model")) == \
+        ((32, 16), ("data", "model"))
+    assert dryrun._lowering_mesh((64, 4), ("data", "model")) == \
+        ((64, 4), ("data", "model"))
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_data_parallel_wire_bytes_are_the_ring_all_reduce_of_the_params(n):
+    """ZeRO-1 reduce-scatters each grad into its moments and gathers the
+    params back: 2 (n - 1) / n of the fp32 param bytes, the planner's dp
+    term (within 1%: the loss and the grad norm add a few scalars)."""
+    rep, low = dryrun.lower_cell("dlrm-mlp", "train_4k", f"{n}x1",
+                                 overrides=SMALL_MLP)
+    cfg = configs.get_config("dlrm-mlp").replace(**SMALL_MLP)
+    param_bytes = 4 * specs.param_counts(cfg)[0]
+    want = 2 * (n - 1) / n * param_bytes
+    assert low.wire_bytes == pytest.approx(want, rel=1e-2)
+    dp = [p for p in plan(cfg, H100_SXM, n, batch=256, algorithms=("ring",))
+          if (p.dp, p.tp) == (n, 1)]
+    assert dp and low.wire_bytes == pytest.approx(dp[0].net_bytes, rel=1e-2)
+    assert set(low.wire_bytes_by_kind) <= {"reduce-scatter", "all-gather",
+                                          "all-reduce"}
+    assert rep.num_devices == n and rep.hardware == H100_SXM.name
+    assert not dist.is_initialized()
+
+
+def test_one_device_counts_are_the_plain_steps():
+    """At 1x1 the lowering counts the step the CPU runs on real tensors."""
+    cfg = configs.get_config("dlrm-mlp").replace(**SMALL_MLP)
+    _, low = dryrun.lower_cell("dlrm-mlp", "train_4k", "1x1",
+                               overrides=SMALL_MLP)
+    opt = AdamW(learning_rate=1e-3)
+    state = loop.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                  device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"features": torch.from_numpy(
+        rng.standard_normal((256, 64), np.float32)),
+        "click": torch.from_numpy((rng.random(256) < .5).astype(np.float32))}
+    flops, _ = counters.count(loop.build_train_step(cfg, opt), state, batch)
+    assert low.flops == flops
+    assert low.wire_bytes == 0.0
+    assert low.peak_memory_per_device > 4 * 4 * specs.param_counts(cfg)[0]
+
+
+def test_per_device_flops_are_what_the_layout_leaves_each_device():
+    """3 heads on a 2-wide model axis: the attention runs sequence-parallel
+    (each device's query rows against every key) and the projections on
+    each device's own rows, so a device does 1/N of the work and nothing
+    is replicated; the mlp family's weights are replicated over the model
+    axis, so each of its 2 columns does the same work (2/N)."""
+    _, one = dryrun.lower_cell("smollm-135m", "train_4k", "1x1",
+                               overrides=SMALL_LM, probe=False)
+    _, four = dryrun.lower_cell("smollm-135m", "train_4k", "2x2",
+                                overrides=SMALL_LM, probe=False)
+    assert 4 * four.flops == one.flops
+    assert four.wire_bytes > 0 and one.wire_bytes == 0
+    _, one = dryrun.lower_cell("dlrm-mlp", "train_4k", "1x1",
+                               overrides=SMALL_MLP)
+    _, four = dryrun.lower_cell("dlrm-mlp", "train_4k", "2x2",
+                                overrides=SMALL_MLP)
+    assert 4 * four.flops == 2 * one.flops
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_the_layer_fit_equals_the_full_depth(shape):
+    """cost(L) = a + b L read at L = 3 from k = 2 and 4 is the count at 3."""
+    over = dict(SMALL_LM, n_layers=3)
+    _, fit = dryrun.lower_cell("smollm-135m", shape, "2x2", overrides=over)
+    _, full = dryrun.lower_cell("smollm-135m", shape, "2x2", overrides=over,
+                                probe=False)
+    for got, want in ((fit.flops, full.flops), (fit.mem_bytes, full.mem_bytes),
+                      (fit.wire_bytes, full.wire_bytes),
+                      (fit.peak_memory_per_device,
+                       full.peak_memory_per_device)):
+        assert got == pytest.approx(want, rel=1e-9)
+    for kind, b in full.wire_bytes_by_kind.items():
+        assert fit.wire_bytes_by_kind[kind] == pytest.approx(b, rel=1e-9)
+
+
+def test_cross_pod_bytes_come_from_the_groups_ranks():
+    _, low = dryrun.lower_cell("dlrm-mlp", "train_4k", "2x16x16",
+                               overrides=SMALL_MLP)
+    # every dp group of 32 spans both pods: 2 of its 32 ring hops cross
+    assert low.cross_pod_wire_bytes == pytest.approx(low.wire_bytes / 16,
+                                                     rel=1e-2)
+    groups = np.arange(512).reshape(2, 16, 16).transpose(2, 0, 1).reshape(
+        16, 32)
+    for pod in (256, 128, 64):
+        assert counters.cross_pod_fraction(groups[0], pod) == \
+            hlo_analysis._cross_pod_fraction(groups, pod)
+    for kind, f in counters.COLLECTIVE_FACTORS.items():
+        for n in (1, 2, 16, 32):
+            assert f(n) == hlo_analysis._COLLECTIVE_KINDS[kind](n)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "hymba-1.5b",
+                                  "xlstm-125m", "whisper-tiny",
+                                  "internvl2-26b"])
+def test_families_not_lowered_name_their_roadmap_item(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+        dryrun.lower_cell(arch, "decode_32k", "16x16")
+    assert not dist.is_initialized()
+
+
+def test_cli_writes_a_report_and_counts_failures(tmp_path, capsys):
+    out = str(tmp_path)
+    assert dryrun.main(["--arch", "dlrm-mlp", "--shape", "train_4k",
+                        "--mesh", "4x1", "--set", "mlp_widths=64",
+                        "--out", out]) != 0          # a bad override fails
+    assert dryrun.main(["--arch", "dlrm-mlp", "--shape", "decode_32k",
+                        "--mesh", "4x1", "--out", out]) == 0
+    text = capsys.readouterr().out
+    assert "[OK" in text and "all 1 cells OK" in text
+    path = tmp_path / "dlrm-mlp__decode_32k__4x1__baseline.json"
+    rep = CellReport.from_json(path.read_text())
+    assert rep.step_kind == "serve_step" and rep.num_devices == 4
+    assert rep.bottleneck and rep.peak_memory_per_device > 0
+    assert dryrun.main(["--arch", "hymba-1.5b", "--shape", "decode_32k",
+                        "--mesh", "4x1", "--out", out]) == 1
+    assert "item 12" in capsys.readouterr().out
+
+
+def test_mesh_counter_counts_one_device_of_a_dtensor_product():
+    """FlopCounterMode counts the global product; MeshCounter the shard's."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed import sharding as sh
+    with mesh_mod.fake_mesh((4,), ("data",)) as mesh:
+        x = sh.place(torch.randn(16, 8), sh.NamedSharding(mesh, ("data",)))
+        w = sh.place(torch.randn(8, 32), sh.NamedSharding(mesh, ()))
+        assert x.placements == (Shard(0),) and w.placements == (Replicate(),)
+        with FlopCounterMode(display=False) as global_count:
+            x @ w
+        counter = counters.MeshCounter()
+        with counter:
+            y = (x @ w).redistribute(mesh, (Replicate(),))
+    assert global_count.get_total_flops() == 2 * 16 * 8 * 32
+    assert counter.flops == 2 * 4 * 8 * 32
+    ops = counter.summary.ops
+    assert [o.kind for o in ops] == ["all-gather"]
+    assert ops[0].group_size == 4
+    assert ops[0].bytes_result == 16 * 32 * 4
+    assert ops[0].wire_bytes == 3 / 4 * 16 * 32 * 4
+    assert y.shape == (16, 32)

@@ -64,7 +64,10 @@ def test_import_every_module_pulls_in_no_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.configs.shapes",
             "repro_torch.launch.specs", "repro_torch.launch.memory",
             "repro_torch.launch.plan_grid", "repro_torch.launch.plan",
-            "repro_torch.obs.explain"} <= set(probe["names"])
+            "repro_torch.obs.explain", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.distributed.sharding",
+            "repro_torch.checkpoint.elastic",
+            "repro_torch.resilience.degraded"} <= set(probe["names"])
     assert probe["bad"] == [], f"port imported {probe['bad']}"
 
 

@@ -21,6 +21,7 @@ from repro.serve import engine as jax_engine
 from repro_torch.configs import get_reduced
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models import transformer
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.serve import engine
@@ -129,10 +130,76 @@ def test_cli_generates_on_the_cpu(capsys):
 
 
 def test_cli_refuses_a_mesh_and_needs_a_card_by_default(capsys):
+    """A mesh larger than the world exits 2 and never shrinks (one process
+    is a world of one; on the card more needs several cards, item 4)."""
     assert serve_cli.main(["--arch", "smollm-135m", "--reduced", "--device",
-                           "cpu", "--mesh", "2x1"]) != 0
-    assert "item 12" in capsys.readouterr().err
+                           "cpu", "--mesh", "2x1"]) == 2
+    err = capsys.readouterr().err
+    assert "needs 2 ranks" in err and "item 4" in err
+    assert not torch.distributed.is_initialized()
     if torch.cuda.is_available():
         return                            # None resolves to the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--arch", "smollm-135m", "--reduced"])
+
+
+# ---- --mesh ------------------------------------------------------------------
+
+
+def _first_sequence(text):
+    line = [ln for ln in text.splitlines()
+            if ln.startswith("first sequence: ")][0]
+    return json.loads(line.removeprefix("first sequence: "))
+
+
+def test_cli_mesh_1x1_serves_the_tokens_of_no_mesh(capsys):
+    """``--mesh 1x1 --device cpu``: a world of one (started and taken down
+    by the CLI), the params placed through the specs (local tensors on one
+    device): the tokens of ``greedy_generate`` with no mesh at all."""
+    args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "3", "--new-tokens", "4",
+            "--seed", "5", "--mesh", "1x1"]
+    assert serve_cli.main(args) == 0
+    assert not torch.distributed.is_initialized()
+    got = _first_sequence(capsys.readouterr().out)
+    cfg = get_reduced("smollm-135m").replace(compute_dtype=torch.float32)
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(5),
+                                 device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 3),
+                           generator=torch.Generator().manual_seed(6))
+    want = engine.greedy_generate(params, cfg, prompt, steps=4, max_len=7)
+    assert got == want[0].tolist()
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_cli_serves_the_same_tokens_on_two_gloo_ranks(mesh, capsys,
+                                                       tmp_path):
+    """Two ranks under torchrun: on 1x2 the params are DTensors sharded
+    over the model axis, on 2x1 the batch over the data axis; each rank
+    prints the tokens of one process (each rank's stdout to a file of its
+    own, so the two cannot interleave)."""
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "3", "--new-tokens", "4",
+            "--seed", "5"]
+    assert serve_cli.main(args) == 0
+    want = _first_sequence(capsys.readouterr().out)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "2", "--master_addr", "127.0.0.1", "--master_port", port,
+         "--log-dir", str(tmp_path), "--redirects", "1", "-m",
+         "repro_torch.launch.serve", *args, "--mesh", mesh], env=env,
+        capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    logs = sorted(tmp_path.rglob("stdout.log"))
+    assert len(logs) == 2
+    assert [_first_sequence(p.read_text()) for p in logs] == [want, want]

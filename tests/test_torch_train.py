@@ -119,10 +119,13 @@ def test_step_leaves_its_input_state_alone():
 def test_other_families_and_compression_raise_naming_their_item():
     with pytest.raises(NotImplementedError, match="item 9"):
         loop.build_train_step(get_config("hymba-1.5b"), opt.AdamW())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        loop.model_param_specs(get_config("smollm-135m"))
     with pytest.raises(NotImplementedError, match="item 8"):
-        loop.model_param_specs(get_config("qwen2-moe-a2.7b"))
+        loop.build_train_step(get_config("qwen2-moe-a2.7b"), opt.AdamW())
+    # the specs of every family are ported (item 12): the dry-run reads them
+    from repro_torch.models import transformer
+    for arch in ("smollm-135m", "qwen2-moe-a2.7b", "hymba-1.5b"):
+        assert loop.model_param_specs(get_config(arch)) == \
+            transformer.lm_specs(get_config(arch))
     # compression (item 11) is ported: the step builds and trains with it
     from repro_torch.optim.compression import (Int8Compressor,
                                                StatelessRoundTrip)
