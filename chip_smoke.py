@@ -155,6 +155,22 @@ after:
               logits bit for bit, tokens and both kernels' launches those of
               the same calls with no mesh (these launches join lm_prefill's
               and lm_decode's rows); ``--mesh 2x1`` exits 2;
+  train_families
+              the moe, hybrid and ssm families trained at full width, bf16
+              compute, random weights from seeds, the state donated:
+              hymba-1.5b at full depth (4, 2048) with remat "full", and
+              qwen2-moe-a2.7b at 5 of its 24 layers (4, 512), the loss
+              falling over 4 AdamW steps; xlstm-125m at full depth (8, 512)
+              through the launcher (its state donated too) with checkpoints,
+              a bitwise restore and a resume from step 2 whose final state
+              is the uninterrupted run's bit for bit and whose CE is held
+              to it (``RESUME_TOL``); each step timed, counted against
+              6·N·tokens (``FAMILY_FLOPS``) and (but the xLSTM's, whose
+              sLSTM launches would take the profiler a minute) profiled; at
+              1-2 layers and the long sequences (hymba's window crossed and
+              eight SSD chunks, two mLSTM chunks), one fp32 step on the card
+              against the CPU (``CHECK_TOL``) and bf16 against fp32 grads
+              per leaf (``GRAD_TOL``).  No kernel of the port launches;
   mesh_train  smollm-135m trained at (8, 512) through ``launch.train --mesh
               1x1`` with checkpoints, then ``resilience.degraded
               .degraded_restart`` on one surviving card: the plan dp1 x tp1,
@@ -168,7 +184,9 @@ after:
               fake peak within ``PEAK_TOL`` of the allocator's), dlrm-mlp
               16x16's wire bytes to the ring all-reduce of its fp32 params
               and the planner's dp-16 term within 1%, and a report with its
-              bottleneck and memory per device for each cell.
+              bottleneck and memory per device for each cell (a train cell
+              of the moe, hybrid and ssm families, a prefill cell of the
+              enc-dec and VLM ones among them).
 
 Every blocked-matmul and flash-attention launch of the MoE, hybrid,
 enc-dec and VLM paths and the three after them must take the sm90 variant
@@ -206,6 +224,8 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -404,6 +424,49 @@ REPLAY_SEED, REPLAY_STEPS, REPLAY_EVERY = 6, 200, 10
 REPLAY_COUNTERS = {"executed_steps": 233, "saves": 22, "restarts": 4,
                    "quarantined": 1}
 REPLAY_GOODPUT = 0.7181328
+#: train_families: (arch, layers (0: every one), (B, S), remat, AdamW rate)
+#: at full width, bf16 compute, the state donated
+#: (``TrainStepConfig(donate=True)``).  hymba at S = 2048 crosses its
+#: 1024 window and runs eight SSD chunks of 256; remat "full" holds one
+#: block's plain fp32 scores at a time (28.7 GB at B = 4; without remat the
+#: fake count gives 89 GB at B = 2).  qwen2-moe at 5 of 24 layers: 3.48 B
+#: fp32 params, a fake peak of 63.1 GB donated (95 GB at 4 layers without
+#: donation: the functional update holds the old and the new state).  The
+#: xLSTM trains through the CLI (``XLSTM_CLI``)
+FAMILY_TRAIN = (("hymba-1.5b", 0, (4, 2048), "full", 3e-4),
+                ("qwen2-moe-a2.7b", 5, (4, 512), "none", 1e-3))
+FAMILY_STEPS = 4
+#: host timings of each step: a p90 needs 10 samples, which only the MoE's
+#: 0.34 s step can spare; hymba's and the xLSTM's (~2 s) report a median of 3
+FAMILY_REPEATS = {"qwen2-moe-a2.7b": 10, "hymba-1.5b": 3, "xlstm-125m": 3}
+#: counted F / 6·N·tokens (N the active params: the routed experts at k of
+#: E): the band each step's count must fall in.  The fake-tensor count of
+#: the same steps (launch.dryrun's counter on one device, CPU) reads
+#: 1.4812 (hymba: remat's second forward is 4/3, the windowed attention's
+#: scores and the SSD's chunks the rest), 1.1272 (xlstm: the mLSTM's
+#: chunked scores and the sLSTM's recurrent products) and 1.3060 (qwen2-moe:
+#: the dense one-hot dispatch and combine, and experts' capacity slots)
+FAMILY_FLOPS = {"hymba-1.5b": (1.40, 1.60), "xlstm-125m": (1.05, 1.25),
+                "qwen2-moe-a2.7b": (1.20, 1.45)}
+#: the fp32 card-vs-CPU step and the bf16-vs-fp32 grads: each model at
+#: full width and a depth cut to (layers, B, S) (hymba: a global and a local
+#: layer, S = 2048 past the local layer's 1024 window and over eight SSD
+#: chunks of 256; xlstm: an mLSTM and an sLSTM block, S = 512 over two
+#: mLSTM chunks of 256; the MoE's one layer is 1.19 B params on the CPU),
+#: one SGD step (its update is linear in the grads, so
+#: the params differ as the grads do: AdamW's first step divides each grad
+#: by its own size, which turns a last-place difference of a near-zero grad
+#: into one of the whole rate; SGD's first momentum is the grads exactly)
+FAMILY_CHECK = {"hymba-1.5b": (2, 1, 2048), "xlstm-125m": (2, 1, 512),
+                "qwen2-moe-a2.7b": (1, 1, 128)}
+#: card vs CPU in fp32: loss and grad norm relative, each grad leaf by norm
+#: (another summation order: ~1e-6), params (SGD at 1e-2) of the largest
+CHECK_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-4, "params": 1e-5}
+#: the xLSTM through the training launcher at full width and depth, (8, 512):
+#: 4 steps with checkpoints at 2 and 4, then, step 4's removed, a resume
+#: from 2 to 4 against that uninterrupted run
+XLSTM_CLI = ["--arch", "xlstm-125m", "--batch", "8", "--seq", "512",
+             "--ckpt-every", "2"]
 #: the planner's throughput grid, timed on the host: qwen2-7b at every
 #: power-of-two chip budget from 8 to 1024 by three global batches, pp up to
 #: 8, every ZeRO stage and each all-reduce algorithm as its own candidate
@@ -1046,6 +1109,273 @@ def train_replay(dev, say, tmp: str) -> None:
 
 
 #: the blocked matmul's kernels, by the names the profiler shows
+def family_cut(cfg, layers: int):
+    """``cfg`` at ``layers`` layers, each kind of layer kept (hymba's global
+    layer 0 and a local one; an mLSTM and an sLSTM block)."""
+    kw = {"n_layers": layers}
+    if cfg.family == "hybrid":
+        kw["global_attn_layers"] = (0,)
+    if cfg.family == "ssm":
+        kw["slstm_layers"] = (layers - 1,)
+    return cfg.replace(**kw)
+
+
+def lm_batch(rng: np.random.Generator, vocab: int, B: int, S: int,
+             dev) -> dict:
+    """(B, S) tokens and their next tokens as labels, from numpy."""
+    toks = torch.from_numpy(rng.integers(0, vocab, (B, S + 1))).to(dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class CardOps(TorchDispatchMode):
+    """Counts the aten ops that run on a CUDA tensor: each launches one
+    kernel or more (the launches of a step the profiler is not asked to
+    walk)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if any(isinstance(x, torch.Tensor) and x.is_cuda
+               for x in tree_flatten(out)[0]):
+            self.ops += 1
+        return out
+
+
+def family_checks(dev, say, arch: str, rng: np.random.Generator) -> None:
+    """``arch`` at full width and the depth of ``FAMILY_CHECK``
+    (``family_cut``): one fp32 SGD step on the card against the same step
+    on the CPU (``CHECK_TOL``; the grads are the step's first momentum), and
+    bf16 against fp32 grads per leaf on the card (``GRAD_TOL``).  An MoE's
+    routing is recorded on the first pass and replayed on the second, so
+    each pair compares on one routing (``routes_replayed``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizer import SGD
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    layers, B, S = FAMILY_CHECK[arch]
+    cfg = family_cut(get_config(arch), layers)
+    f32 = cfg.replace(compute_dtype=torch.float32)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(7),
+                     device=dev)
+    batch = lm_batch(rng, cfg.vocab_size, B, S, "cpu")
+    opt = SGD(learning_rate=1e-2)
+    sides, log = {}, []
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda x: x.to(d), params)
+        st = loop.TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=d), None)
+        b = {k: v.to(d) for k, v in batch.items()}
+        log[:] = [x.to(d) for x in log]
+        route = (routes_recorded(log) if d.type == "cuda"
+                 else routes_replayed(log) if log
+                 else contextlib.nullcontext())
+        with route:
+            new, m = loop.build_train_step(f32, opt)(st, b)
+        sides[d.type] = ([x.cpu() for x in tree_leaves(new.opt_state.momentum)],
+                         new.params, m)
+        del st, new
+    (gg, gp, gm), (cg, cp, cm) = sides[dev.type], sides["cpu"]
+    rel = {k: abs(gm[k].item() - cm[k].item()) / abs(cm[k].item())
+           for k in ("loss", "grad_norm")}
+    rel["grads"] = max((torch.linalg.vector_norm(a - b)
+                        / torch.linalg.vector_norm(b)).item()
+                       for a, b in zip(gg, cg)
+                       if torch.linalg.vector_norm(b) > 0)
+    rel["params"] = tree_rel_err(gp, cp)
+    n = sum(x.numel() for x in tree_leaves(params))
+    say(f"  {arch} at {layers} layers, {n} params, ({B}, {S}), fp32: one SGD "
+        f"step on the card vs the CPU ({time.perf_counter() - t0:.1f} s): "
+        + ", ".join(
+            f"{k} {v:.3e} (tol {CHECK_TOL[k]:g})" for k, v in rel.items()))
+    check(all(rel[k] < CHECK_TOL[k] for k in rel),
+          f"{arch}: the card's fp32 step disagrees with the CPU's: {rel}")
+    del sides, gp, cp
+
+    p = tree_map(lambda x: x.to(dev), params)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    log.clear()
+    with routes_recorded(log):
+        g16 = grads(cfg, p, b)
+    with routes_replayed(log) if log else contextlib.nullcontext():
+        g32 = grads(f32, p, b)
+    errs, zero = [], 0
+    for a, w in zip(g16, g32):
+        nw = torch.linalg.vector_norm(w)
+        if nw == 0:
+            zero += 1
+            check(torch.linalg.vector_norm(a.float()) == 0,
+                  f"{arch}: a grad is 0 in fp32 and not in bf16")
+            continue
+        errs.append((torch.linalg.vector_norm(a.float() - w) / nw).item())
+    say(f"  {arch}: grads bf16 vs fp32 compute per leaf by norm: max "
+        f"{max(errs):.4f}, median {float(np.median(errs)):.4f} over "
+        f"{len(errs)} leaves ({zero} zero in both; tol {GRAD_TOL:g}); the "
+        f"checks took {time.perf_counter() - t0:.1f} s")
+    check(max(errs) < GRAD_TOL, f"{arch}: bf16 grads off fp32: {max(errs)}")
+    del g16, g32, p
+
+
+def family_step_report(dev, say, arch: str, step, state, batch, tokens: int,
+                       n_active: float, profile: bool,
+                       counted: tuple = ()) -> None:
+    """Host median (and p90 where ``FAMILY_REPEATS`` takes 10 samples), card
+    time, launches (by the profiler's kernel names, or ``CardOps`` where the
+    profiler would walk too many), counted
+    F and B_M (``counted``, or ``counters.count``) against 6·N·tokens
+    (``FAMILY_FLOPS``), the bound on h100_sxm.  The steps before warmed the
+    step up; a donated step advances ``state`` with each call."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.ridgeline import WorkUnit, analyze
+    from repro_torch.measure import counters
+    from repro_torch.measure.timers import cuda_event_ms, time_callable
+
+    host = time_callable(step, state, batch, device=dev,
+                         repeats=FAMILY_REPEATS[arch], warmup=0)
+    p90 = (float(np.percentile(host.samples, 90))
+           if len(host.samples) >= 10 else float("nan"))
+    card_ms = cuda_event_ms(lambda i: step(state, batch), iters=1, warmup=0)
+    if profile:
+        kern = profile_kernels(lambda: step(state, batch))
+        launches = sum(n for _, n, _ in kern)
+        k_ms = sum(ms for _, _, ms in kern)
+    else:
+        with CardOps() as ops:
+            step(state, batch)
+            torch.cuda.synchronize()
+        launches, kern, k_ms = ops.ops, [], float("nan")
+    flops, nbytes = counted or counters.count(step, state, batch)
+    ratio = flops / (6.0 * n_active * tokens)
+    a = analyze(WorkUnit(f"train_step_{arch}", flops, nbytes, 0.0), H100_SXM)
+    lo, hi = FAMILY_FLOPS[arch]
+    say(f"  {arch} step: host median {host.median * 1e3:.2f} ms"
+        + (f", p90 {p90 * 1e3:.2f} ms" if p90 == p90 else "")
+        + f" (n={len(host.samples)}); card {card_ms:.2f} ms; "
+        + (f"{launches} launches, {k_ms:.2f} ms of kernels" if profile else
+           f"{launches} aten ops on the card (each one launch or more; not "
+           f"profiled)")
+        + f"; counted F {flops:.6g}, B_M {nbytes:.6g}; F / 6·N·tokens "
+        f"{ratio:.4f} (N {n_active:.6g} active, band {lo}-{hi}); h100_sxm: "
+        f"{a.summary()}; bound {a.runtime * 1e3:.2f} ms = "
+        f"{100 * a.runtime / host.median:.1f}% of the host median")
+    for name, n, ms in sorted(kern, key=lambda x: -x[2])[:8]:
+        say(f"    {ms:9.3f} ms {100 * ms / k_ms:5.1f}% x{n:<6d} {name[:100]}")
+    check(lo < ratio < hi, f"{arch}: counted F / 6NT {ratio} off its band")
+
+
+def train_families(dev, say, tmp: str) -> None:
+    """The moe, hybrid and ssm families trained on the card at full width
+    (``FAMILY_TRAIN``; the xLSTM through the launcher, ``XLSTM_CLI``):
+    bf16 compute, random weights from seeds, the loss falling over
+    ``FAMILY_STEPS`` AdamW steps on one batch; each step timed, counted and
+    (but the xLSTM's) profiled, its peak read; then ``family_checks`` at 2
+    layers.  Neither kernel launches: training runs the plain products, as
+    the JAX package's does (its kernels have no backward)."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.specs import param_counts
+    from repro_torch.optim.optimizer import AdamW
+    from repro_torch.train import loop
+
+    rng = np.random.default_rng(25)
+    for arch, layers, (B, S), remat, lr in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cfg = (family_cut(cfg, layers) if layers else cfg).replace(
+            remat=remat)
+        total, active = param_counts(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt = AdamW(learning_rate=lr)
+        state = loop.init_train_state(
+            torch.Generator(device=dev).manual_seed(11), cfg, opt,
+            device=dev)
+        step = loop.build_train_step(cfg, opt,
+                                     loop.TrainStepConfig(donate=True))
+        batch = lm_batch(rng, cfg.vocab_size, B, S, dev)
+        losses, aux = [], []
+        for _ in range(FAMILY_STEPS):
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            aux.append(m["aux"].item())
+        peak = torch.cuda.max_memory_allocated(dev)
+        say(f"{arch}: {cfg.n_layers} of {get_config(arch).n_layers} layers, "
+            f"{int(total)} fp32 params ({int(active)} active), remat "
+            f"{remat}, ({B}, {S}), AdamW {lr:g}, donated: loss "
+            + " ".join(f"{x:.4f}" for x in losses) + " (aux "
+            + " ".join(f"{x:.4f}" for x in aux) + f"); peak "
+            f"{peak / 1e9:.2f} GB")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{arch}: the loss does not fall: {losses}")
+        family_step_report(dev, say, arch, step, state, batch, B * S,
+                           float(active), profile=True)
+        del state, step, batch, m
+        torch.cuda.empty_cache()
+        family_checks(dev, say, arch, rng)
+        say(f"  {arch} took {time.perf_counter() - t0:.1f} s")
+
+    # the xLSTM through the launcher: 4 steps with checkpoints at 2 and 4,
+    # the step-4 state restored bit for bit; step 4's checkpoint removed, a
+    # second run resumes at 2 and must end in the same state, bit for bit
+    t0 = time.perf_counter()
+    arch = "xlstm-125m"
+    d = os.path.join(tmp, "xlstm")
+
+    def run():
+        return launcher.train(launcher.parse_args(
+            XLSTM_CLI + ["--steps", "4", "--ckpt-dir", d]))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    straight = run()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ck = Checkpointer(d)
+    check(ck.latest_step() == 4, f"xlstm: newest step {ck.latest_step()}")
+    restored, _ = ck.restore(straight.state, step=4)
+    equal = leaves_equal(straight.state, restored)
+    del restored
+    shutil.rmtree(os.path.join(d, "step_000000004"))
+    resumed = run()
+    same = leaves_equal(straight.state, resumed.state)
+    ce1, ce2 = ([h["ce"] for h in r.history] for r in (straight, resumed))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ce2, ce1[2:]))
+    say(f"{arch} (launch.train {' '.join(XLSTM_CLI)} --steps 4): CE "
+        + " ".join(f"{x:.4f}" for x in ce1) + f"; step 4 restored bit for "
+        f"bit: {equal}; resumed at {resumed.history[0]['step']} with step "
+        f"4 removed, CE " + " ".join(f"{x:.4f}" for x in ce2)
+        + f", max rel {rel:.3e} off the uninterrupted run (tol "
+        f"{RESUME_TOL:g}); final state that run's bit for bit: {same}; "
+        f"peak {peak / 1e9:.2f} GB")
+    check(equal, "xlstm: the restored state differs from the one saved")
+    check([h["step"] for h in resumed.history] == [2, 3],
+          "xlstm: the second run did not resume at 2")
+    check(all(np.isfinite(ce1)) and ce1[-1] < ce1[0],
+          f"xlstm: the CE does not fall: {ce1}")
+    check(rel < RESUME_TOL, f"xlstm: resumed CE off the uninterrupted: {rel}")
+    check(same, "xlstm: the resumed run's final state differs from the "
+          "uninterrupted run's")
+    del resumed
+    shutil.rmtree(d)
+    batch = lm_batch(rng, get_config(arch).vocab_size, 8, 512, dev)
+    work = straight.report.work
+    family_step_report(dev, say, arch, straight.train_step, straight.state,
+                       batch, 8 * 512, float(param_counts(
+                           get_config(arch))[1]), profile=False,
+                       counted=(work.flops, work.mem_bytes))
+    del straight, batch
+    torch.cuda.empty_cache()
+    family_checks(dev, say, arch, rng)
+    say(f"  {arch} took {time.perf_counter() - t0:.1f} s")
+
+
 OUR_GEMMS = ("gemm_sm90_kernel", "gemm_bf16_kernel", "gemm_f32_kernel",
              "gemm_f32_ring_kernel")
 #: the flash kernels, by the names the profiler shows
@@ -3805,14 +4135,20 @@ MESH_TRAIN = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
               "--ckpt-every", "2", "--steps", "4", "--mesh", "1x1"]
 #: dryrun: the cells lowered on the card's host (the paper's case study on
 #: one card and on a pod, its serving forward on a pod, a dense train cell
-#: on a pod, a decode cell, a two-pod train cell) and the phase's budget in
-#: seconds
+#: on a pod, a decode cell, a two-pod train cell; a train cell of the moe,
+#: hybrid and ssm families and a prefill cell of the enc-dec and VLM ones
+#: on a pod) and the phase's budget in seconds
 DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("dlrm-mlp", "train_4k", "16x16"),
                 ("dlrm-mlp", "decode_32k", "16x16"),
                 ("smollm-135m", "train_4k", "16x16"),
                 ("qwen2-7b", "decode_32k", "16x16"),
-                ("qwen2-7b", "train_4k", "2x16x16"))
+                ("qwen2-7b", "train_4k", "2x16x16"),
+                ("qwen2-moe-a2.7b", "train_4k", "16x16"),
+                ("hymba-1.5b", "train_4k", "16x16"),
+                ("xlstm-125m", "train_4k", "16x16"),
+                ("whisper-tiny", "prefill_32k", "16x16"),
+                ("internvl2-26b", "prefill_32k", "16x16"))
 DRYRUN_BUDGET_S = 120.0
 #: dryrun: the fake peak per device against the card's allocator peak of
 #: the same step, relative
@@ -4640,6 +4976,19 @@ def main() -> int:
         f"{blocked_matmul.launches}, flash {flash_attention_bhsd.launches}")
     check(blocked_matmul.launches == 0 and flash_attention_bhsd.launches == 0,
           "the training launcher reached a forward-only kernel")
+
+    # ---- 14c. train_families: the moe, hybrid and ssm families train ---------
+    phase("train_families")
+    reset_counts()
+    t_phase = time.perf_counter()
+    fam_tmp = tempfile.TemporaryDirectory()
+    train_families(dev, say, fam_tmp.name)
+    fam_tmp.cleanup()
+    torch.cuda.synchronize()
+    say(f"train_families took {time.perf_counter() - t_phase:.1f} s; kernel "
+        f"launches: {launch_counts()}")
+    check(all(sum(v.values()) == 0 for v in launch_counts().values()),
+          "a family's train step reached a forward-only kernel")
     points.append({
         "arch": "smollm-135m", "shape": "train_b8_s512", "mesh": "1",
         "kind": "train_step", "variant": "counted",

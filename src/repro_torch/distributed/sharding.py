@@ -222,13 +222,43 @@ def shard_hint(x: Any, axes: Sequence[Optional[str]]) -> Any:
         return x
     mesh, rules = binding
     spec = _drop_nondividing(logical_spec(axes, rules), tuple(x.shape), mesh)
-    placements = to_placements(spec, mesh)
+    return move(x, to_placements(spec, mesh))
+
+
+def move(x: DTensor, placements: Sequence) -> DTensor:
+    """``x.redistribute`` to ``placements``, a change of which tensor dim a
+    mesh dim shards done by all-to-all on any mesh (``_all_to_all``)."""
+    placements = tuple(placements)
     if tuple(x.placements) == placements:
         return x
     moved = _all_to_all(x, placements)
     if moved is not None:
         return moved
     return x.redistribute(x.device_mesh, placements)
+
+
+class _WholeGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        place = tuple(Replicate() if p.is_partial() else p
+                      for p in g.placements)
+        if place == tuple(g.placements):
+            return g
+        return g.redistribute(g.device_mesh, place)
+
+
+def whole_grad(x: Any) -> Any:
+    """``x``, whose grad is made whole (a partial sum reduced) before it
+    reaches the ops that made ``x``: a shard-level product hands back
+    partial-sum grads, which DTensor's rules for some ops cannot take (they
+    shard the result unevenly).  Anything but a DTensor is ``x``."""
+    if not isinstance(x, DTensor):
+        return x
+    return _WholeGrad.apply(x)
 
 
 def sp_matmul(x: Any, w: Any) -> Any:

@@ -27,10 +27,9 @@ cost is linear in its layers and two shallow runs are faster than one
 deep one (``probe=False`` counts the full depth; a test holds the fit to
 it).  Peak memory is fitted the same way.
 
-Families.  The dense and mlp families lower.  The moe, hybrid, ssm, encdec
-and vlm cells raise naming ROADMAP Queue 1 item 12 step 7 (see
-``_WAITS``); ``--all`` counts them as failures, as the reference counts a
-cell that does not compile.
+Families.  Every family lowers: each cell that ``configs.shapes.applicable``
+assigns.  ``--all`` counts a cell that raises as a failure, as the
+reference counts a cell that does not compile.
 
 Usage::
 
@@ -38,7 +37,10 @@ Usage::
         --shape train_4k --mesh 16x16
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh both]
 
-Reports are cached by cell key; ``--force`` lowers again.
+Reports are cached by cell key; ``--force`` lowers again.  Each cell's line
+gives its wire bytes by kind and, where ``--out`` holds the same cell's
+1x1 report, the F of all its devices against that one device's F (lower
+``--mesh 1x1`` first to have them).
 """
 from __future__ import annotations
 
@@ -69,34 +71,6 @@ POD_SIZE = 256
 
 #: params above this count get FSDP (param DP-sharding) in the baseline
 FSDP_THRESHOLD = 8e9
-
-#: the families whose dry-run lowers
-LOWERS = ("dense", "mlp")
-#: what stops the others (ROADMAP Queue 1 item 12 step 7): their decode
-#: cells run, but their own products still flatten (batch, seq)-sharded
-#: activations (``distributed.sharding.sp_matmul`` is not in them yet) and
-#: their ``shard_hint`` sites are not placed
-_WAITS = {
-    "moe": "prefill: apply_moe's (groups, tokens, D) reshape of the "
-           "sharded batch (models/moe.py); train: item 8",
-    "hybrid": "prefill: the windowed attention's products "
-              "(models/hybrid.py _windowed_attention); train: item 9",
-    "ssm": "prefill: the mLSTM's q/k/v/gate products (models/ssm.py "
-           "_mlstm_qkvg); train: item 9",
-    "encdec": "prefill and train: the decoder's logits product "
-              "(models/encdec.py _logits)",
-    "vlm": "train: the visual projection's products (models/vlm.py "
-           "_project_visual)",
-}
-
-
-def _waits(cfg: ModelConfig) -> None:
-    if cfg.family not in LOWERS:
-        raise NotImplementedError(
-            f"the dry-run of the {cfg.family} family ({cfg.name}) is not "
-            f"ported yet: ROADMAP Queue 1 item 12 step 7; what stops it: "
-            f"{_WAITS[cfg.family]}")
-
 
 def _mesh_from_name(mesh_name: str) -> Tuple[Tuple[int, ...],
                                              Tuple[str, ...]]:
@@ -202,7 +176,6 @@ def _run(fn, args, fake_mode, pod_size: int) -> Lowered:
 
 def _lower_one(cfg: ModelConfig, shape: ShapeSpec, mesh, pod_size: int
                ) -> Tuple[Lowered, str]:
-    _waits(cfg)
     if shape.kind == "train":
         return _lower_train(cfg, shape, mesh, pod_size=pod_size)
     if shape.kind == "prefill":
@@ -342,7 +315,6 @@ def lower_cell(arch: str, shape_name: str, mesh_name: str,
     """
     shape = SHAPES[shape_name]
     cfg = _prepare_cfg(get_config(arch), shape, overrides)
-    _waits(cfg)
     dims, axes = _mesh_from_name(mesh_name)
     pod_size = POD_SIZE if "pod" in axes else 0
     t0 = time.time()
@@ -393,6 +365,21 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, force: bool = False,
                            rules_overrides=rules_overrides)
     report.save(out_dir)
     return report
+
+
+def _against_one_device(rep: CellReport, out_dir: str) -> str:
+    """The wire by kind, and F x N against the same cell's F at 1x1 where
+    ``out_dir`` holds that report (lower ``--mesh 1x1`` first)."""
+    kinds = ", ".join(f"{k} {v / 1e9:.4f}" for k, v in
+                      sorted(rep.wire_bytes_by_kind.items())) or "none"
+    one = os.path.join(out_dir, f"{rep.arch}__{rep.shape}__1x1__"
+                                f"{rep.variant}.json")
+    if rep.mesh == "1x1" or not os.path.exists(one):
+        return f" ({kinds})"
+    with open(one) as f:
+        f1 = CellReport.from_json(f.read()).flops
+    return (f" ({kinds}); F x N / F(1x1) "
+            f"{rep.flops * rep.num_devices / f1:.4f}")
 
 
 def _coerce(v: str):
@@ -448,11 +435,11 @@ def main(argv=None) -> int:
                       f"{rep.bottleneck}-bound, runtime {rep.runtime:.3e}s, "
                       f"{100 * rep.peak_fraction:.1f}% peak, "
                       f"mem/dev {rep.peak_memory_per_device / 2**30:.2f} GiB, "
-                      f"wire/dev {rep.wire_bytes / 1e9:.4f} GB", flush=True)
+                      f"wire/dev {rep.wire_bytes / 1e9:.4f} GB"
+                      + _against_one_device(rep, args.out), flush=True)
             except Exception as e:  # noqa: BLE001 — report all cell failures
                 failures.append((key, repr(e)))
-                if not isinstance(e, NotImplementedError):
-                    traceback.print_exc()
+                traceback.print_exc()
                 print(f"[FAIL] {key}: {e}", flush=True)
     if failures:
         print(f"\n{len(failures)} FAILURES:")

@@ -12,6 +12,10 @@ straggler flags), and a closing Ridgeline report of the step.
 
 Where the port differs from the reference:
 
+  * off a mesh the step writes the new state into the old one's buffers
+    (``TrainStepConfig(donate=True)``, the reference's ``donate_argnums``);
+    ``TrainRun.train_step`` is that step, so a caller's state advances in
+    place;
   * params come from ``torch.Generator(device).manual_seed(--seed)`` (torch
     streams, not JAX's), drawn on the device that trains them;
   * ``--device`` defaults to the card; the CPU runs only when asked;
@@ -117,8 +121,10 @@ def _train(args: argparse.Namespace, cfg, dev: torch.device, mesh
            ) -> TrainRun:
     world = mesh_size(mesh)
     opt = AdamW(learning_rate=warmup_cosine(args.lr, 20, args.steps))
+    # the state donated, as the reference's jit donates it (the loop keeps
+    # a mesh's step functional)
     train_step = build_train_step(cfg, opt, TrainStepConfig(
-        n_micro=args.n_micro))
+        n_micro=args.n_micro, donate=True))
     state = place_tree(
         init_train_state(torch.Generator(device=dev).manual_seed(args.seed),
                          cfg, opt, device=dev),
@@ -157,8 +163,10 @@ def _train(args: argparse.Namespace, cfg, dev: torch.device, mesh
         flops, nbytes = counter.flops, counter.bytes
         wire = counter.summary.total_wire_bytes
     else:
-        flops, nbytes = counters.count(train_step, state,
-                                       put(stream.batch(0)))
+        # a functional step, which leaves ``state`` as it was
+        flops, nbytes = counters.count(
+            build_train_step(cfg, opt, TrainStepConfig(n_micro=args.n_micro)),
+            state, put(stream.batch(0)))
         wire = 0.0
     report = analyze(WorkUnit(f"{args.arch}/train", flops, nbytes, wire),
                      H100_SXM)

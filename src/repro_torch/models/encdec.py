@@ -17,7 +17,10 @@ attention runs the flash-attention kernel non-causal and every decoder
 layer's self-attention runs it causal; cross-attention stays the plain
 ``_sdpa`` (the query and key lengths differ), as in the reference.  With
 ``cfg.use_kernel_matmul`` the FFN products run the blocked-matmul kernel,
-the GELU and the bias in its epilogue.
+the GELU and the bias in its epilogue.  Under a mesh the reference's
+``shard_hint`` sites hold the residual stream and the logits, and the
+lookup and the tied head run on the shards (``sharding.sp_embedding``,
+``sp_matmul``).
 
 The cache is ``{"self": {"k", "v"}, "cross_k", "cross_v"}``: the decoder's
 KV cache (``attention.init_kv_cache``) and every decoder layer's cross
@@ -33,6 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import (shard_hint, sp_embedding,
+                                              sp_matmul)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (apply_norm, clamped_row, embed_init,
@@ -101,18 +106,20 @@ def encode(params: Params, frames: torch.Tensor,
     T = frames.shape[1]
     x = frames.to(dt) + sinusoidal_positions(
         T, cfg.d_model, device=frames.device).to(dt)
+    x = shard_hint(x, ("batch", "seq", "embed"))
     for blk in params["enc_blocks"]:
         h = apply_norm(blk["attn_norm"], x, cfg)
         x = x + attn_mod.apply_attention(blk["attn"], h, cfg, causal=False)
         h = apply_norm(blk["ffn_norm"], x, cfg)
         x = x + ffn_mod.apply_ffn(blk["ffn"], h, cfg)
+        x = shard_hint(x, ("batch", "seq", "embed"))
     return apply_norm(params["enc_norm"], x, cfg)
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The decoder's final norm, then the tied head in the compute dtype."""
     x = apply_norm(params["dec_norm"], x, cfg)
-    return x @ params["dec_embed"].T.to(cfg.compute_dtype)
+    return sp_matmul(x, params["dec_embed"].T.to(cfg.compute_dtype))
 
 
 def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
@@ -122,8 +129,8 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
     dt = cfg.compute_dtype
     enc = encode(params, frames, cfg)
     S = tokens.shape[1]
-    x = F.embedding(tokens, params["dec_embed"]).to(dt)
-    x = x + params["dec_pos"][:S].to(dt)
+    x = sp_embedding(tokens, params["dec_embed"]).to(dt)
+    x = shard_hint(x + params["dec_pos"][:S].to(dt), ("batch", "seq", "embed"))
     for blk in params["dec_blocks"]:
         h = apply_norm(blk["self_norm"], x, cfg)
         x = x + attn_mod.apply_attention(blk["self_attn"], h, cfg,
@@ -133,8 +140,9 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
                                          kv_src=enc, causal=False)
         h = apply_norm(blk["ffn_norm"], x, cfg)
         x = x + ffn_mod.apply_ffn(blk["ffn"], h, cfg)
+        x = shard_hint(x, ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, x, cfg), aux
+    return shard_hint(_logits(params, x, cfg), ("batch", "seq", "vocab")), aux
 
 
 # --- decode ------------------------------------------------------------------

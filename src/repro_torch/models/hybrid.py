@@ -11,7 +11,9 @@ Attention is sliding-window (``cfg.sliding_window``) in every layer but
 through its layer scan as data; here it is a plain int per layer
 (``layer_windows``), the global layers' equal to the sequence length.  The
 prefill attention is the plain ``_sdpa`` with a mask bias, as in the
-reference (never the flash kernel).
+reference (never the flash kernel).  Under a mesh q, k and v take the
+reference's ``shard_hint`` placements and the products run on the shards
+(``sharding.sp_matmul``).
 
 Decode keeps a full-length KV buffer for the global layers only; a local
 layer holds a ring of ``min(window, max_len)`` slots, the token at ``pos``
@@ -25,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import shard_hint, sp_matmul
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -78,11 +81,14 @@ def _windowed_attention(p: Params, h: torch.Tensor, cfg: ModelConfig,
         pos = torch.arange(S, device=h.device)[None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    q = shard_hint(q, ("batch", "attn_seq", "heads", None))
+    k = shard_hint(k, ("batch", "attn_seq", "kv_heads", None))
+    v = shard_hint(v, ("batch", "attn_seq", "kv_heads", None))
     qpos = torch.arange(S, device=h.device)[:, None]
     kpos = torch.arange(S, device=h.device)[None, :]
     ok = (kpos <= qpos) & (kpos > qpos - window)
     out = _sdpa(q, k, v, torch.where(ok, 0.0, NEG_INF).float(), cfg)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
+    return sp_matmul(out.reshape(B, S, cfg.q_dim), p["wo"].to(dt))
 
 
 def _fuse(p: Params, a: torch.Tensor, m: torch.Tensor,

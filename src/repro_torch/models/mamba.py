@@ -8,8 +8,9 @@ SSD per-head scalar-decay form (``models/ssd.py``):
 
 with Δ folded into v before the recurrence.  ``n_heads`` heads of ``dh``
 channels, as on the attention side, and a state of ``cfg.ssm_state`` per
-head.  The projections are plain products in the compute dtype; Δ and the
-decay are fp32.
+head.  The projections are plain products in the compute dtype (on the
+shards under a mesh, ``sharding.sp_matmul``, with the reference's
+``shard_hint`` sites); Δ and the decay are fp32.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import shard_hint, sp_matmul
 from repro_torch.models.common import dense_init, init_rng, ones, zeros
 from repro_torch.models.config import ModelConfig, Params, Specs
 from repro_torch.models.ssd import (State, chunked_linear_recurrence,
@@ -57,10 +59,12 @@ def _mamba_proj(p: Params, x: torch.Tensor, cfg: ModelConfig):
     dt_ = cfg.compute_dtype
     B, S, _ = x.shape
     H, dh, N = cfg.n_heads, cfg.dh, cfg.ssm_state
-    v = (x @ p["w_v"].to(dt_)).reshape(B, S, H, dh)
-    bk = (x @ p["w_B"].to(dt_)).reshape(B, S, H, N)
-    cq = (x @ p["w_C"].to(dt_)).reshape(B, S, H, N)
-    delta = F.softplus((x @ p["w_dt"].to(dt_)).float() + p["b_dt"])  # (B,S,H)
+    heads = ("batch", "attn_seq", "heads", None)
+    v = shard_hint(sp_matmul(x, p["w_v"].to(dt_)).reshape(B, S, H, dh), heads)
+    bk = shard_hint(sp_matmul(x, p["w_B"].to(dt_)).reshape(B, S, H, N), heads)
+    cq = shard_hint(sp_matmul(x, p["w_C"].to(dt_)).reshape(B, S, H, N), heads)
+    delta = F.softplus(sp_matmul(x, p["w_dt"].to(dt_)).float()
+                       + p["b_dt"])                      # (B,S,H)
     log_a = -delta * torch.exp(p["A_log"])               # (B,S,H) <= 0
     v_in = v * delta[..., None].to(dt_)                  # fold Δ into v
     return v, v_in, bk, cq, log_a
@@ -76,7 +80,7 @@ def apply_mamba(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     chunk = min(cfg.ssm_chunk, S)
     y, _ = chunked_linear_recurrence(cq, bk, v_in, log_a, chunk=chunk)
     y = y + v * p["D_skip"].to(dt_)
-    return y.reshape(B, S, H * dh) @ p["w_out"].to(dt_)
+    return sp_matmul(y.reshape(B, S, H * dh), p["w_out"].to(dt_))
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int,

@@ -48,7 +48,11 @@ def chunked_linear_recurrence(
 
     Without ``normalize`` the returned n is the incoming one (zeros without
     a ``state``), as in the reference, which carries no normalizer then.
+    DTensor inputs take ``_on_shards``.
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(v, DTensor) and state is None:
+        return _on_shards(q, k, v, log_decay, chunk, normalize)
     B, T, H, dk = k.shape
     dv = v.shape[-1]
     L = min(chunk, T)
@@ -112,6 +116,53 @@ def chunked_linear_recurrence(
         y = y / torch.clamp(denom.abs(), min=1.0)[..., None]
     y = y.movedim(0, 1).reshape(B, T, H, dv)
     return y.to(v.dtype), (M, n if normalize else n0)
+
+
+def _on_shards(q, k, v, log_decay, chunk: int, normalize: bool):
+    """``chunked_linear_recurrence`` of DTensors, each device running the
+    plain recurrence on its own shard.
+
+    The chunks compose in order along the sequence, so each device takes
+    whole sequences: its batch rows (where a mesh axis shards the batch)
+    and, on the other mesh axes, a slice of v's channels where they divide
+    (the recurrence is linear in v: the scores, the decay and the
+    normaliser are computed whole on each device, the rest on its slice)
+    or a whole copy.  The output goes back to v's own layout (a partial sum
+    made whole); the final state keeps the shards' (M sliced as v, n
+    whole).  DTensor itself cannot run the chunk split: it flattens the
+    (chunk, batch) axes while the sequence is sharded.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import move, whole_grad
+    mesh = v.device_mesh
+    came = tuple(Replicate() if isinstance(p, Partial) else p
+                 for p in v.placements)
+    batch = tuple(p == Shard(0) for p in q.placements)
+    vp, qp, gq, split = [], [], [], 1
+    for i, rows in enumerate(batch):
+        if rows:
+            vp.append(Shard(0))
+            qp.append(Shard(0))
+            gq.append(Shard(0))
+        elif v.shape[3] % (split * mesh.size(i)) == 0 and mesh.size(i) > 1:
+            split *= mesh.size(i)
+            vp.append(Shard(3))
+            qp.append(Replicate())
+            gq.append(Partial())       # each channel slice's share
+        else:
+            vp.append(Replicate())
+            qp.append(Replicate())
+            gq.append(Replicate())
+    vp, qp, gq = tuple(vp), tuple(qp), tuple(gq)
+    local = [whole_grad(move(x, qp)).to_local(grad_placements=gq)
+             for x in (q, k, log_decay)]
+    vl = move(v, vp).to_local(grad_placements=vp)
+    y, (M, n) = chunked_linear_recurrence(local[0], local[1], vl, local[2],
+                                          chunk=chunk, normalize=normalize)
+    y = DTensor.from_local(y, mesh, vp, run_check=False)
+    return move(y, came), (DTensor.from_local(M, mesh, vp, run_check=False),
+                           DTensor.from_local(n, mesh, qp, run_check=False))
 
 
 def decode_linear_step(

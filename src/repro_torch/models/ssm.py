@@ -14,7 +14,11 @@ stabilizer state m_t, run as the exact per-time-step recurrence (a Python
 loop over the sequence; ``w_x`` applied once to the whole sequence first),
 then a GeGLU post-FFN of factor 4/3.  The reference's ``jax.checkpoint``
 around its time chunks changes only the backward, so it has no counterpart
-here.
+here.  Training takes autograd through both, the sLSTM's loop included.
+
+Under a mesh the mLSTM's products run on the shards (``sharding.sp_matmul``)
+with the reference's ``shard_hint`` sites, and the log-sigmoid gates on each
+device's shard (``_log_sigmoid``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import shard_hint, sp_matmul
 from repro_torch.models.attention import _scale
 from repro_torch.models.common import (activation, dense_init, init_rng, ones,
                                        zeros)
@@ -71,6 +76,20 @@ def mlstm_specs(cfg: ModelConfig) -> Specs:
     }
 
 
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; of a DTensor, on each device's shard (DTensor has no
+    rule for its backward), a partial sum made whole first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    place = tuple(Replicate() if isinstance(p, Partial) else p
+                  for p in x.placements)
+    if place != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, place)
+    return DTensor.from_local(F.logsigmoid(x.to_local(grad_placements=place)),
+                              x.device_mesh, place, run_check=False)
+
+
 def _mlstm_qkvg(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """(u, z, q, k·i, v, log f) of the compute-dtype ``x`` (B, S, D).  q and
     k are divided by sqrt(dh) rounded to the compute dtype, as the
@@ -78,15 +97,16 @@ def _mlstm_qkvg(p: Params, x: torch.Tensor, cfg: ModelConfig):
     dt = cfg.compute_dtype
     H, dh = _heads(cfg)
     B, S, _ = x.shape
-    u = x @ p["w_up"].to(dt)
-    z = F.silu(x @ p["w_gate"].to(dt))
+    u = shard_hint(sp_matmul(x, p["w_up"].to(dt)), ("batch", "seq", "ffn"))
+    z = F.silu(shard_hint(sp_matmul(x, p["w_gate"].to(dt)),
+                          ("batch", "seq", "ffn")))
     scale = _scale(dh, dt)
-    q = (u @ p["wq"].to(dt)).reshape(B, S, H, dh) / scale
-    k = (u @ p["wk"].to(dt)).reshape(B, S, H, dh) / scale
-    v = (u @ p["wv"].to(dt)).reshape(B, S, H, dh)
-    gif = (u @ p["w_if"].to(dt) + p["b_if"].to(dt)).float()
+    q = sp_matmul(u, p["wq"].to(dt)).reshape(B, S, H, dh) / scale
+    k = sp_matmul(u, p["wk"].to(dt)).reshape(B, S, H, dh) / scale
+    v = sp_matmul(u, p["wv"].to(dt)).reshape(B, S, H, dh)
+    gif = (sp_matmul(u, p["w_if"].to(dt)) + p["b_if"].to(dt)).float()
     i_gate = torch.sigmoid(gif[..., :H])               # (B,S,H)
-    log_f = F.logsigmoid(gif[..., H:])                 # (B,S,H), <= 0
+    log_f = _log_sigmoid(gif[..., H:])                 # (B,S,H), <= 0
     return u, z, q, k * i_gate[..., None].to(dt), v, log_f
 
 
@@ -100,7 +120,7 @@ def apply_mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y, _ = chunked_linear_recurrence(q, k, v, log_f, chunk=chunk,
                                      normalize=True)
     y = y.reshape(B, S, H * dh) + u * p["skip_scale"].to(dt)
-    return (y * z) @ p["w_down"].to(dt)
+    return sp_matmul(y * z, p["w_down"].to(dt))
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int,
@@ -167,7 +187,7 @@ def _slstm_cell(p: Params, state: Dict[str, torch.Tensor], xw: torch.Tensor,
     gates = xw.float() + torch.cat(
         [h * r[0], h * r[1], h * r[2], h * r[3]], dim=-1) + p["b"].float()
     gi, gf, gz, go = torch.chunk(gates, 4, dim=-1)
-    log_f = F.logsigmoid(gf)
+    log_f = _log_sigmoid(gf)
     m_new = torch.maximum(log_f + m, gi)                # stabilizer state
     i = torch.exp(gi - m_new)
     f = torch.exp(log_f + m - m_new)

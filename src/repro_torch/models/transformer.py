@@ -26,7 +26,9 @@ flash-attention CUDA kernel (Hymba's windowed attention stays the plain
 ``cfg.use_kernel_matmul`` every dense FFN product (an MoE layer's shared
 experts and a Hymba block's FFN included) the blocked-matmul kernel.
 ``cfg.remat`` recomputes each block in the backward: ``"full"`` keeps only
-the block's input, ``"dots"`` also the products' outputs.
+the block's input, ``"dots"`` also the products' outputs; a block's MoE aux
+comes out of the checkpointed function beside its output, so its gradient
+is recomputed with the block's.
 
 The VLM family's language model is the dense decoder: ``init_lm``,
 ``forward``, ``init_cache`` and ``decode_step`` run it on the dense path,

@@ -11,6 +11,10 @@ positions 0 … N_vis + S - 1; with ``cfg.use_flash`` the flash kernel sees
 it whole, with ``cfg.use_kernel_matmul`` the FFN products run the
 blocked-matmul kernel).
 
+Under a mesh the connector's products run on the shards
+(``sharding.sp_matmul``) and the joined sequence and the logits take the
+reference's ``shard_hint`` placements.
+
 Decode is the dense path on ``params["lm"]``, as in the reference, which
 never puts the visual prefix into the cache: a decode starts at pos 0 with
 text only.
@@ -22,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import shard_hint, sp_matmul
 from repro_torch.models import transformer as lm
 from repro_torch.models.common import activation, dense_init, init_rng, zeros
 from repro_torch.models.config import ModelConfig, Params, Specs
@@ -57,8 +62,9 @@ def _project_visual(params: Params, patches: torch.Tensor,
     in the compute dtype, the bias added before the tanh-form GELU."""
     dt = cfg.compute_dtype
     c = params["connector"]
-    h = activation("gelu", patches.to(dt) @ c["w1"].to(dt) + c["b1"].to(dt))
-    return h @ c["w2"].to(dt) + c["b2"].to(dt)
+    h = activation("gelu", sp_matmul(patches.to(dt), c["w1"].to(dt))
+                   + c["b1"].to(dt))
+    return sp_matmul(h, c["w2"].to(dt)) + c["b2"].to(dt)
 
 
 def forward(params: Params, tokens: torch.Tensor, patches: torch.Tensor,
@@ -68,13 +74,14 @@ def forward(params: Params, tokens: torch.Tensor, patches: torch.Tensor,
     dense blocks)."""
     vis = _project_visual(params, patches, cfg)
     txt = lm._embed(params["lm"], tokens, cfg)
-    x = torch.cat([vis, txt], dim=1)
+    x = shard_hint(torch.cat([vis, txt], dim=1), ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params["lm"]["blocks"]:
         x, a = lm._maybe_remat(lm._apply_dense_block, cfg)(blk, x, cfg)
         if a is not None:
             aux = aux + a
-    return lm._head(params["lm"], x, cfg), aux
+    return shard_hint(lm._head(params["lm"], x, cfg),
+                      ("batch", "seq", "vocab")), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -16,6 +16,11 @@ differs in ways the reference's users see:
   * SGD's momentum is ``μ·m + g``, with no dampening;
   * each update is cast to its param's dtype.
 
+``update_in_place(grads, state, params) -> state`` is ``update`` and
+``apply_updates`` written into the state's and the params' buffers a leaf at
+a time, the reference's donated step (``donate_argnums``): the same
+arithmetic, one leaf's temporaries in place of a second state.
+
 Every quantity stays a tensor on the params' device, the step counter too,
 so an update on the card makes no host sync.
 """
@@ -23,11 +28,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -43,13 +48,38 @@ def _step0(params: Params) -> torch.Tensor:
                        device=tree_leaves(params)[0].device)
 
 
-def _clip(grads: Params, clip_norm: float) -> Params:
-    """fp32 grads scaled by ``min(1, clip_norm / (‖g‖ + 1e-9))``."""
-    grads = tree_map(lambda g: g.float(), grads)
-    if clip_norm > 0:
-        scale = torch.clamp(clip_norm / (global_norm(grads) + 1e-9), max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
-    return grads
+def _clip_scale(grads: Params, clip_norm: float) -> Optional[torch.Tensor]:
+    """``min(1, clip_norm / (‖g‖ + 1e-9))`` over every grad; None without a
+    clip."""
+    if clip_norm <= 0:
+        return None
+    return torch.clamp(clip_norm / (global_norm(grads) + 1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    g = g.float()
+    return g if scale is None else g * scale
+
+
+def _leafwise(leaf: Callable, grads: Params, moments: Tuple[Params, ...],
+              params: Params) -> list:
+    """``leaf(g, *moments, p) -> (*moments, update)`` over the trees' leaves:
+    the new moments' trees and the updates' tree."""
+    rows = [leaf(*xs) for xs in zip(*(tree_leaves(t)
+                                      for t in (grads, *moments, params)))]
+    return [tree_unflatten(params, list(col)) for col in zip(*rows)]
+
+
+def _leafwise_in_place(leaf: Callable, grads: Params,
+                       moments: Tuple[Params, ...], params: Params) -> None:
+    """``_leafwise`` written into ``moments``' and ``params``' buffers a leaf
+    at a time (``params += update``): the device holds one leaf's
+    temporaries where ``_leafwise`` holds new moments and every update."""
+    for xs in zip(*(tree_leaves(t) for t in (grads, *moments, params))):
+        *new, update = leaf(*xs)
+        for buf, x in zip(xs[1:-1], new):
+            buf.copy_(x)
+        xs[-1].add_(update)
 
 
 class AdamWState(NamedTuple):
@@ -78,24 +108,40 @@ class AdamW:
         return torch.tensor(self.learning_rate, dtype=torch.float32,
                             device=step.device)
 
-    def update(self, grads: Params, state: AdamWState, params: Params
-               ) -> Tuple[Params, AdamWState]:
-        step = state.step + 1
-        grads = _clip(grads, self.clip_norm)
+    def _leaf(self, grads: Params, step: torch.Tensor) -> Callable:
+        """The update of one leaf at ``step`` (after the increment), clipped
+        by ``grads``' global norm: ``(g, mu, nu, p) -> (mu, nu, update)``."""
+        scale = _clip_scale(grads, self.clip_norm)
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
         bc1 = 1 - b1 ** step.float()
         bc2 = 1 - b2 ** step.float()
         lr = self._lr(step)
 
-        def upd(m, v, p):
+        def leaf(g, m, v, p):
+            g = _clipped(g, scale)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             u = u + self.weight_decay * p.float()
-            return (-lr * u).to(p.dtype)
+            return m, v, (-lr * u).to(p.dtype)
+        return leaf
 
-        updates = tree_map(upd, mu, nu, params)
+    def update(self, grads: Params, state: AdamWState, params: Params
+               ) -> Tuple[Params, AdamWState]:
+        step = state.step + 1
+        mu, nu, updates = _leafwise(self._leaf(grads, step), grads,
+                                    (state.mu, state.nu), params)
         return updates, AdamWState(step=step, mu=mu, nu=nu)
+
+    def update_in_place(self, grads: Params, state: AdamWState,
+                        params: Params) -> AdamWState:
+        """``update`` and ``apply_updates`` written into ``state``'s moments
+        and ``params``' buffers, bit for bit: the caller's old state is
+        gone."""
+        step = state.step + 1
+        _leafwise_in_place(self._leaf(grads, step), grads,
+                           (state.mu, state.nu), params)
+        return state._replace(step=step)
 
 
 class SGDState(NamedTuple):
@@ -112,16 +158,31 @@ class SGD:
     def init(self, params: Params) -> SGDState:
         return SGDState(step=_step0(params), momentum=_zeros_f32(params))
 
+    def _leaf(self, grads: Params, step: torch.Tensor) -> Callable:
+        """``(g, momentum, p) -> (momentum, update)`` at ``step``."""
+        scale = _clip_scale(grads, self.clip_norm)
+        lr = (self.learning_rate(step) if callable(self.learning_rate)
+              else self.learning_rate)
+
+        def leaf(g, m, p):
+            m = self.momentum * m + _clipped(g, scale)
+            return m, (-lr * m).to(p.dtype)
+        return leaf
+
     def update(self, grads: Params, state: SGDState, params: Params
                ) -> Tuple[Params, SGDState]:
         step = state.step + 1
-        grads = _clip(grads, self.clip_norm)
-        mom = tree_map(lambda m, g: self.momentum * m + g,
-                       state.momentum, grads)
-        lr = (self.learning_rate(step) if callable(self.learning_rate)
-              else self.learning_rate)
-        updates = tree_map(lambda m, p: (-lr * m).to(p.dtype), mom, params)
+        mom, updates = _leafwise(self._leaf(grads, step), grads,
+                                 (state.momentum,), params)
         return updates, SGDState(step=step, momentum=mom)
+
+    def update_in_place(self, grads: Params, state: SGDState,
+                        params: Params) -> SGDState:
+        """As ``AdamW.update_in_place``."""
+        step = state.step + 1
+        _leafwise_in_place(self._leaf(grads, step), grads, (state.momentum,),
+                           params)
+        return state._replace(step=step)
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

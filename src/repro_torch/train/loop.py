@@ -1,14 +1,16 @@
-"""Train-step construction, as ``repro.train.loop``, for the mlp, dense,
-enc-dec and VLM families.  The moe, hybrid and ssm families serve but do
-not train yet: their train steps wait for ROADMAP Queue 1 items 8 (MoE
-training) and 9 (recurrent-family training).
+"""Train-step construction, as ``repro.train.loop``, for every family:
+mlp, dense, moe, hybrid, ssm, enc-dec and VLM.
 
 ``build_train_step(cfg, optimizer)`` returns ``train_step(state, batch) ->
 (state, metrics)``; a batch is a dict of tensors (``features`` and
-``click`` for the mlp family, ``tokens`` and ``labels`` for the dense
-one, with ``frames`` for enc-dec and ``patches`` for a VLM, whose loss
-covers the text positions only).  The step is functional: it returns a new
-state and leaves the old one as it was.
+``click`` for the mlp family, ``tokens`` and ``labels`` for the decoder
+LMs, with ``frames`` for enc-dec and ``patches`` for a VLM, whose loss
+covers the text positions only).  The decoder LMs' loss is the reference's
+``lm_loss``: the CE plus ``cfg.router_aux_weight`` times the MoE layers'
+load-balance loss (0 for the families without a router), with ``ce`` and
+``aux`` in the metrics.  The step is functional: it returns a new state and
+leaves the old one as it was (``TrainStepConfig.donate`` writes the new one
+into the old one's buffers instead, where the device cannot hold both).
 
 Gradient sync.  The JAX step's sync is implicit in its global-mean loss
 (the SPMD lowering all-reduces the grads).  Here, when ``torch.distributed``
@@ -33,8 +35,7 @@ reference's SPMD step compresses the global-mean gradient, and this order
 keeps that arithmetic.  It sees the grads in the reference's layout, where
 a model's blocks are stacked on a leading layer axis (``stack_blocks``), so
 an int8 chunk spans the same elements, and takes the same scale, in both
-packages.  The other families raise naming the ROADMAP Queue 1
-item that ports them.  The kernels are forward-only: a config
+packages.  The kernels are forward-only: a config
 with ``use_flash`` or ``use_kernel_matmul`` trains on the CPU's plain
 versions and raises on the card.
 """
@@ -57,24 +58,6 @@ from repro_torch.obs import trace
 from repro_torch.optim.optimizer import apply_updates, global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-#: where each family that is not ported yet waits (ROADMAP Queue 1)
-_WAITS = {"moe": "8 (MoE training)",
-          "ssm": "9 (recurrent-family training)",
-          "hybrid": "9 (recurrent-family training)"}
-#: the families the port trains
-_TRAINS = ("mlp", "dense", "encdec", "vlm")
-
-
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in _TRAINS:
-        item = _WAITS.get(cfg.family)
-        raise NotImplementedError(
-            f"{what} for the {cfg.family!r} family ({cfg.name}) is not "
-            f"ported yet" + (f": ROADMAP Queue 1 item {item}" if item
-                             else "") + "; the port trains the "
-            + ", ".join(_TRAINS) + " families")
-
-
 class TrainState(NamedTuple):
     params: Any
     opt_state: Any
@@ -84,7 +67,6 @@ class TrainState(NamedTuple):
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
     """Loss over one (micro)batch: ``(params, batch) -> (loss, metrics)``."""
-    _require_ported(cfg, "the train loss")
 
     def lm_loss(params, batch):
         logits, aux = lm_mod.forward(params, batch["tokens"], cfg)
@@ -118,6 +100,11 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
 class TrainStepConfig:
     n_micro: int = 1                  # gradient-accumulation microbatches
     compression: Optional[Any] = None  # optim.compression round trip
+    #: write the new params and optimizer state into the input state's
+    #: buffers (the optimizer's ``update_in_place``; the reference's
+    #: ``donate_argnums=(0,)``): the caller must not read the state it passed
+    #: in.  Same values as the functional step; off a mesh only
+    donate: bool = False
 
 
 def _world() -> int:
@@ -166,6 +153,11 @@ def _on_mesh(params: Any) -> bool:
     return isinstance(tree_leaves(params)[0], DTensor)
 
 
+def _full(x):
+    """A DTensor metric as the whole tensor; a local one as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
 def _to_layout(x, like):
     """DTensor ``x`` redistributed to ``like``'s placements."""
     if tuple(x.placements) == tuple(like.placements):
@@ -191,7 +183,11 @@ def build_train_step(cfg: ModelConfig, optimizer,
                   for p in tree_leaves(params)]
         loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), metrics, tree_unflatten(params, list(grads))
+        # the metrics cloned: the mlp loss is its own "ce", and the world's
+        # in-place all-reduce must not reach one storage twice
+        return (loss.detach(),
+                {k: v.detach().clone() for k, v in metrics.items()},
+                tree_unflatten(params, list(grads)))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -214,8 +210,9 @@ def build_train_step(cfg: ModelConfig, optimizer,
                 loss = loss + mb_loss
             grads = tree_map(lambda g: g / n, grads)
             loss = loss / n
+            metrics = None
         else:
-            loss, _, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(params, batch)
 
         if _on_mesh(params):
             # autograd leaves each grad a partial sum over the batch's mesh
@@ -223,20 +220,29 @@ def build_train_step(cfg: ModelConfig, optimizer,
             # all-reduce; a reduce-scatter where the state is DP-sharded)
             grads = tree_map(_to_layout, grads, _state_layout(state, params))
             loss = loss.full_tensor()
+            metrics = metrics and {k: _full(v) for k, v in metrics.items()}
         elif _world() > 1:
             world = _world()
-            for x in tree_leaves(grads) + [loss]:
+            for x in (tree_leaves(grads) + [loss]
+                      + list((metrics or {}).values())):
                 dist.all_reduce(x, op=dist.ReduceOp.SUM)
                 x.div_(world)
+        if metrics is None:
+            # as the reference's scan over microbatches reports them
+            metrics = {"ce": loss, "aux": torch.zeros((), device=loss.device)}
         if ts_cfg.compression is not None:
             grads = unstack_blocks(ts_cfg.compression.round_trip(
                 stack_blocks(grads, cfg)), grads)
-        metrics = {"ce": loss, "aux": torch.zeros((), device=loss.device)}
 
-        updates, opt_state = optimizer.update(grads, state.opt_state, params)
-        new_params = apply_updates(params, updates)
-        params = (tree_map(_to_layout, new_params, params)
-                  if _on_mesh(params) else new_params)
+        if ts_cfg.donate and not _on_mesh(params):
+            opt_state = optimizer.update_in_place(grads, state.opt_state,
+                                                  params)
+        else:
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  params)
+            new_params = apply_updates(params, updates)
+            params = (tree_map(_to_layout, new_params, params)
+                      if _on_mesh(params) else new_params)
         metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads),
                        step=state.step)
         new_state = TrainState(params=params, opt_state=opt_state,
@@ -249,9 +255,8 @@ def build_train_step(cfg: ModelConfig, optimizer,
 def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
                      optimizer, device: DeviceLike = None) -> TrainState:
     """Params from ``generator`` (``init_mlp``, ``init_encdec``,
-    ``init_vlm``, or ``init_lm`` for the dense family), a fresh optimizer
+    ``init_vlm``, or ``init_lm`` for the decoder LMs), a fresh optimizer
     state and step 0 on ``device`` (None: the card)."""
-    _require_ported(cfg, "the train state")
     init = {"mlp": mlp_mod.init_mlp, "encdec": encdec_mod.init_encdec,
             "vlm": vlm_mod.init_vlm}.get(cfg.family, lm_mod.init_lm)
     with trace.span("train.init_state", arch=cfg.name, family=cfg.family):
@@ -265,8 +270,7 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 def model_param_specs(cfg: ModelConfig):
     """The logical specs of the params ``init_train_state`` builds, for
-    every family (the dry-run lowers the ones that do not train here too):
-    per-layer lists, as the port's params are."""
+    every family: per-layer lists, as the port's params are."""
     if cfg.family == "encdec":
         return encdec_mod.encdec_specs(cfg)
     if cfg.family == "vlm":

@@ -4,6 +4,7 @@ snapshot semantics of an async save, the manifest against the JAX
 checkpointer's for the same train state, checkpoints crossing between the
 packages both ways, and a bitwise resume of reduced smollm-135m.
 """
+import functools
 import json
 import os
 
@@ -25,7 +26,8 @@ from repro_torch.convert import mlp_params_from_numpy
 from repro_torch.data.pipeline import DataConfig, make_stream, to_device
 from repro_torch.optim.optimizer import AdamW
 from repro_torch.train.loop import (TrainStepConfig, build_train_step,
-                                    init_train_state)
+                                    init_train_state, stack_blocks,
+                                    unstack_blocks)
 from repro_torch.tree import tree_leaves
 
 
@@ -301,3 +303,98 @@ def test_bitwise_resume(tmp_path):
                                  resumed.opt_state.nu])):
         assert torch.equal(a, b)
     assert int(resumed.opt_state.step) == int(straight.opt_state.step) == 6
+
+
+# ---- every family in the reference's layout ------------------------------------
+
+FAMILY_ARCHS = ("smollm-135m", "qwen2-moe-a2.7b", "hymba-1.5b", "xlstm-125m",
+                "whisper-tiny", "internvl2-26b")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_state(arch):
+    jcfg = jax_get_reduced(arch).replace(compute_dtype=jnp.float32)
+    jo = jax_opt.AdamW(learning_rate=1e-3)
+    return jax.tree_util.tree_map(np.asarray, jax_loop.init_train_state(
+        jax.random.PRNGKey(4), jcfg, jo))
+
+
+def _port_params(tree, cfg):
+    from repro_torch import convert
+    fn = {"encdec": convert.encdec_params_from_numpy,
+          "vlm": convert.vlm_params_from_numpy}.get(
+              cfg.family, convert.lm_params_from_numpy)
+    return fn(tree, device="cpu")
+
+
+def _port_state(jstate, cfg):
+    """The reference's numpy ``TrainState`` in the port's layout (per-layer
+    lists), AdamW's moments too."""
+    from repro_torch.optim.optimizer import AdamWState
+    from repro_torch.train.loop import TrainState
+    o = jstate.opt_state
+    return TrainState(
+        _port_params(jstate.params, cfg),
+        AdamWState(step=torch.tensor(int(o.step), dtype=torch.int32),
+                   mu=_port_params(o.mu, cfg), nu=_port_params(o.nu, cfg)),
+        torch.tensor(int(jstate.step), dtype=torch.int32),
+        torch.Generator().manual_seed(4))
+
+
+def _stacked_state(state, cfg):
+    """``state`` with its params and moments in the reference's layout
+    (``stack_blocks``: the scan-stacked blocks on a leading layer axis)."""
+    from repro_torch.optim.optimizer import AdamWState
+    o = state.opt_state
+    return state._replace(
+        params=stack_blocks(state.params, cfg),
+        opt_state=AdamWState(o.step, stack_blocks(o.mu, cfg),
+                             stack_blocks(o.nu, cfg)))
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_manifest_matches_the_jax_checkpointer(arch, tmp_path):
+    """Saved in the reference's layout (``stack_blocks``), the manifest of
+    each family's state is the reference's leaf for leaf (count, shapes,
+    dtypes, shards) but for the rng; restoring and ``unstack_blocks`` give
+    the saved per-layer lists bit for bit."""
+    cfg = get_reduced(arch)
+    jstate = _jax_state(arch)
+    state = _port_state(jstate, cfg)
+    JaxCheckpointer(str(tmp_path / "jax")).save(1, jstate)
+    ck = Checkpointer(str(tmp_path / "port"))
+    ck.save(1, _stacked_state(state, cfg))
+    want, got = _manifest(tmp_path / "jax", 1), _manifest(tmp_path / "port", 1)
+    assert got["n_leaves"] == want["n_leaves"]
+    assert got["shapes"][:-1] == want["shapes"][:-1]
+    assert got["dtypes"][:-1] == want["dtypes"][:-1]
+    assert list(got["checksums"]) == list(want["checksums"])
+    back, step = ck.restore(_stacked_state(_port_state(jstate, cfg), cfg))
+    assert step == 1
+    _assert_equal([state.params, state.opt_state.mu, state.opt_state.nu],
+                  [unstack_blocks(t, state.params) for t in
+                   (back.params, back.opt_state.mu, back.opt_state.nu)])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "hymba-1.5b",
+                                  "xlstm-125m"])
+def test_family_params_cross_between_the_packages(arch, tmp_path):
+    """The reference's params restore into the port's per-layer lists (by
+    ``unstack_blocks``), and the port's (moved off them, saved by
+    ``stack_blocks``) restore into the reference's tree."""
+    cfg = get_reduced(arch)
+    jparams = _jax_state(arch).params
+    params = _port_params(jparams, cfg)
+    JaxCheckpointer(str(tmp_path / "jax")).save(3, jparams)
+    got, step = Checkpointer(str(tmp_path / "jax")).restore(stack_blocks(
+        jax.tree_util.tree_map(torch.zeros_like, params), cfg))
+    assert step == 3
+    _assert_equal(params, unstack_blocks(got, params))
+
+    moved = stack_blocks(
+        jax.tree_util.tree_map(lambda x: x * 2.0 + 1.0, params), cfg)
+    Checkpointer(str(tmp_path / "port")).save(4, moved)
+    back, step = JaxCheckpointer(str(tmp_path / "port")).restore(jparams)
+    assert step == 4
+    for a, b in zip(jax.tree_util.tree_leaves(back), tree_leaves(moved)):
+        assert np.array_equal(np.asarray(a), b.numpy())

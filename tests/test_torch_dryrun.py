@@ -165,13 +165,44 @@ def test_cross_pod_bytes_come_from_the_groups_ranks():
             assert f(n) == hlo_analysis._COLLECTIVE_KINDS[kind](n)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "hymba-1.5b",
-                                  "xlstm-125m", "whisper-tiny",
-                                  "internvl2-26b"])
-def test_families_not_lowered_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        dryrun.lower_cell(arch, "decode_32k", "16x16")
+def _reduced(arch):
+    """The reduced config's fields as overrides of the full one but the
+    SSD's chunk (one of 8 would loop 512 times at 4096 tokens) and the
+    learned positions (the cell's sequence sets their table)."""
+    import dataclasses
+    full, small = configs.get_config(arch), configs.get_reduced(arch)
+    return {f.name: getattr(small, f.name)
+            for f in dataclasses.fields(small)
+            if f.name not in ("name", "ssm_chunk", "max_seq_len")
+            and getattr(small, f.name) != getattr(full, f.name)}
+
+
+@pytest.mark.parametrize("arch, shape, mesh", [
+    ("qwen2-moe-a2.7b", "train_4k", "4x2"),     # experts over the model axis
+    ("qwen2-moe-a2.7b", "train_4k", "2x3"),     # each expert's hidden axis
+    ("hymba-1.5b", "train_4k", "4x2"),
+    ("xlstm-125m", "train_4k", "4x2"),
+    ("whisper-tiny", "prefill_32k", "4x2"),
+    ("internvl2-26b", "train_4k", "4x2")])
+def test_every_family_lowers(arch, shape, mesh):
+    """A cell of each family that waited for item 12 step 7, at reduced
+    widths: a report with F per device, wire bytes by kind and peak bytes;
+    a train cell's data parallelism moves the grads (ZeRO-1: a
+    reduce-scatter and an all-gather), and the MoE's tokens reach experts
+    sharded on their own mesh axis by all-to-all."""
+    rep, low = dryrun.lower_cell(arch, shape, mesh, overrides=_reduced(arch))
     assert not dist.is_initialized()
+    kind = {"train": "train_step", "prefill": "prefill_step"}[
+        shapes.SHAPES[shape].kind]
+    assert rep.step_kind == kind and rep.num_devices == 8 - 2 * (mesh == "2x3")
+    assert low.flops > 0 and low.mem_bytes > 0
+    assert low.peak_memory_per_device > 0 and rep.bottleneck
+    assert low.wire_bytes == pytest.approx(
+        sum(low.wire_bytes_by_kind.values()))
+    if kind == "train_step":
+        assert {"reduce-scatter", "all-gather"} <= set(low.wire_bytes_by_kind)
+    if (arch, mesh) == ("qwen2-moe-a2.7b", "4x2"):
+        assert low.wire_bytes_by_kind["all-to-all"] > 0
 
 
 def test_cli_writes_a_report_and_counts_failures(tmp_path, capsys):
@@ -187,9 +218,29 @@ def test_cli_writes_a_report_and_counts_failures(tmp_path, capsys):
     rep = CellReport.from_json(path.read_text())
     assert rep.step_kind == "serve_step" and rep.num_devices == 4
     assert rep.bottleneck and rep.peak_memory_per_device > 0
+    # every family lowers (item 12 step 7): hymba's decode cell too
     assert dryrun.main(["--arch", "hymba-1.5b", "--shape", "decode_32k",
-                        "--mesh", "4x1", "--out", out]) == 1
-    assert "item 12" in capsys.readouterr().out
+                        "--mesh", "4x1", "--out", out]) == 0
+    assert "[OK" in capsys.readouterr().out
+
+
+def test_cli_sets_a_cell_against_its_1x1_report(tmp_path, capsys):
+    """With the cell's 1x1 report in ``--out``, a mesh's line gives F x N
+    over the 1x1 F beside its wire bytes by kind."""
+    out = str(tmp_path)
+    cell = ["--arch", "dlrm-mlp", "--shape", "decode_32k", "--out", out]
+    assert dryrun.main(cell + ["--mesh", "4x1"]) == 0
+    assert "F(1x1)" not in capsys.readouterr().out
+    assert dryrun.main(cell + ["--mesh", "1x1"]) == 0
+    assert dryrun.main(cell + ["--mesh", "4x1", "--force"]) == 0
+    line = capsys.readouterr().out.splitlines()[-3]
+    one, four = (CellReport.from_json((
+        tmp_path / f"dlrm-mlp__decode_32k__{m}__baseline.json").read_text())
+        for m in ("1x1", "4x1"))
+    assert line.startswith("[OK") and "4x1" in line
+    assert line.endswith(f"F x N / F(1x1) {four.flops * 4 / one.flops:.4f}")
+    assert "(none)" in line or all(k in line
+                                   for k in four.wire_bytes_by_kind)
 
 
 def test_mesh_counter_counts_one_device_of_a_dtensor_product():

@@ -37,7 +37,6 @@ from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import common, hybrid, transformer
 from repro_torch.serve import engine
-from repro_torch.train import loop
 
 ARCH = "hymba-1.5b"
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -346,9 +345,3 @@ def test_serve_cli_generates_on_the_cpu(capsys):
     seq = json.loads(out[1].removeprefix("first sequence: "))
     assert len(seq) == 12 and all(0 <= t < 512 for t in seq)
 
-
-def test_hybrid_training_still_raises_naming_its_item():
-    from repro_torch.optim import optimizer as opt
-    with pytest.raises(NotImplementedError,
-                       match="item 9 \\(recurrent-family training"):
-        loop.build_train_step(get_config(ARCH), opt.AdamW())

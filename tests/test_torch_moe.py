@@ -38,13 +38,12 @@ from repro.distributed import collectives as jax_coll
 from repro.models import moe as jax_moe
 from repro.models import transformer as jax_tf
 from repro.serve import engine as jax_engine
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_reduced
 from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
 from repro_torch.distributed import collectives
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import common, moe, transformer
 from repro_torch.serve import engine
-from repro_torch.train import loop
 
 ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -364,13 +363,6 @@ def test_serve_cli_generates_on_the_cpu(arch, capsys):
                         r"[0-9.]+s \([0-9]+ tok/s\)", out[0])
     seq = json.loads(out[1].removeprefix("first sequence: "))
     assert len(seq) == 6 and all(0 <= t < 512 for t in seq)
-
-
-def test_moe_training_still_raises_naming_its_item():
-    from repro_torch.optim import optimizer as opt
-    for arch in ARCHS:
-        with pytest.raises(NotImplementedError, match="item 8 \\(MoE training"):
-            loop.build_train_step(get_config(arch), opt.AdamW())
 
 
 # --- collectives ----------------------------------------------------------------------

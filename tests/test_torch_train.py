@@ -7,7 +7,11 @@ the same numpy batches.  After each of 3 steps the params, the loss and the
 pre-clip ``grad_norm`` agree within 1e-5 relative (params: of the tree's
 largest value), with ``n_micro`` 1 and 2, from step 0 and from a state
 carried over at step 2.  A two-process gloo run checks the data-parallel
-step, the collective benches and the calibrate CLI's two-rank path.
+step, the collective benches and the calibrate CLI's two-rank path.  The
+moe, hybrid and ssm families (reduced qwen2-moe, qwen3-moe, hymba, xlstm)
+are held to ``jax.value_and_grad`` of the reference's loss and to 3 of its
+AdamW steps, plain and int8-compressed; the donated step to the functional
+one, bit for bit.
 """
 import functools
 import json
@@ -116,11 +120,10 @@ def test_step_leaves_its_input_state_alone():
                    for a, b in zip(before, tree_leaves(new.params)))
 
 
-def test_other_families_and_compression_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loop.build_train_step(get_config("hymba-1.5b"), opt.AdamW())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loop.build_train_step(get_config("qwen2-moe-a2.7b"), opt.AdamW())
+def test_every_family_builds_and_compression_trains():
+    from repro_torch.configs import ASSIGNED
+    for arch in ASSIGNED:           # every family's step builds (items 8, 9)
+        assert callable(loop.build_train_step(get_config(arch), opt.AdamW()))
     # the specs of every family are ported (item 12): the dry-run reads them
     from repro_torch.models import transformer
     for arch in ("smollm-135m", "qwen2-moe-a2.7b", "hymba-1.5b"):
@@ -138,6 +141,42 @@ def test_other_families_and_compression_raise_naming_their_item():
     assert int(step(state, _to_torch(_batches(1)[0]))[0].step) == 1
     assert loop.model_param_specs(get_reduced("dlrm-mlp")) == \
         mlp_dlrm.mlp_specs(get_reduced("dlrm-mlp"))
+
+
+@pytest.mark.parametrize("make_opt", [lambda: opt.AdamW(learning_rate=1e-2),
+                                      lambda: opt.SGD(learning_rate=1e-2)],
+                         ids=["adamw", "sgd"])
+def test_donated_step_equals_the_functional_step(make_opt):
+    """``TrainStepConfig(donate=True)`` writes the new params and moments
+    into the input state's buffers, leaf by leaf, and gives the functional
+    step's values bit for bit (reduced qwen2-moe: its aux in the loss)."""
+    cfg = get_reduced("qwen2-moe-a2.7b").replace(compute_dtype=torch.float32)
+    o = make_opt()
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 17)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = []
+    for donate in (False, True):
+        state = loop.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                      o, device="cpu")
+        ptrs = [x.data_ptr() for x in tree_leaves(state.params)]
+        step = loop.build_train_step(cfg, o, loop.TrainStepConfig(
+            donate=donate))
+        for _ in range(3):
+            state, m = step(state, batch)
+        same = [x.data_ptr() for x in tree_leaves(state.params)] == ptrs
+        assert same == donate
+        runs.append((state, m))
+    (a, ma), (b, mb) = runs
+    moments = [f for f in a.opt_state._fields if f != "step"]
+    for x, y in zip(
+            tree_leaves([a.params] + [getattr(a.opt_state, f)
+                                      for f in moments]),
+            tree_leaves([b.params] + [getattr(b.opt_state, f)
+                                      for f in moments])):
+        assert torch.equal(x, y)
+    assert int(a.opt_state.step) == int(b.opt_state.step) == 3
+    assert all(torch.equal(ma[k], mb[k]) for k in ("loss", "ce", "aux"))
 
 
 def test_mlp_specs_equal_reference():
@@ -411,3 +450,293 @@ def test_calibrate_cli_measures_the_network_with_two_ranks(gloo_run):
 def test_collective_benches_need_two_ranks():
     from repro_torch.measure import microbench
     assert microbench.collective_benches(device="cpu") == []
+
+
+# ---- the moe, hybrid and ssm families --------------------------------------------
+#
+# Reduced configs in fp32, tokens (2, SEQ + 1): hymba's SSD runs three chunks
+# of 8 and its local layer's window of 8 is crossed; the MoE's one group of
+# 2·SEQ tokens has 15 slots an expert at capacity_factor 1.25, where choices
+# drop (asserted), and none drop at E / k.
+
+SEQ = 24
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "hymba-1.5b",
+                "xlstm-125m")
+#: (arch, capacity_factor): the MoE configs at the default and at E / k
+FAMILY_CASES = [("qwen2-moe-a2.7b", 1.25), ("qwen2-moe-a2.7b", 4.0),
+                ("qwen3-moe-30b-a3b", 1.25), ("qwen3-moe-30b-a3b", 4.0),
+                ("hymba-1.5b", None), ("xlstm-125m", None)]
+_ONE = ("scale", "skip_scale", "beta_attn", "beta_mamba", "D_skip",
+        "q_norm", "k_norm")
+
+
+def _family_cfgs(arch, cf=None):
+    kw = {} if cf is None else {"capacity_factor": cf}
+    return (jax_get_reduced(arch).replace(compute_dtype=jnp.float32, **kw),
+            get_reduced(arch).replace(compute_dtype=torch.float32, **kw))
+
+
+@functools.lru_cache(maxsize=None)
+def _family_tree(arch):
+    """The reference ``init_lm`` tree of ``arch`` (reduced), filled from
+    numpy: norm scales and skips about 1, decay and gate biases spread."""
+    from repro.models import transformer as jax_tf
+    jcfg, _ = _family_cfgs(arch)
+    shapes = jax.eval_shape(lambda: jax_tf.init_lm(jax.random.PRNGKey(0),
+                                                   jcfg))
+    rng = np.random.default_rng(11)
+
+    def fill(path, s):
+        name = str(getattr(path[-1], "key", ""))
+        n = rng.standard_normal(s.shape)
+        if name in _ONE:
+            x = 1.0 + 0.1 * n
+        elif name in ("A_log", "b_dt"):
+            x = 0.3 * n
+        elif name in ("b_if", "b", "r_diag"):
+            x = 0.5 * n
+        elif name in ("bq", "bk", "bv"):
+            x = 0.1 * n
+        elif name == "embed":
+            x = 0.02 * n
+        else:
+            x = n / np.sqrt(s.shape[-2])
+        return x.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _family_batch(arch, seed=0):
+    toks = np.random.default_rng(seed).integers(
+        0, get_reduced(arch).vocab_size, (2, SEQ + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v).long() for k, v in batch.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_family_grads(arch, cf):
+    jcfg, _ = _family_cfgs(arch, cf)
+    (loss, m), grads = jax.jit(jax.value_and_grad(
+        jax_loop.make_loss_fn(jcfg), has_aux=True))(
+            jax.tree.map(jnp.asarray, _family_tree(arch)),
+            jax.tree.map(jnp.asarray, _family_batch(arch)))
+    return (float(loss), float(m["ce"]), float(m["aux"]),
+            [np.asarray(g) for g in jax.tree_util.tree_leaves(grads)])
+
+
+def _family_grads(cfg, arch):
+    """The port's loss, metrics and grads of the same tree and batch, the
+    grads stacked as the reference holds them."""
+    from repro_torch.convert import lm_params_from_numpy
+    params = lm_params_from_numpy(_family_tree(arch), device="cpu")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss, m = loop.make_loss_fn(cfg)(params,
+                                     _torch_batch(_family_batch(arch)))
+    grads = torch.autograd.grad(loss, leaves)
+    from repro_torch.tree import tree_unflatten
+    stacked = loop.stack_blocks(tree_unflatten(params, list(grads)), cfg)
+    return loss, m, [g.numpy() for g in tree_leaves(stacked)]
+
+
+def _moe_drops(cfg, arch):
+    """Choices past their expert's capacity in layer 0 of the batch."""
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import attention, moe, transformer
+    from repro_torch.models.common import apply_norm
+    params = lm_params_from_numpy(_family_tree(arch), device="cpu")
+    blk = params["blocks"][0]
+    with torch.no_grad():
+        x = transformer._embed(params, torch.from_numpy(
+            _family_batch(arch)["tokens"]).long(), cfg)
+        x = x + attention.apply_attention(
+            blk["attn"], apply_norm(blk["attn_norm"], x, cfg), cfg)
+        h = apply_norm(blk["ffn_norm"], x, cfg).reshape(-1, cfg.d_model)
+        _, idx, _ = moe.route(h @ blk["moe"]["router"], cfg)
+    counts = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+    return int((counts - moe._capacity(h.shape[0], cfg)).clamp_min(0).sum())
+
+
+@pytest.mark.parametrize("arch, cf", FAMILY_CASES)
+def test_family_loss_and_grads_match_jax_grad(arch, cf):
+    """The loss, ``ce``, ``aux`` and every grad leaf against
+    ``jax.value_and_grad`` of the reference's ``lm_loss``: 1e-5 (loss and
+    metrics relative, grads of the largest |grad|)."""
+    _, cfg = _family_cfgs(arch, cf)
+    jloss, jce, jaux, want = _jax_family_grads(arch, cf)
+    loss, m, got = _family_grads(cfg, arch)
+    assert _rel(loss.item(), jloss) < TOL
+    assert _rel(m["ce"].item(), jce) < TOL
+    if cfg.family == "moe":
+        assert _rel(m["aux"].item(), jaux) < TOL and jaux > 0
+        assert loss.item() == pytest.approx(
+            m["ce"].item() + cfg.router_aux_weight * m["aux"].item(),
+            rel=1e-6)
+    else:
+        assert float(m["aux"]) == jaux == 0.0
+    assert [g.shape for g in got] == [w.shape for w in want]
+    scale = max(float(np.max(np.abs(w))) for w in want)
+    assert max(float(np.max(np.abs(g - w)))
+               for g, w in zip(got, want)) / scale < TOL
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+def test_moe_capacity_cases_drop_and_do_not(arch):
+    """The default capacity drops choices in this batch; E / k drops none."""
+    for cf, dropping in ((1.25, True), (4.0, False)):
+        _, cfg = _family_cfgs(arch, cf)
+        assert (_moe_drops(cfg, arch) > 0) == dropping
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_remat_gives_the_grads_of_none(arch, remat):
+    """Checkpointed blocks recompute the same values (the MoE's routing and
+    aux included): the loss equal, every grad within 1e-6 relative."""
+    _, cfg = _family_cfgs(arch)
+    loss, m, want = _family_grads(cfg, arch)
+    got_loss, gm, got = _family_grads(cfg.replace(remat=remat), arch)
+    assert got_loss.item() == loss.item()
+    assert gm["aux"].item() == m["aux"].item()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(torch.from_numpy(g), torch.from_numpy(w),
+                                   rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_trains_on_the_cpu(arch):
+    """Each family that waited trains from ``init_train_state`` (ROADMAP
+    items 8 and 9): 3 AdamW steps on one batch, the loss finite and
+    falling; an MoE's loss is its CE plus ``router_aux_weight`` times the
+    aux, the others' aux is 0."""
+    _, cfg = _family_cfgs(arch)
+    o = opt.AdamW(learning_rate=1e-2)
+    state = loop.init_train_state(torch.Generator().manual_seed(0), cfg, o,
+                                  device="cpu")
+    step = loop.build_train_step(cfg, o)
+    batch = _torch_batch(_family_batch(arch, seed=3))
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert int(state.step) == 3
+    if cfg.family == "moe":
+        assert m["aux"].item() > 0.0
+        assert m["loss"].item() == pytest.approx(
+            m["ce"].item() + cfg.router_aux_weight * m["aux"].item(),
+            rel=1e-6)
+    else:
+        assert m["aux"].item() == 0.0 and m["ce"].item() == m["loss"].item()
+
+
+FAMILY_LR = 1e-2
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_family_run(arch, compressed):
+    """The reference's state before each of 3 jitted AdamW steps, the batch
+    it took, its metrics and, compressed, its grads before compression;
+    numpy."""
+    from repro.optim import compression as jax_comp
+    jcfg, _ = _family_cfgs(arch)
+    jo = jax_opt.AdamW(learning_rate=FAMILY_LR)
+    ts = jax_loop.TrainStepConfig(compression=jax_comp.StatelessRoundTrip(
+        jax_comp.Int8Compressor()) if compressed else None)
+    step = jax.jit(jax_loop.build_train_step(jcfg, jo, ts))
+    grad_fn = jax.jit(jax.value_and_grad(jax_loop.make_loss_fn(jcfg),
+                                         has_aux=True))
+    params = jax.tree.map(jnp.asarray, _family_tree(arch))
+    state = jax_loop.TrainState(params, jo.init(params),
+                                jnp.zeros((), jnp.int32),
+                                jax.random.PRNGKey(0))
+    out = []
+    for i in range(3):
+        batch = _family_batch(arch, seed=20 + i)
+        jb = jax.tree.map(jnp.asarray, batch)
+        grads = (jax.tree_util.tree_leaves(grad_fn(state.params, jb)[1])
+                 if compressed else None)
+        before = jax.tree.map(np.asarray, state)
+        state, m = step(state, jb)
+        out.append((before, batch, {k: float(m[k]) for k in
+                                    ("loss", "ce", "aux", "grad_norm")},
+                    grads and [np.asarray(g) for g in grads]))
+    return out, jax.tree.map(np.asarray, state)
+
+
+def _port_lm_state(jstate):
+    """The reference's ``TrainState`` (numpy) in the port's layout."""
+    from repro_torch.convert import lm_params_from_numpy
+    lm = functools.partial(lm_params_from_numpy, device="cpu")
+    mu, nu = jstate.opt_state.mu, jstate.opt_state.nu
+    return loop.TrainState(lm(jstate.params), opt.AdamWState(
+        step=torch.tensor(int(jstate.opt_state.step), dtype=torch.int32),
+        mu=lm(mu), nu=lm(nu)), torch.tensor(int(jstate.step),
+                                            dtype=torch.int32), None)
+
+
+def _int8_grid(x):
+    """x on the int8 grid of its chunks: x / scale, before rounding."""
+    from repro_torch.optim.compression import Int8Compressor
+    chunk = Int8Compressor().chunk
+    n = x.size
+    fp = np.pad(x.reshape(-1), (0, (-n) % chunk)).reshape(-1, chunk)
+    scale = np.maximum(np.abs(fp).max(1, keepdims=True) / np.float32(127.0),
+                       np.float32(1e-12))
+    return (fp / scale).reshape(-1)[:n].reshape(x.shape)
+
+
+@pytest.mark.parametrize("compressed", [False, True],
+                         ids=["plain", "int8"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_steps_match_jax(arch, compressed):
+    """Each of 3 AdamW steps from the reference's state before it: loss,
+    ``ce``, ``aux`` and ``grad_norm`` within 1e-5 relative, every param
+    within 1e-5 of the largest, stacked as the reference's.  Two kinds of
+    element may differ, at most one in 1000 of them together:
+
+    * one whose grads so far stay, by their RMS (the reference's second
+      moment after the step), within the grads' parity tolerance (1e-5) of
+      the largest RMS: AdamW divides such a grad by its own size, so a
+      difference at the tolerance moves the update by up to the rate;
+    * compressed, one whose grad sits within 1e-3 of a .5 boundary of the
+      int8 grid (the packages' grads differ in the last fp32 places and
+      may round to neighbouring codes)."""
+    from repro_torch.optim.compression import (Int8Compressor,
+                                               StatelessRoundTrip)
+    steps, final = _jax_family_run(arch, compressed)
+    _, cfg = _family_cfgs(arch)
+    o = opt.AdamW(learning_rate=FAMILY_LR)
+    step = loop.build_train_step(cfg, o,
+                                 loop.TrainStepConfig(compression=(
+                                     StatelessRoundTrip(Int8Compressor())
+                                     if compressed else None)))
+    for i, (before, batch, jm, jgrads) in enumerate(steps):
+        new, m = step(_port_lm_state(before), _torch_batch(batch))
+        assert int(m["step"]) == i and int(new.step) == i + 1
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            if jm[k] == 0.0:
+                assert m[k].item() == 0.0
+            else:
+                assert _rel(m[k].item(), jm[k]) < TOL, k
+        got = [x.numpy() for x in
+               tree_leaves(loop.stack_blocks(new.params, cfg))]
+        after = steps[i + 1][0] if i + 1 < len(steps) else final
+        want = jax.tree_util.tree_leaves(after.params)
+        assert [g.shape for g in got] == [w.shape for w in want]
+        scale = max(float(np.max(np.abs(w))) for w in want)
+        rms = [np.sqrt(v / (1.0 - o.b2 ** (i + 1)))
+               for v in jax.tree_util.tree_leaves(after.opt_state.nu)]
+        small = TOL * max(float(np.max(r)) for r in rms)
+        n_far = 0
+        for g, w, jg, r in zip(got, want, jgrads or rms, rms):
+            far = np.abs(g - w) > TOL * scale
+            n_far += int(far.sum())
+            far &= r >= small
+            if compressed:
+                v = _int8_grid(jg)
+                far &= ~(np.abs(np.abs(v - np.floor(v)) - 0.5) < 1e-3)
+            assert not np.any(far)
+        assert n_far <= 1e-3 * sum(w.size for w in want)

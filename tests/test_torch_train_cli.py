@@ -1,7 +1,8 @@
 """The port's training launcher (``repro_torch.launch.train``) on the CPU:
 reduced smollm-135m trains, prints the reference's ``CE`` line and a
 Ridgeline report, writes committed checkpoints, and a second invocation with
-more steps resumes at the newest one; `--mesh` lays the state out on a
+more steps resumes at the newest one (reduced hymba, xLSTM and qwen2-moe
+too, bit for bit); `--mesh` lays the state out on a
 mesh that must be the world (1x1 in one process, 2x1 under torchrun), and
 a larger one exits 2; over the model axis (1x2, and 2x2 under the dry-run's
 sequence-parallel ZeRO-1 rules) each step's CE and the saved params and
@@ -61,6 +62,36 @@ def test_trains_checkpoints_and_resumes(tmp_path, capsys):
         assert torch.equal(a, b)
     assert [h["ce"] for h in straight.history[8:]] == \
         [h["ce"] for h in run.history]
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-125m",
+                                  "qwen2-moe-a2.7b"])
+def test_family_trains_checkpoints_and_resumes(arch, tmp_path, capsys):
+    """The hybrid, ssm and moe families through the CLI (items 8, 9): 4
+    steps with checkpoints at 2 and 4, then ``--steps 6`` resumes at 4 and
+    ends bit for bit where an uninterrupted 6-step run does (params, AdamW
+    moments, CE of each step)."""
+    args = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+            "--seq", "16", "--ckpt-every", "2"]
+    ckpt = str(tmp_path / "ckpt")
+    assert train_cli.main(args + ["--steps", "4", "--ckpt-dir", ckpt]) == 0
+    assert "steps 0..3  CE " in capsys.readouterr().out
+    assert _steps(ckpt) == ["step_000000002", "step_000000004"]
+    run = train_cli.train(train_cli.parse_args(
+        args + ["--steps", "6", "--ckpt-dir", ckpt]))
+    assert [h["step"] for h in run.history] == [4, 5]
+    straight = train_cli.train(train_cli.parse_args(
+        args + ["--steps", "6", "--ckpt-dir", str(tmp_path / "straight")]))
+    capsys.readouterr()
+    for a, b in zip(tree_leaves([straight.state.params,
+                                 straight.state.opt_state.mu,
+                                 straight.state.opt_state.nu]),
+                    tree_leaves([run.state.params, run.state.opt_state.mu,
+                                 run.state.opt_state.nu])):
+        assert torch.equal(a, b)
+    assert [h["ce"] for h in straight.history[4:]] == \
+        [h["ce"] for h in run.history]
+    assert run.report.work.flops > 0
 
 
 def test_mesh_waits_for_item_12(tmp_path, capsys):
@@ -160,7 +191,8 @@ else:
     from repro_torch.tree import tree_map
     shape = SHAPES["train_4k"]
     cfg = dryrun._prepare_cfg(get_reduced(args.arch).replace(
-        compute_dtype=torch.float32), shape)
+        compute_dtype=torch.float32,
+        **json.loads(os.environ.get("CFG_OVERRIDES", "{}"))), shape)
     opt = AdamW(learning_rate=warmup_cosine(args.lr, 20, args.steps))
     step = build_train_step(cfg, opt)
     stream = make_stream(cfg, DataConfig(seed=args.seed,
@@ -238,6 +270,78 @@ def test_the_model_axis_trains_as_one_process(tmp_path, capsys, mode, arch,
         ce = json.loads((tmp_path / f"ce{r}.json").read_text())
         assert ce == pytest.approx(want, abs=1e-5)
         got = _restored(str(tmp_path / "many" / f"rank{r}"), arch)
+        for a, b in zip(tree_leaves(ref.params), tree_leaves(got.params)):
+            torch.testing.assert_close(b, a, rtol=0, atol=5e-5)
+        for moments in ("mu", "nu"):
+            for a, b in zip(tree_leaves(getattr(ref.opt_state, moments)),
+                            tree_leaves(getattr(got.opt_state, moments))):
+                torch.testing.assert_close(
+                    b, a, rtol=0, atol=1e-4 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("arch,mesh,overrides", [
+    # groups of 8 tokens on each device's (2, 8) shard, 8 experts over the
+    # model axis: the buffers move to their experts by all-to-all and back
+    ("qwen2-moe-a2.7b", "2x2", {"moe_group_tokens": 8}),
+    # groups of 16: the sequence gathered, each device slices its experts'
+    # buffers and the combine is a partial sum
+    ("qwen2-moe-a2.7b", "2x2", {"moe_group_tokens": 16}),
+    # 8 experts on 3: each expert's hidden axis sharded instead, the partial
+    # output reduce-scattered on its 48 channels, or (64 on 3) kept partial
+    ("qwen2-moe-a2.7b", "1x3", {"moe_group_tokens": 8, "d_model": 48}),
+    ("qwen2-moe-a2.7b", "1x3", {"moe_group_tokens": 8}),
+    # the SSD on each device's sequences, v's channels split on the model
+    # axis (hymba's Mamba heads, the xLSTM's mLSTM); the sLSTM on DTensors
+    ("hymba-1.5b", "2x2", {}),
+    ("xlstm-125m", "2x2", {}),
+])
+def test_the_families_train_sharded_as_one_process(tmp_path, arch, mesh,
+                                                   overrides):
+    """Values behind the moe, hybrid and ssm families' sharded layouts
+    (``moe._groups``, ``_dispatch``, ``_experts``, ``_combine``,
+    ``ssd._on_shards``, ``ssm._log_sigmoid``) under the dry-run's
+    sequence-parallel ZeRO-1 train rules on gloo ranks: 3 steps' CE and the
+    saved state held to the same 3 steps in one process, with the bounds of
+    ``test_the_model_axis_trains_as_one_process``."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data.pipeline import DataConfig, make_stream, to_device
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.optimizer import warmup_cosine
+    from repro_torch.train.loop import build_train_step
+    args = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "4",
+            "--seq", "16", "--steps", "3", "--ckpt-every", "4"]
+    cfg = dryrun._prepare_cfg(get_reduced(arch).replace(
+        compute_dtype=torch.float32, **overrides), SHAPES["train_4k"])
+    opt = AdamW(learning_rate=warmup_cosine(3e-3, 20, 3))
+    step = build_train_step(cfg, opt)
+    stream = make_stream(cfg, DataConfig(seed=0, global_batch=4, seq_len=16))
+    ref = init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                           device="cpu")
+    want = []
+    for i in range(3):
+        ref, m = step(ref, to_device(stream.batch(i), "cpu"))
+        want.append(float(m["ce"]))
+    script = tmp_path / "rank.py"
+    script.write_text(RANK_SCRIPT)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    ranks = 4 if mesh == "2x2" else 3
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CFG_OVERRIDES=json.dumps(overrides))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         str(ranks), "--master_addr", "127.0.0.1", "--master_port", port,
+         str(script), "sp", str(tmp_path), *args, "--mesh", mesh,
+         "--ckpt-dir", str(tmp_path / "many")], env=env, capture_output=True,
+        text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    for r in range(ranks):
+        ce = json.loads((tmp_path / f"ce{r}.json").read_text())
+        assert ce == pytest.approx(want, abs=1e-5)
+        got, _ = Checkpointer(str(tmp_path / "many" / f"rank{r}")).restore(
+            init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                             device="cpu"))
         for a, b in zip(tree_leaves(ref.params), tree_leaves(got.params)):
             torch.testing.assert_close(b, a, rtol=0, atol=5e-5)
         for moments in ("mu", "nu"):

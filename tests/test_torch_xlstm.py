@@ -31,12 +31,11 @@ from repro.configs import get_reduced as jax_get_reduced
 from repro.models import ssm as jax_ssm
 from repro.models import transformer as jax_tf
 from repro.serve import engine as jax_engine
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_reduced
 from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import common, ssm, transformer
 from repro_torch.serve import engine
-from repro_torch.train import loop
 
 ARCH = "xlstm-125m"
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -402,9 +401,3 @@ def test_serve_cli_generates_on_the_cpu(capsys):
     seq = json.loads(out[1].removeprefix("first sequence: "))
     assert len(seq) == 7 and all(0 <= t < 512 for t in seq)
 
-
-def test_ssm_training_still_raises_naming_its_item():
-    from repro_torch.optim import optimizer as opt
-    with pytest.raises(NotImplementedError,
-                       match="item 9 \\(recurrent-family training"):
-        loop.build_train_step(get_config(ARCH), opt.AdamW())
