@@ -18,13 +18,14 @@ test-slow:       ## the slow tier only (marked end-to-end tests)
 bench:           ## paper-claim checks; nonzero exit on mismatch
 	PYTHONPATH=src $(PY) -m benchmarks.run
 
-lint:            ## ruff (when installed) + the repro.analysis static gate
+lint:            ## ruff (when installed) + the static gates of both packages
 	@if command -v ruff >/dev/null 2>&1; then \
 		ruff check src benchmarks examples; \
 	else \
 		echo "lint: ruff not installed, skipping (config pinned in pyproject.toml)"; \
 	fi
 	PYTHONPATH=src $(PY) -m repro.analysis src/repro
+	PYTHONPATH=src $(PY) -m repro_torch.analysis src/repro_torch
 
 calibrate-smoke: ## measure this box + fit achievable ceilings (<60s, CPU)
 	PYTHONPATH=src $(PY) -m repro.measure.calibrate --backend cpu --smoke --devices 4

@@ -40,8 +40,9 @@ after:
   xlstm_prefill, xlstm_decode
               xlstm-125m at full width and depth (mLSTM blocks, sLSTM at
               layers 3 and 11; no kernel of the port on its path, as in the
-              JAX package): the prefill (8, 2048) timed, counted and
-              profiled, the card against the CPU; decode at B = 8 teacher-
+              JAX package): the prefill (8, 2048) timed and counted, and
+              profiled at a depth cut to ``XLSTM_PROFILE_LAYERS``, the card
+              against the CPU; decode at B = 8 teacher-
               forced in bf16 and fp32, greedy generation, the step timed;
   encdec_prefill
               whisper-tiny at full width and depth (4 + 4 layers, d 384, 6
@@ -99,11 +100,12 @@ after:
               It launches no kernel of the port (the blocked matmul is
               forward-only, as the JAX package's is);
   train_cli   the training launcher (``launch.train``) on smollm-135m at
-              full width and depth, bf16 compute, (8, 512): 20 steps with
-              checkpoints at 10 and 20, the state restored from step 20 bit
-              for bit equal to the one saved, a second invocation with 30
-              steps resuming at 20, its CE held to an uninterrupted 30-step
-              run's (``RESUME_TOL``); the step timed, profiled and counted,
+              full width and depth, bf16 compute, (8, 512): 30 steps with
+              checkpoints at 10, 20 and 30, the state restored from step 30
+              bit for bit equal to the one the run ended in, then, step 30's
+              checkpoint removed, the same command resuming at 20, its CE
+              held to the first run's (``RESUME_TOL``) and its final state
+              compared bit for bit; the step timed, profiled and counted,
               the data pipeline's batch and the checkpointer's save, async
               stall, crc32 and restore timed;
   train_replay
@@ -186,7 +188,17 @@ after:
               and the planner's dp-16 term within 1%, and a report with its
               bottleneck and memory per device for each cell (a train cell
               of the moe, hybrid and ssm families, a prefill cell of the
-              enc-dec and VLM ones among them).
+              enc-dec and VLM ones, and hymba-1.5b's decode at 1x1, which
+              torch 2.11 refused before a one-device axis replicated, among
+              them);
+  examples    the five examples' counterparts (``examples/*_torch.py``:
+              the serve demo, the paper's case study, the planner views, the
+              quickstart and the Ridgeline of three programs), each on the
+              card in a process of its own at the reference example's sizes:
+              exit 0 and ``OK``, its seconds and its kernel launches by
+              variant;
+  analysis    ``python -m repro_torch.analysis`` on the port's tree: its
+              exit code, files and findings (it must be clean).
 
 Every blocked-matmul and flash-attention launch of the MoE, hybrid,
 enc-dec and VLM paths and the three after them must take the sm90 variant
@@ -350,6 +362,11 @@ RING_TOL = 1e-3
 XLSTM_ARCH = "xlstm-125m"
 XLSTM_PREFILL = (8, 2048)
 XLSTM_SAMPLES = 3
+#: the xLSTM prefill's profile at a depth cut to this many layers, its
+#: first three mLSTM blocks: the profiler took a minute to walk the full
+#: depth's ~112k launches, most of them the two sLSTM layers' 2048 steps
+#: each, whose recurrence is timed alone instead
+XLSTM_PROFILE_LAYERS = 3
 XLSTM_B, XLSTM_TF = 8, 64
 XLSTM_PROMPT, XLSTM_NEW = 32, 32
 #: xlstm-125m on the card against the same weights on the CPU, fp32 (TF32
@@ -494,8 +511,12 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+#: the smoke's start, for each phase's line
+T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -934,10 +955,11 @@ def leaves_equal(saved, restored) -> bool:
 
 def train_cli(dev, say, tmp: str) -> dict:
     """The training launcher (``launch.train``) on smollm-135m at full width
-    and depth: 20 steps with checkpoints at 10 and 20, the state restored
-    from step 20 held bit for bit to the one saved, a resume to 30 from the
-    same directory, and an uninterrupted 30-step run as the yardstick of the
-    resumed steps' CE; then the step, the data pipeline and the
+    and depth: 30 steps with checkpoints at 10, 20 and 30, the state
+    restored from step 30 held bit for bit to the one the run ended in;
+    then, step 30's checkpoint removed, a second run of the same command
+    resuming at 20 from the same directory, its CE held to the first run's
+    (the uninterrupted yardstick); then the step, the data pipeline and the
     checkpointer timed.  Returns the step's numbers for the plane."""
     import shutil
 
@@ -948,61 +970,54 @@ def train_cli(dev, say, tmp: str) -> dict:
     from repro_torch.measure.timers import cuda_event_ms, time_callable
     from repro_torch.models.common import count_params
 
-    def run(steps: int, ckpt_dir: str):
+    def run(ckpt_dir: str):
         t0 = time.perf_counter()
         out = launcher.train(launcher.parse_args(
-            TRAIN_CLI + ["--steps", str(steps), "--ckpt-dir", ckpt_dir]))
+            TRAIN_CLI + ["--steps", "30", "--ckpt-dir", ckpt_dir]))
         return out, time.perf_counter() - t0
 
-    d, yard = os.path.join(tmp, "resumed"), os.path.join(tmp, "straight")
+    d = os.path.join(tmp, "run")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    first, wall1 = run(20, d)
+    straight, wall1 = run(d)
     peak = torch.cuda.max_memory_allocated()
-    n_params = count_params(first.state.params)
-    ce1 = [h["ce"] for h in first.history]
-    say(f"run 1 ({' '.join(TRAIN_CLI)} --steps 20): {n_params} fp32 params, "
-        f"AdamW state 2 x fp32, {wall1:.2f} s (init, 20 steps, saves at 10 "
-        f"and 20, the final sync save, the report's counted step); CE "
+    n_params = count_params(straight.state.params)
+    ce1 = [h["ce"] for h in straight.history]
+    say(f"run 1 ({' '.join(TRAIN_CLI)} --steps 30): {n_params} fp32 params, "
+        f"AdamW state 2 x fp32, {wall1:.2f} s (init, 30 steps, saves at 10, "
+        f"20 and 30, the final sync save, the report's counted step); CE "
         + " ".join(f"{x:.4f}" for x in ce1) + f"; peak {peak / 1e9:.3f} GB")
-    check([h["step"] for h in first.history] == list(range(20)),
-          "run 1 did not run steps 0-19")
+    check([h["step"] for h in straight.history] == list(range(30)),
+          "run 1 did not run steps 0-29")
     check(all(np.isfinite(ce1)) and np.mean(ce1[-5:]) < np.mean(ce1[:5]),
           f"run 1's CE does not fall: {ce1}")
     ck = Checkpointer(d)
-    check(ck.latest_step() == 20, f"newest committed step {ck.latest_step()}")
+    check(ck.latest_step() == 30, f"newest committed step {ck.latest_step()}")
     t0 = time.perf_counter()
-    restored, _ = ck.restore(first.state, step=20)
+    restored, _ = ck.restore(straight.state, step=30)
     torch.cuda.synchronize()
-    say(f"step 20 restored on the card in {time.perf_counter() - t0:.3f} s; "
-        f"bit for bit equal to the saved state: "
-        f"{leaves_equal(first.state, restored)}")
-    check(leaves_equal(first.state, restored),
-          "the restored step-20 state differs from the one saved")
+    say(f"step 30 restored on the card in {time.perf_counter() - t0:.3f} s; "
+        f"bit for bit equal to the state run 1 ended in: "
+        f"{leaves_equal(straight.state, restored)}")
+    check(leaves_equal(straight.state, restored),
+          "the restored step-30 state differs from the one saved")
     del restored
 
-    second, wall2 = run(30, d)
+    shutil.rmtree(os.path.join(d, "step_000000030"))
+    second, wall2 = run(d)
     steps2 = [h["step"] for h in second.history]
-    say(f"run 2 (--steps 30, same directory): resumed at {steps2[0]}, ran "
-        f"{steps2[0]}..{steps2[-1]} in {wall2:.2f} s")
+    ce2 = [h["ce"] for h in second.history]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ce2, ce1[20:]))
+    same = leaves_equal(straight.state, second.state)
+    say(f"run 2 (the same command, step 30's checkpoint removed): resumed at "
+        f"{steps2[0]}, ran {steps2[0]}..{steps2[-1]} in {wall2:.2f} s; CE "
+        f"steps 20-29 resumed vs run 1's: max rel {rel:.3e} (tol "
+        f"{RESUME_TOL:g}); its final state run 1's bit for bit: {same}")
     check(steps2 == list(range(20, 30)), f"run 2 ran steps {steps2}")
     check(int(second.state.step) == 30, "run 2's state is not at step 30")
-    del first
-    shutil.rmtree(d)
-
-    straight, wall3 = run(30, yard)
-    check([h["step"] for h in straight.history] == list(range(30)),
-          "the uninterrupted run did not run steps 0-29")
-    ce2 = [h["ce"] for h in second.history]
-    ce3 = [h["ce"] for h in straight.history]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(ce2, ce3[20:]))
-    rel1 = max(abs(a - b) / abs(b) for a, b in zip(ce1, ce3[:20]))
-    say(f"run 3 (--steps 30, fresh directory): {wall3:.2f} s; CE steps "
-        f"20-29 resumed vs uninterrupted: max rel {rel:.3e} (tol "
-        f"{RESUME_TOL:g}); steps 0-19 of run 1 vs run 3: max rel "
-        f"{rel1:.3e}")
     check(rel < RESUME_TOL, f"resumed CE off the uninterrupted run: {rel}")
     del second
+    shutil.rmtree(d)
 
     # the step, the pipeline and the checkpointer timed, at step 30's state
     cfg = get_config("smollm-135m")
@@ -1056,7 +1071,6 @@ def train_cli(dev, say, tmp: str) -> dict:
         f"({nbytes / crc_s / 1e9:.2f} GB/s); restore with verify "
         f"{restore_s:.3f} s")
     del back, straight
-    shutil.rmtree(yard)
     shutil.rmtree(bench)
     return {"flops": a.work.flops, "mem_bytes": a.work.mem_bytes,
             "seconds": host.median, "params": float(n_params),
@@ -2561,8 +2575,9 @@ def xlstm_prefill(dev, say, params, cfg, tokens: torch.Tensor,
     the fp32 forward on the card against the same weights' on the CPU at
     (2, 64) within ``CARD_CPU_TOL``; (c) the forward timed
     (``XLSTM_SAMPLES``), its peak memory, the profiler's split and launch
-    count, the sLSTM's recurrence alone, F and B_M counted, against the
-    bound.  Returns the Ridgeline point."""
+    count at ``XLSTM_PROFILE_LAYERS`` mLSTM blocks, the sLSTM's recurrence
+    alone, F and B_M counted, against the bound.  Returns the Ridgeline
+    point."""
     from repro_torch.core.hardware import H100_SXM
     from repro_torch.core.ridgeline import WorkUnit, analyze
     from repro_torch.kernels import blocked_matmul as bm
@@ -2622,7 +2637,17 @@ def xlstm_prefill(dev, say, params, cfg, tokens: torch.Tensor,
     p90 = float(np.percentile(host.samples, 90))
     card = cuda_event_ms(lambda i: transformer.forward(params, tokens, cfg),
                          iters=1, warmup=0)
-    split = op_split(lambda: transformer.forward(params, tokens, cfg))
+    # the profiler walks every launch (~112k a forward at full depth, a
+    # minute of the host's): the split at a depth cut to
+    # XLSTM_PROFILE_LAYERS mLSTM blocks; the sLSTM timed alone below
+    k = XLSTM_PROFILE_LAYERS
+    cut = cfg.replace(n_layers=k, slstm_layers=tuple(
+        i for i in cfg.slstm_layers if i < k))
+    cut_params = dict(params, blocks=params["blocks"][:k])
+    cut_card = cuda_event_ms(
+        lambda i: transformer.forward(cut_params, tokens, cut), iters=1,
+        warmup=0)
+    split = op_split(lambda: transformer.forward(cut_params, tokens, cut))
     blk = params["blocks"][cfg.slstm_layers[0]]
     h = apply_norm(blk["norm"], torch.randn((B, S, cfg.d_model), generator=gen,
                                             device=dev), cfg)
@@ -2639,14 +2664,16 @@ def xlstm_prefill(dev, say, params, cfg, tokens: torch.Tensor,
         f"{T / host.median:.0f} tokens/s; card {card:.4f} ms; one sLSTM "
         f"layer alone {s_ms:.4f} ms (card, {S} steps); peak memory "
         f"allocated {peak / 1e9:.3f} GB; counted F {flops:.6g}, B_M "
-        f"{nbytes:.6g}; {split['launches']} launches a forward")
+        f"{nbytes:.6g}; {split['launches']} launches a forward at {k} of "
+        f"{cfg.n_layers} layers ({len(cut.slstm_layers)} of "
+        f"{len(cfg.slstm_layers)} sLSTM blocks)")
     say(f"(c) h100_sxm, least bytes (fp32 params once, logits written) "
         f"{least:.6g}: {a_least.summary()}, bound "
         f"{a_least.runtime * 1e3:.4f} ms = "
         f"{100 * a_least.runtime / host.median:.2f}% of the host median; "
         f"with the counted B_M: bound {a_counted.runtime * 1e3:.4f} ms "
         f"({a_counted.bottleneck.value})")
-    say_split(say, "(c) one forward's", split, card)
+    say_split(say, f"(c) one forward's at {k} layers", split, cut_card)
     return {"point": {
         "arch": cfg.name, "shape": f"prefill_b{B}_s{S}", "mesh": "1",
         "kind": "prefill", "variant": "plain", "flops": flops,
@@ -4148,7 +4175,8 @@ DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("hymba-1.5b", "train_4k", "16x16"),
                 ("xlstm-125m", "train_4k", "16x16"),
                 ("whisper-tiny", "prefill_32k", "16x16"),
-                ("internvl2-26b", "prefill_32k", "16x16"))
+                ("internvl2-26b", "prefill_32k", "16x16"),
+                ("hymba-1.5b", "decode_32k", "1x1"))
 DRYRUN_BUDGET_S = 120.0
 #: dryrun: the fake peak per device against the card's allocator peak of
 #: the same step, relative
@@ -4354,6 +4382,97 @@ def mesh_train(dev, say, tmp: str) -> dict:
     check(rel < RESUME_TOL, f"resumed CE off the uninterrupted run: {rel}")
     del out, state, run
     return {"restore_s": secs, "fallback_s": secs2, "plain_s": plain_s}
+
+
+#: the examples' counterparts (``examples/<name>_torch.py``), each run on
+#: the card in a process of its own at the reference example's sizes
+EXAMPLES = ("serve_demo", "dlrm_case_study", "plan_demo", "quickstart",
+            "ridgeline_analysis")
+EXAMPLES_TIMEOUT_S = 300.0
+#: runs one example as ``__main__`` and prints, last, both wrappers' launch
+#: counts by variant in that process
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+from repro_torch.kernels.blocked_matmul import blocked_matmul
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
+print(json.dumps({"blocked_matmul": blocked_matmul.launches_by_variant,
+                  "flash_attention_bhsd":
+                      flash_attention_bhsd.launches_by_variant}))
+"""
+
+
+def examples_phase(say, tmp: str) -> dict:
+    """Each of ``EXAMPLES`` on the card in a process of its own
+    (``EXAMPLE_RUNNER``), the five side by side (each is mostly its own
+    start-up: a process takes ~7 s to reach the card), their output in
+    files under ``tmp``: exit 0 and ``OK``, the seconds each took, and the
+    kernel launches it made, by variant.  Returns the launches by
+    example."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs, done = {}, {}
+    with contextlib.ExitStack() as files:
+        for name in EXAMPLES:
+            out, err = (files.enter_context(open(os.path.join(
+                tmp, name + ext), "w+")) for ext in (".out", ".err"))
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER,
+                 os.path.join(ROOT, "examples", f"{name}_torch.py")],
+                cwd=ROOT, env=env, stdout=out, stderr=err, text=True),
+                out, err)
+        try:
+            while len(done) < len(procs) and \
+                    time.perf_counter() - t0 < EXAMPLES_TIMEOUT_S:
+                for name, (p, _, _) in procs.items():
+                    if name not in done and p.poll() is not None:
+                        done[name] = time.perf_counter() - t0
+                time.sleep(0.1)
+        finally:
+            for p, _, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        made = {}
+        for name, (p, out, err) in procs.items():
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().strip().splitlines()
+            for line in lines[:-1]:
+                print(f"    | {line}")
+            ok = p.returncode == 0 and len(lines) >= 2 and "OK" in lines[-2]
+            check(ok, f"examples/{name}_torch.py: rc {p.returncode}, no OK"
+                  + ("" if ok else ": " + err.read()[-3000:]))
+            made[name] = json.loads(lines[-1])
+            say(f"  examples/{name}_torch.py: rc {p.returncode}, "
+                f"{lines[-2].strip()!r}, {done[name]:.1f} s (five side by "
+                f"side); launches {made[name]}")
+    return made
+
+
+def analysis_start() -> subprocess.Popen:
+    """``python -m repro_torch.analysis --json`` on the port's tree, started
+    (it runs beside the examples); ``analysis_line`` reads it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.analysis",
+                             "--json"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def analysis_line(say, proc: subprocess.Popen) -> None:
+    """The static checks' exit code, files and findings; the gate must be
+    clean."""
+    out, err = proc.communicate(timeout=120)
+    doc = json.loads(out)
+    say(f"analysis: python -m repro_torch.analysis exit {proc.returncode}, "
+        f"{doc['n_files']} files, {doc['n_findings']} findings, "
+        f"{len(doc['suppressed'])} suppressed")
+    check(proc.returncode == 0 and doc["n_findings"] == 0
+          and not doc["suppressed"], "the port's static checks are not "
+          "clean: " + err[-2000:])
 
 
 def dryrun_phase(dev, say) -> None:
@@ -5089,6 +5208,17 @@ def main() -> int:
     t_phase = time.perf_counter()
     dryrun_phase(dev, say)
     say(f"dryrun took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 17d. examples, analysis: the examples' counterparts, the gate ------
+    phase("examples")
+    t_phase = time.perf_counter()
+    gate = analysis_start()
+    with tempfile.TemporaryDirectory() as ex_tmp:
+        ex_launches = examples_phase(say, ex_tmp)
+    say(f"examples took {time.perf_counter() - t_phase:.1f} s; launches "
+        f"(each example's own process) {ex_launches}")
+    phase("analysis")
+    analysis_line(say, gate)
 
     # ---- 18. tile_options -----------------------------------------------------
     phase("tile_options")

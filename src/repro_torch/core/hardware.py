@@ -194,8 +194,23 @@ H100_SXM = HardwareSpec(
 H100_SXM_FP32 = dataclasses.replace(H100_SXM, name="h100_sxm_fp32",
                                     peak_flops=67e12)
 
+#: Intel Xeon Cascade Lake socket exactly as in the paper's case study (§III):
+#: 4.2 TF/s FP32, 105 GB/s DRAM, 12 GB/s network per socket.  The paper's own
+#: machine, copied from the JAX package's presets; the examples place the
+#: DLRM tower on it as the paper does.
+CLX = HardwareSpec(
+    name="clx",
+    peak_flops=4.2e12,
+    hbm_bw=105e9,
+    net_bw=12e9,
+    vmem_bytes=36 * 1024 * 1024,  # LLC, unused in analysis
+    hbm_capacity_bytes=192e9,     # 6-channel DDR4 socket, 32 GB DIMMs
+    ckpt_bw=2e9,                  # local NVMe per socket
+)
+
 PRESETS: Dict[str, HardwareSpec] = {"h100_sxm": H100_SXM,
-                                    "h100_sxm_fp32": H100_SXM_FP32}
+                                    "h100_sxm_fp32": H100_SXM_FP32,
+                                    "clx": CLX}
 
 
 # --- calibration registry -----------------------------------------------------

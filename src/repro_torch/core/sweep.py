@@ -11,10 +11,10 @@ every input of :func:`sweep` broadcasts against every other, so a
 the full 2-D map directly.
 
 Classification is the argmax of the three resource times with the same
-COMPUTE > MEMORY > NETWORK tie-break as the scalar path.  The reference's
-``shape_contract`` decorators are left out (the port has no
-``analysis/contracts`` yet); a grid that does not broadcast still raises,
-from ``np.broadcast_arrays``.
+COMPUTE > MEMORY > NETWORK tie-break as the scalar path.  ``eff_grid`` and
+``sweep`` carry the reference's ``@shape_contract`` declarations
+(``repro_torch.analysis.contracts``), checked at run time when
+``REPRO_CHECK`` is set.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.analysis.contracts import shape_contract
 from repro_torch.core.hardware import (EfficiencyModel, HardwareSpec,
                                        get_hardware)
 from repro_torch.core.ridgeline import Resource
@@ -52,6 +53,7 @@ def _safe_div(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return out
 
 
+@shape_contract("q:(*g) -> (*g)")
 def eff_grid(model: Optional[EfficiencyModel], q: ArrayLike):
     """Vectorized twin of ``EfficiencyModel.eff`` (property-tested against
     the scalar): achievable-fraction-of-peak on a grid of work sizes.
@@ -104,6 +106,10 @@ class SweepResult:
                 for l, c in zip(lab, cnt)}
 
 
+@shape_contract(
+    "flops:(*g), mem_bytes:(*g), net_bytes:(*g), net_steps:(*g), "
+    "peak_flops:(*g), hbm_bw:(*g), net_bw:(*g), alpha_compute:(*g), "
+    "alpha_memory:(*g), alpha_network:(*g) -> (*g)")
 def sweep(flops: ArrayLike, mem_bytes: ArrayLike, net_bytes: ArrayLike,
           hw: Optional[HardwareLike] = None, *,
           peak_flops: Optional[ArrayLike] = None,

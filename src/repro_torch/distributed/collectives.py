@@ -41,10 +41,9 @@ with a per-hop latency α they give the α–β collective time
 (``core/ridgeline``, ``core/sweep``) and the planner charge for network
 work.  With α = 0 this degenerates to the paper's bandwidth-only model.
 
-Each decorated function of the reference carries its broadcast shape
-contract in its docstring (``Shape contract: ...``); the port has no
-``analysis`` package yet, and ROADMAP Queue 1 item 13 brings the runtime
-check back.
+The vectorized functions carry the reference's ``@shape_contract``
+declarations (``repro_torch.analysis.contracts``), checked at run time when
+``REPRO_CHECK`` is set.
 """
 from __future__ import annotations
 
@@ -53,6 +52,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.analysis.contracts import shape_contract
 
 ArrayLike = Union[float, np.ndarray]
 
@@ -119,9 +119,9 @@ def _log2_steps(n: ArrayLike) -> np.ndarray:
                         0.0)
 
 
+@shape_contract("(*g), (*g) -> (*g)")
 def all_reduce(payload_bytes: ArrayLike, group_size: ArrayLike,
                algorithm: str = "ring") -> CollectiveCost:
-    """Shape contract: ``(*g), (*g) -> (*g)``."""
     p = np.asarray(payload_bytes, dtype=np.float64)
     n = np.asarray(group_size, dtype=np.float64)
     if algorithm == "ring":
@@ -151,12 +151,10 @@ def all_gather(payload_bytes: ArrayLike,
     return reduce_scatter(payload_bytes, group_size)
 
 
+@shape_contract("(*g), (*g) -> (*g)")
 def all_to_all(payload_bytes: ArrayLike,
                group_size: ArrayLike) -> CollectiveCost:
-    """payload = per-chip resident bytes; each chip keeps 1/n of it local.
-
-    Shape contract: ``(*g), (*g) -> (*g)``.
-    """
+    """payload = per-chip resident bytes; each chip keeps 1/n of it local."""
     return reduce_scatter(payload_bytes, group_size)
 
 
@@ -195,14 +193,13 @@ def best_all_reduce(payload_bytes: float, group_size: float, bw: float,
     return best[0], best[1]
 
 
+@shape_contract("(*g), (*g), (*g), (*g) -> (*g), (*g), (*g)")
 def best_all_reduce_grid(payload_bytes: ArrayLike, group_size: ArrayLike,
                          bw: ArrayLike, alpha: ArrayLike = 0.0,
                          algorithms: Sequence[str] = ALGORITHMS,
                          allowed: Optional[np.ndarray] = None,
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Vectorized α–β argmin over the algorithm menu, elementwise.
-
-    Shape contract: ``(*g), (*g), (*g), (*g) -> (*g), (*g), (*g)``.
 
     The grid twin of :func:`best_all_reduce`: every argument broadcasts
     against every other, so a whole planner candidate set — each element
@@ -290,11 +287,10 @@ def dp_grad_sync_bytes(grad_bytes_per_chip: ArrayLike, dp: ArrayLike,
     return dp_grad_sync(grad_bytes_per_chip, dp, algorithm).wire_bytes
 
 
+@shape_contract("(*g), (*g), (*g) -> (*g)")
 def zero_dp_sync(state_bytes_per_chip: ArrayLike, dp: ArrayLike,
                  stage: ArrayLike) -> CollectiveCost:
     """ZeRO-sharded dp-axis traffic per step (Rajbhandari et al.).
-
-    Shape contract: ``(*g), (*g), (*g) -> (*g)``.
 
     ``state_bytes_per_chip`` is this chip's full parameter-block size (the
     gradient block is the same size in this repo's fp32 accounting).  With
@@ -342,11 +338,10 @@ def tp_act_sync_bytes(act_bytes: ArrayLike, tp: ArrayLike,
                        algorithm).wire_bytes
 
 
+@shape_contract("(*g), (*g) -> (*g)")
 def ep_dispatch_combine(payload_bytes: ArrayLike,
                         ep: ArrayLike) -> CollectiveCost:
     """Expert parallel: dispatch + combine all-to-alls, per MoE layer.
-
-    Shape contract: ``(*g), (*g) -> (*g)``.
 
     ``payload_bytes`` is the per-chip routed-token buffer (tokens · k ·
     capacity_factor · width · act bytes, after any routing-imbalance
@@ -358,10 +353,9 @@ def ep_dispatch_combine(payload_bytes: ArrayLike,
     return all_to_all(payload_bytes, ep).scaled(2.0)
 
 
+@shape_contract("(*g), (*g) -> (*g)")
 def pp_boundary_bytes(act_bytes: ArrayLike, pp: ArrayLike) -> ArrayLike:
     """Pipeline parallel: point-to-point activations at stage boundaries.
-
-    Shape contract: ``(*g), (*g) -> (*g)``.
 
     A middle stage sends the boundary activation forward and its gradient
     backward each step: 2·act_bytes of sends per chip, zero when pp == 1.

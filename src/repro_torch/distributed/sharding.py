@@ -18,8 +18,8 @@ Default rules (the reference's baseline scheme):
 A *spec* is the reference's ``PartitionSpec`` as a plain tuple, one entry
 per tensor dim: ``None``, a mesh axis (``"model"``) or a tuple of mesh axes
 (``("pod", "data")``).  ``to_placements`` turns it into DTensor placements,
-one per mesh dim: ``Shard(d)`` on every mesh axis that shards tensor dim
-``d``, ``Replicate()`` on the others.  A dim sharded over several axes
+one per mesh dim: ``Shard(d)`` on every mesh axis of more than one device
+that shards tensor dim ``d``, ``Replicate()`` on the others.  A dim sharded over several axes
 takes them in mesh order, which is the reference's shard layout when the
 spec lists them in mesh order (every rule here does).
 
@@ -149,14 +149,22 @@ def _drop_nondividing(spec: Spec, shape: Tuple[int, ...], mesh) -> Spec:
 
 def to_placements(spec: Spec, mesh) -> Tuple:
     """DTensor placements of ``spec``: one per mesh dim, ``Shard(d)`` on the
-    axes that shard tensor dim ``d``, ``Replicate()`` elsewhere."""
+    axes that shard tensor dim ``d``, ``Replicate()`` elsewhere.
+
+    A mesh axis of one device shards nothing, so it is ``Replicate()``
+    whatever the spec names: the shard is the whole dim either way.  A
+    ``Shard`` there made torch 2.11's view rules refuse to flatten the dim
+    with another (the SSD decode state's ``einsum`` views (batch, heads) as
+    one dim: hymba's decode at 1x1) and cost a copy per no-op move."""
     names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
     out: list = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
         if entry is None:
             continue
         for a in (entry if isinstance(entry, tuple) else (entry,)):
-            out[names.index(a)] = Shard(d)
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(d)
     return tuple(out)
 
 

@@ -45,10 +45,9 @@ Everything is NumPy-vectorized: every mesh argument broadcasts, so the
 whole planner candidate set prices its footprint in one pass, aligned
 elementwise with ``plan_grid``'s struct-of-arrays.
 
-Each function the reference decorates with
-``repro.analysis.contracts.shape_contract`` carries that contract in its
-docstring (``Shape contract: ...``); the port has no ``analysis`` package
-yet, and ROADMAP Queue 1 item 13 brings the runtime check back.
+The vectorized functions carry the reference's ``@shape_contract``
+declarations (``repro_torch.analysis.contracts``), checked at run time when
+``REPRO_CHECK`` is set.
 """
 from __future__ import annotations
 
@@ -56,6 +55,8 @@ import dataclasses
 from typing import TYPE_CHECKING, Union
 
 import numpy as np
+
+from repro_torch.analysis.contracts import shape_contract
 
 if TYPE_CHECKING:  # torch-backed; the accounting itself is numpy-only
     from repro_torch.models.config import ModelConfig
@@ -127,6 +128,8 @@ class WorkingSet:
         return self.params + self.opt
 
 
+@shape_contract("batch:(*g), dp:(*g), tp:(*g), pp:(*g), ep:(*g), "
+                "microbatches:(*g), zero_stage:(*g) -> (*g)")
 def training_working_set(cfg: ModelConfig, *, batch: ArrayLike,
                          seq: int = 1, dp: ArrayLike = 1, tp: ArrayLike = 1,
                          pp: ArrayLike = 1, ep: ArrayLike = 1,
@@ -134,9 +137,6 @@ def training_working_set(cfg: ModelConfig, *, batch: ArrayLike,
                          zero_stage: ArrayLike = 0,
                          remat: bool = False) -> WorkingSet:
     """Per-chip training footprint of a (dp, tp, pp, ep, m, zero) candidate.
-
-    Shape contract: ``batch:(*g), dp:(*g), tp:(*g), pp:(*g), ep:(*g),
-    microbatches:(*g), zero_stage:(*g) -> (*g)``.
 
     All mesh arguments broadcast elementwise (the planner passes its flat
     candidate arrays); scalars price one candidate.  ``zero_stage`` shards
@@ -183,12 +183,11 @@ def training_working_set(cfg: ModelConfig, *, batch: ArrayLike,
                       kv_cache=zeros)
 
 
+@shape_contract("batch:(*g), dp:(*g), tp:(*g), pp:(*g) -> (*g)")
 def decode_working_set(cfg: ModelConfig, *, batch: ArrayLike, seq: int,
                        dp: ArrayLike = 1, tp: ArrayLike = 1,
                        pp: ArrayLike = 1) -> WorkingSet:
     """Per-chip serving footprint: bf16 weights + the decode KV cache.
-
-    Shape contract: ``batch:(*g), dp:(*g), tp:(*g), pp:(*g) -> (*g)``.
 
     The cache shards its batch over dp, its layers over pp, and (SP-decode,
     see the JAX package's ``launch/dryrun``) its seq axis over tp.  Families without
@@ -210,15 +209,14 @@ def decode_working_set(cfg: ModelConfig, *, batch: ArrayLike, seq: int,
                       activations=zeros, kv_cache=kv + zeros)
 
 
+@shape_contract("batch:(*g), dp:(*g), tp:(*g), pp:(*g), ep:(*g), "
+                "microbatches:(*g) -> (*g)")
 def min_zero_stage(cfg: ModelConfig, capacity_bytes: float, *,
                    batch: ArrayLike, seq: int = 1, dp: ArrayLike = 1,
                    tp: ArrayLike = 1, pp: ArrayLike = 1, ep: ArrayLike = 1,
                    microbatches: ArrayLike = 1,
                    remat: bool = False) -> np.ndarray:
     """Smallest ZeRO stage at which each candidate fits; 4 when none does.
-
-    Shape contract: ``batch:(*g), dp:(*g), tp:(*g), pp:(*g), ep:(*g),
-    microbatches:(*g) -> (*g)``.
 
     Footprint is non-increasing in the stage (each stage shards strictly
     more state across dp), so the answer is the first of 0..3 that fits.

@@ -89,10 +89,9 @@ FLOPs.  The default ``zero_stages=(0,)``/``remat=False`` keeps the
 zero-0 slice bit-identical to the capacity-free goldens; a spec with capacity 0
 (unknown — every custom spec's default) disables the cut entirely.
 
-Each function the reference decorates with
-``repro.analysis.contracts.shape_contract`` carries that contract in its
-docstring (``Shape contract: ...``); the port has no ``analysis`` package
-yet, and ROADMAP Queue 1 item 13 brings the runtime check back.
+The vectorized functions carry the reference's ``@shape_contract``
+declarations (``repro_torch.analysis.contracts``), checked at run time when
+``REPRO_CHECK`` is set.
 """
 from __future__ import annotations
 
@@ -102,6 +101,7 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.analysis.contracts import shape_contract
 from repro_torch.core import sweep as sweep_mod
 from repro_torch.core.hardware import HardwareSpec, get_hardware
 from repro_torch.distributed import collectives
@@ -727,13 +727,12 @@ def _capacity_error(cfg: ModelConfig, capacity: float, chips: int,
         + hint)
 
 
+@shape_contract("dp:(*g), tp:(*g), pp:(*g), ep:(*g) "
+                "-> (*g), (*g), (*g), (*g)")
 def _pod_masks(dp: np.ndarray, tp: np.ndarray, pp: np.ndarray,
                ep: np.ndarray, pod_size: Optional[int]
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Which mesh axes spill past the pod boundary onto the pod link.
-
-    Shape contract: ``dp:(*g), tp:(*g), pp:(*g), ep:(*g) -> (*g), (*g), (*g),
-    (*g)``.
 
     Extents along the chip grid: tp rides stride 1, ep stride tp, pp
     stride tp·ep, dp stride tp·ep·pp — an axis routes over the pod link
@@ -755,12 +754,11 @@ def _pod_masks(dp: np.ndarray, tp: np.ndarray, pp: np.ndarray,
     return dp_pod, tp_pod, pp_pod, ep_pod
 
 
+@shape_contract("ep:(*g), tokens_mb:(*g) -> (*g)")
 def moe_routing_derate(ep: np.ndarray, tokens_mb: np.ndarray, *,
                        n_experts: int, pad_experts: int, top_k: int,
                        capacity_factor: float) -> np.ndarray:
     """Top-k routing-imbalance derate: expected max_load/mean_load per chip.
-
-    Shape contract: ``ep:(*g), tokens_mb:(*g) -> (*g)``.
 
     Two multiplicative terms, both dimensionless and ≥ 1:
 

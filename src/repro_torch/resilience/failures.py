@@ -34,10 +34,9 @@ plan replayed through ``ResilientRunner`` must land its *measured* goodput
 within tolerance of these formulas (the same model↔measurement discipline
 the calibration stack applies to the Ridgeline itself).
 
-Each function's broadcast shape contract is written in its docstring
-(``Shape contract: ...``).  The reference enforces it at run time with
-``repro.analysis.contracts.shape_contract``; the port has no ``analysis``
-package yet, and ROADMAP Queue 1 item 13 brings the runtime check back.
+Each kernel carries the reference's ``@shape_contract`` declaration
+(``repro_torch.analysis.contracts``), checked at run time when
+``REPRO_CHECK`` is set.
 """
 from __future__ import annotations
 
@@ -45,6 +44,8 @@ import dataclasses
 from typing import Tuple, Union
 
 import numpy as np
+
+from repro_torch.analysis.contracts import shape_contract
 
 ArrayLike = Union[int, float, np.ndarray]
 
@@ -87,10 +88,9 @@ class FailureModel:
         return self.restart_s + self.reshard_s
 
 
+@shape_contract("chips:(*g) -> (*g)")
 def mesh_mtbf_s(chips: ArrayLike, mtbf_chip_s: float) -> np.ndarray:
     """Mesh MTBF under independent exponential chip failures.
-
-    Shape contract: ``chips:(*g) -> (*g)``.
 
     The union of ``chips`` independent Poisson failure processes is a
     Poisson process at the summed rate, so the mesh fails every
@@ -101,13 +101,12 @@ def mesh_mtbf_s(chips: ArrayLike, mtbf_chip_s: float) -> np.ndarray:
     return mtbf_chip_s / np.maximum(chips, 1.0)
 
 
+@shape_contract("persisted_bytes:(*g) -> (*g)")
 def ckpt_time_s(persisted_bytes: ArrayLike, ckpt_bw: float) -> np.ndarray:
     """Seconds to write one checkpoint: per-chip shard bytes over the
     spec's per-chip checkpoint bandwidth (shards write concurrently, so
     the slowest — largest — shard bounds; with the symmetric sharding the
     working-set model assumes, every shard is the same size).
-
-    Shape contract: ``persisted_bytes:(*g) -> (*g)``.
     """
     if ckpt_bw <= 0.0:
         raise ValueError(
@@ -116,11 +115,10 @@ def ckpt_time_s(persisted_bytes: ArrayLike, ckpt_bw: float) -> np.ndarray:
     return _as_f64(persisted_bytes) / float(ckpt_bw)
 
 
+@shape_contract("t_ckpt_s:(*g), mtbf_s:(*g) -> (*g)")
 def young_daly_interval_s(t_ckpt_s: ArrayLike,
                           mtbf_s: ArrayLike) -> np.ndarray:
     """Young/Daly optimal checkpoint interval ``τ* = sqrt(2·t_ckpt·MTBF)``.
-
-    Shape contract: ``t_ckpt_s:(*g), mtbf_s:(*g) -> (*g)``.
 
     Balances checkpoint overhead (∝ 1/τ) against expected rework after a
     failure (∝ τ/2).  An infinite MTBF yields an infinite interval —
@@ -130,14 +128,13 @@ def young_daly_interval_s(t_ckpt_s: ArrayLike,
     return np.sqrt(2.0 * _as_f64(t_ckpt_s) * _as_f64(mtbf_s))
 
 
+@shape_contract("t_step_s:(*g), t_ckpt_s:(*g), interval_s:(*g), "
+                "mtbf_s:(*g) -> (*g), (*g), (*g)")
 def failure_overhead_terms(t_step_s: ArrayLike, t_ckpt_s: ArrayLike,
                            interval_s: ArrayLike, mtbf_s: ArrayLike,
                            downtime_s: float
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-step expected overhead seconds: (ckpt_overhead, rework, restart).
-
-    Shape contract: ``t_step_s:(*g), t_ckpt_s:(*g), interval_s:(*g),
-    mtbf_s:(*g) -> (*g), (*g), (*g)``.
 
     * ``ckpt_overhead = t_ckpt · t_step / interval`` — one checkpoint of
       cost ``t_ckpt`` per ``interval`` seconds of useful work, amortized
@@ -170,15 +167,14 @@ def failure_overhead_terms(t_step_s: ArrayLike, t_ckpt_s: ArrayLike,
     return ckpt_overhead_s, rework_s, restart_s
 
 
+@shape_contract("t_step_s:(*g), ckpt_overhead_s:(*g), rework_s:(*g), "
+                "restart_s:(*g) -> (*g)")
 def goodput_fraction(t_step_s: ArrayLike, ckpt_overhead_s: ArrayLike,
                      rework_s: ArrayLike,
                      restart_s: ArrayLike) -> np.ndarray:
     """Delivered share of wall clock:
     ``t_step / (t_step + ckpt_overhead + E[rework] + E[restart])``.
     Exactly 1.0 wherever every overhead term is zero.
-
-    Shape contract: ``t_step_s:(*g), ckpt_overhead_s:(*g), rework_s:(*g),
-    restart_s:(*g) -> (*g)``.
     """
     t_step_s = _as_f64(t_step_s)
     total_s = (t_step_s + _as_f64(ckpt_overhead_s) + _as_f64(rework_s)
@@ -190,15 +186,14 @@ def goodput_fraction(t_step_s: ArrayLike, ckpt_overhead_s: ArrayLike,
     return out
 
 
+@shape_contract("t_step_s:(*g), persisted_bytes:(*g), chips:(*g) "
+                "-> (*g), (*g), (*g), (*g), (*g)")
 def goodput_terms(t_step_s: ArrayLike, persisted_bytes: ArrayLike,
                   chips: ArrayLike, *, ckpt_bw: float,
                   model: FailureModel
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                              np.ndarray, np.ndarray]:
     """One-call composition for the planner: all goodput quantities.
-
-    Shape contract: ``t_step_s:(*g), persisted_bytes:(*g), chips:(*g)
-    -> (*g), (*g), (*g), (*g), (*g)``.
 
     Returns ``(ckpt_overhead_s, rework_s, restart_s, interval_s, goodput)``
     elementwise over the broadcast candidate shape.  With an infinite

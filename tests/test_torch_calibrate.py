@@ -190,6 +190,7 @@ def test_registry_round_trip(tmp_path, monkeypatch):
     assert hardware.get_hardware("h100_test_cal") == spec
     assert hardware.list_hardware() == {"h100_sxm": "datasheet",
                                         "h100_sxm_fp32": "datasheet",
+                                        "clx": "datasheet",
                                         "h100_test_cal": "calibrated"}
     with pytest.raises(KeyError, match="no calibration"):
         hardware.get_hardware("h100_sxm", calibrated=True)

@@ -300,7 +300,7 @@ def test_cli_prints_what_the_reference_prints(case, registry):
     if CLI[case][-1] == "--json":
         doc = json.loads(out)
         if "list" in case:
-            assert set(doc) == {"h100_sxm", "h100_sxm_fp32",
+            assert set(doc) == {"h100_sxm", "h100_sxm_fp32", "clx",
                                 "h100_sxm_fp32_cal"}
             assert doc["h100_sxm"]["extra_links"] == {"pod": 50e9}
         else:
