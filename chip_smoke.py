@@ -190,7 +190,10 @@ after:
               of the moe, hybrid and ssm families, a prefill cell of the
               enc-dec and VLM ones, and hymba-1.5b's decode at 1x1, which
               torch 2.11 refused before a one-device axis replicated, among
-              them);
+              them); qwen2-moe-a2.7b's train_4k F x 256 / F(1x1) at most
+              ``MOE_REPEAT_MAX``, and one xlstm-125m sLSTM block's
+              all-gather linear in S, its fit at S = 4096 under
+              ``SLSTM_ALL_GATHER_MAX``;
   examples    the five examples' counterparts (``examples/*_torch.py``:
               the serve demo, the paper's case study, the planner views, the
               quickstart and the Ridgeline of three programs), each on the
@@ -4164,8 +4167,10 @@ MESH_TRAIN = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
 #: one card and on a pod, its serving forward on a pod, a dense train cell
 #: on a pod, a decode cell, a two-pod train cell; a train cell of the moe,
 #: hybrid and ssm families and a prefill cell of the enc-dec and VLM ones
-#: on a pod) and the phase's budget in seconds
+#: on a pod; the MoE's train cell on one device too, for its F x 256 /
+#: F(1x1)) and the phase's budget in seconds
 DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
+                ("qwen2-moe-a2.7b", "train_4k", "1x1"),
                 ("dlrm-mlp", "train_4k", "16x16"),
                 ("dlrm-mlp", "decode_32k", "16x16"),
                 ("smollm-135m", "train_4k", "16x16"),
@@ -4178,6 +4183,18 @@ DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("internvl2-26b", "prefill_32k", "16x16"),
                 ("hymba-1.5b", "decode_32k", "1x1"))
 DRYRUN_BUDGET_S = 120.0
+#: dryrun: the most the MoE's train_4k cell may count on 16x16 against one
+#: device, F x 256 / F(1x1) (2.53 when every model-axis device routed its
+#: data shard's groups whole)
+MOE_REPEAT_MAX = 1.20
+#: dryrun: one sLSTM block of xlstm-125m (n_layers 1) at the train_4k
+#: batch on 16x16, lowered at these sequence lengths; its all-gather is
+#: linear in S (at most SLSTM_GROWTH_MAX per doubling), and its linear fit
+#: read at S = 4096 must stay under SLSTM_ALL_GATHER_MAX bytes a device
+#: (1% of the 827 GB once logged for the gathers of every time step)
+SLSTM_FIT_S = (32, 64)
+SLSTM_GROWTH_MAX = 2.2
+SLSTM_ALL_GATHER_MAX = 8.3e9
 #: dryrun: the fake peak per device against the card's allocator peak of
 #: the same step, relative
 PEAK_TOL = 0.15
@@ -4481,8 +4498,12 @@ def dryrun_phase(dev, say) -> None:
     no kernel.  dlrm-mlp at 1x1 is held to the card's own step at B = 256
     (F to ``counters.count``'s, the fake peak to the allocator's peak
     within ``PEAK_TOL``); at 16x16 its wire bytes to the ring all-reduce of
-    its fp32 params, the planner's dp-16 term, within 1%."""
+    its fp32 params, the planner's dp-16 term, within 1%.  The MoE's
+    train cell counts F x 256 / F(1x1) at most ``MOE_REPEAT_MAX`` on
+    16x16, and one sLSTM block's all-gather at the train_4k batch grows
+    linearly in S, its fit at S = 4096 under ``SLSTM_ALL_GATHER_MAX``."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, ShapeSpec
     from repro_torch.core.hardware import H100_SXM
     from repro_torch.launch import dryrun
     from repro_torch.launch.plan import plan
@@ -4510,15 +4531,52 @@ def dryrun_phase(dev, say) -> None:
             f"{low.cross_pod_wire_bytes / 1e9:.4f} GB, peak "
             f"{low.peak_memory_per_device / 1e9:.3f} GB; useful/counted F "
             f"{rep.useful_flops_ratio:.3f}; {rep.notes}")
+    gathered = {}
+    for S in SLSTM_FIT_S:
+        name = f"train_s{S}"
+        SHAPES[name] = ShapeSpec(name, S, SHAPES["train_4k"].global_batch,
+                                 "train")
+        try:
+            _, low = dryrun.lower_cell(
+                "xlstm-125m", name, "16x16", probe=False,
+                overrides={"n_layers": 1, "slstm_layers": (0,)})
+        finally:
+            del SHAPES[name]
+        gathered[S] = low.wire_bytes_by_kind.get("all-gather", 0.0)
     total_s = time.perf_counter() - t_all
     grown = torch.cuda.memory_allocated(dev) - m0
-    say(f"dry-run of {len(DRYRUN_CELLS)} cells: {total_s:.1f} s (budget "
+    say(f"dry-run of {len(DRYRUN_CELLS)} cells and {len(SLSTM_FIT_S)} "
+        f"sLSTM blocks: {total_s:.1f} s (budget "
         f"{DRYRUN_BUDGET_S:g} s); card bytes allocated {grown}; launches "
         f"{launch_counts()}")
     check(grown == 0, f"the dry-run allocated {grown} card bytes")
     check(all(sum(v.values()) == 0 for v in launch_counts().values()),
           "the dry-run launched a kernel")
     check(total_s < DRYRUN_BUDGET_S, f"the dry-run took {total_s:.1f} s")
+
+    moe_one, moe_pod = (cells[("qwen2-moe-a2.7b", "train_4k", m)]
+                        for m in ("1x1", "16x16"))
+    repeat = moe_pod.flops * 256 / moe_one.flops
+    say(f"qwen2-moe-a2.7b train_4k per device F: 16x16 {moe_pod.flops!r}, "
+        f"1x1 {moe_one.flops!r} (torch {torch.__version__}); F x 256 / F(1x1) "
+        f"{repeat:.4f} (at most {MOE_REPEAT_MAX})")
+    check(repeat <= MOE_REPEAT_MAX,
+          f"the MoE repeats its work on 16x16: {repeat:.4f}")
+    (s0, g0), (s1, g1) = sorted(gathered.items())
+    fit = g0 + (g1 - g0) / (s1 - s0) * (SHAPES["train_4k"].seq_len - s0)
+    cell = cells[("xlstm-125m", "train_4k", "16x16")]
+    say(f"xlstm-125m one sLSTM block, train batch "
+        f"{SHAPES['train_4k'].global_batch} on 16x16: all-gather a device "
+        f"{g0:.6g} B at S {s0}, {g1:.6g} B at S {s1} ({g1 / g0:.4f}x, at "
+        f"most {SLSTM_GROWTH_MAX}x); linear fit at S "
+        f"{SHAPES['train_4k'].seq_len}: {fit / 1e9:.4f} GB (under "
+        f"{SLSTM_ALL_GATHER_MAX / 1e9:g}); the train_4k cell's, whose k = "
+        f"2, 4 probe holds mLSTM blocks only: "
+        f"{cell.wire_bytes_by_kind.get('all-gather', 0.0) / 1e9:.4f} GB")
+    check(g1 <= SLSTM_GROWTH_MAX * g0,
+          f"the sLSTM's all-gather grows {g1 / g0:.2f}x per doubling of S")
+    check(fit < SLSTM_ALL_GATHER_MAX,
+          f"the sLSTM's all-gather at train_4k: {fit / 1e9:.3f} GB")
 
     cfg = get_config("dlrm-mlp")
     one = cells[("dlrm-mlp", "train_4k", "1x1")]

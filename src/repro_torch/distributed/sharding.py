@@ -367,8 +367,13 @@ def replicate_inner(x: Any) -> Any:
 
 def _all_to_all(x: DTensor, placements: Tuple) -> Optional[DTensor]:
     """``x`` moved to ``placements`` by one all-to-all per mesh dim, where
-    the only change is which tensor dim a mesh dim shards (and no other
-    mesh dim shards either of the two); None otherwise.
+    the only change is which tensor dim a mesh dim shards; None otherwise,
+    and None where another mesh dim shards either of the two tensor dims
+    unless it comes earlier in the mesh and keeps its placement: DTensor
+    nests the shards of one tensor dim in mesh order, so an earlier mesh
+    dim's shard is the whole that the moving one splits or joins (the
+    batch, sharded on the data axis, taking the model axis too: (Shard(0),
+    Shard(1)) to (Shard(0), Shard(0))).
 
     DTensor's redistribute does this by all-to-all on a CUDA mesh, but on
     any CPU mesh it all-gathers the whole tensor and keeps a chunk (it
@@ -388,11 +393,11 @@ def _all_to_all(x: DTensor, placements: Tuple) -> Optional[DTensor]:
         return None
     for i in moves:
         dims = (src[i].dim, placements[i].dim)
-        others = [p for j, p in enumerate(src + placements)
-                  if j % len(src) != i and isinstance(p, Shard)
-                  and p.dim in dims]
-        if others:
-            return None
+        for j in range(len(src)):
+            touches = any(isinstance(p, Shard) and p.dim in dims
+                          for p in (src[j], placements[j]))
+            if j != i and touches and (j > i or src[j] != placements[j]):
+                return None
     local = x.to_local()
     for i in moves:
         a, b, n = src[i].dim, placements[i].dim, mesh.size(i)

@@ -23,13 +23,17 @@ reference's primitives differ from torch's, kept the reference's way:
     ``einsum("gtec,gtk->gtec")`` computes it.
 
 ``moe_specs`` gives the logical axes of ``init_moe``'s tree.  Under a mesh
-the tokens are regrouped on each device's shard (``_groups``), and the
-dispatch, the experts' products and the combine are laid out here from the
-groups' and the experts' placements (``_dispatch``, ``_experts``,
-``_combine``), as ``sharding.sp_matmul`` lays out a dense product.
+the tokens are regrouped on each device's shard (``_group_layout``,
+``_groups``), so that each group is routed once across the mesh: on one
+device, or split over several, each its own run of the group's tokens
+(``_route_groups``).  The dispatch, the experts' products and the combine
+are laid out here from the groups' and the experts' placements
+(``_dispatch``, ``_experts``, ``_combine``), as ``sharding.sp_matmul``
+lays out a dense product.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional, Tuple
 
@@ -91,74 +95,124 @@ def _capacity(group_tokens: int, cfg: ModelConfig) -> int:
     return max(cap, cfg.moe_top_k)
 
 
-def gates_and_aux(probs: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def gates_and_aux(probs: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig,
+                  mean=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The renormalised gates (T, k) of the choices ``idx`` (T, k) and the
     load-balance loss ``E * sum_e f_e * p_e``, for fp32 ``probs`` (T, E).
-    The assignment fraction f_e counts all k choices, divided by k."""
+    The assignment fraction f_e counts all k choices, divided by k.
+    ``mean`` takes a (T, E) tensor to its mean over the tokens: over these
+    rows by default, over every device's under a mesh (``_mean_across``)."""
+    mean = mean or (lambda t: t.mean(0))
     gates = probs.gather(-1, idx)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     E, k = cfg.n_experts, cfg.moe_top_k
-    me = probs.mean(0)                                            # (E,)
-    ce = F.one_hot(idx, E).float().sum(1).mean(0) / k             # (E,)
+    me = mean(probs)                                              # (E,)
+    ce = mean(F.one_hot(idx, E).float().sum(1)) / k               # (E,)
     return gates, E * (me * ce).sum()
 
 
-def route(router_logits: torch.Tensor, cfg: ModelConfig
+def route(router_logits: torch.Tensor, cfg: ModelConfig, mean=None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(T, E) logits -> (gates (T, k) fp32, expert_idx (T, k), aux fp32)."""
+    """(T, E) logits -> (gates (T, k) fp32, expert_idx (T, k), aux fp32);
+    ``mean`` as ``gates_and_aux`` takes it."""
     probs = torch.softmax(router_logits.float(), dim=-1)
     idx = torch.sort(probs, dim=-1, descending=True,
                      stable=True).indices[:, :cfg.moe_top_k]
-    gates, aux = gates_and_aux(probs, idx, cfg)
+    gates, aux = gates_and_aux(probs, idx, cfg, mean)
     return gates, idx, aux
 
 
-def _grouped_placements(x, Tg: int):
-    """The placements under which each device's shard of the DTensor ``x``
-    (B, S, D) holds whole groups of ``Tg`` consecutive tokens: x's with the
-    embedding axis and any partial sum made whole, and the sequence axis
-    gathered where a shard would cut a group (a mesh axis of one device
-    shards nothing).  None where no layout but a whole copy does (the
-    batch's shards themselves cut groups)."""
+def _group_layout(x, Tg: int) -> Tuple[Tuple, Tuple]:
+    """(x's placements, the groups' placements): the layout of the DTensor
+    ``x`` (B, S, D) under which each device's shard regroups in place into
+    windows of ``Tg`` consecutive tokens, and that of the groups (G, Tg, D)
+    it gives, which splits the groups' work over the most devices.
+
+    Each mesh axis shards the batch (nested in mesh order), the sequence,
+    or nothing.  A device's shard must then hold whole groups: the groups
+    axis is ``Shard(0)`` on every axis that splits the tokens (case 1);
+    or a run of one group's consecutive tokens, the same share of it on
+    every device: then the innermost axes split each group's tokens
+    (``Shard(1)``) and the outer ones the groups (case 2, where the batch
+    holds fewer groups than there are devices: decode, a short sequence).
+    Of the layouts that hold, the one that splits the tokens over the
+    most devices wins, then the one with whole groups, then the one
+    nearest x's own (the fewest moves)."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
-    place = [p if p in (Shard(0), Shard(1)) and mesh.size(i) > 1
-             else Replicate() for i, p in enumerate(x.placements)]
-    seq = math.prod(mesh.size(i) for i, p in enumerate(place)
-                    if p == Shard(1))
-    if (x.shape[1] // seq) % Tg:
-        place = [Replicate() if p == Shard(1) else p for p in place]
-        seq = 1
-    rows = math.prod(mesh.size(i) for i, p in enumerate(place)
-                     if p == Shard(0))
-    if seq == 1 and (x.shape[0] // rows) * x.shape[1] % Tg:
-        return None
-    return tuple(place)
+    B, S = x.shape[0], x.shape[1]
+    best, best_key = None, None
+    for place in itertools.product((Shard(0), Shard(1), Replicate()),
+                                   repeat=mesh.ndim):
+        place = tuple(p if mesh.size(i) > 1 else Replicate()
+                      for i, p in enumerate(place))
+        rows = [i for i, p in enumerate(place) if p == Shard(0)]
+        seqs = [i for i, p in enumerate(place) if p == Shard(1)]
+        r = math.prod(mesh.size(i) for i in rows)
+        q = math.prod(mesh.size(i) for i in seqs)
+        if B % r or S % q:
+            continue
+        lb, ls = B // r, S // q
+        if (ls % Tg == 0) if q > 1 else (lb * S % Tg == 0):
+            grouped = tuple(Shard(0) if isinstance(p, Shard) else p
+                            for p in place)
+        elif Tg % (lb * ls) == 0 and (q == 1 or lb == 1):   # one run
+            grouped = _split_groups(mesh, rows + seqs, Tg // (lb * ls))
+        else:
+            grouped = None
+        if grouped is None:
+            continue
+        key = (r * q, Shard(1) not in grouped,
+               sum(a == b for a, b in zip(place, x.placements)))
+        if best_key is None or key > best_key:
+            best, best_key = (place, grouped), key
+    return best
+
+
+def _split_groups(mesh, order, share: int):
+    """The groups' placements where the devices along ``order`` (the mesh
+    axes in the order of the token runs they hold, outermost first) hold
+    runs of ``1 / share`` of a group each: the innermost axes, of ``share``
+    devices together, split each group's tokens, the others the groups;
+    None where no run of innermost axes makes ``share`` or either part is
+    out of mesh order (DTensor nests a tensor dim's shards in mesh
+    order)."""
+    from torch.distributed.tensor import Replicate, Shard
+    n = 1
+    for cut in range(len(order), -1, -1):
+        if n == share:
+            outer, inner = order[:cut], order[cut:]
+            if outer != sorted(outer) or inner != sorted(inner):
+                return None
+            return tuple(Shard(0) if i in outer else
+                         Shard(1) if i in inner else Replicate()
+                         for i in range(mesh.ndim))
+        if cut:
+            n *= mesh.size(order[cut - 1])
+    return None
 
 
 def _groups(x: torch.Tensor, G: int, Tg: int) -> torch.Tensor:
     """x (B, S, D) regrouped into (G, Tg, D) windows of consecutive tokens.
 
-    A DTensor is regrouped on each device's own shard, which holds whole
-    groups (``_grouped_placements``), and the groups axis is sharded over
-    every mesh axis that shards the batch or the sequence: DTensor cannot
-    flatten (batch, seq) while both are sharded.  The global order of the
-    groups is then the devices' (a group's rank-major position), which no
-    step reads: routing, capacity and dispatch are per group, the aux a
-    mean over all tokens, and ``_ungroup`` puts each group back where it
-    came from."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    A DTensor is first laid out by ``_group_layout`` (one all-to-all where
+    the batch takes the sequence's mesh axis), then regrouped on each
+    device's own shard.  The global order of the groups is then the
+    devices' (a group's rank-major position), which no step reads:
+    routing, capacity and dispatch are per group, the aux a mean over all
+    tokens, and ``_ungroup`` puts each group back where it came from.
+    Within a group split over devices (``Shard(1)``) the tokens keep their
+    order, which the slots' cumulative sum reads (``_route_groups``)."""
+    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x.reshape(G, Tg, x.shape[-1])
-    place = _grouped_placements(x, Tg)
-    if place is None:
-        place = (Replicate(),) * x.device_mesh.ndim
-    if tuple(x.placements) != place:
-        x = x.redistribute(x.device_mesh, place)
+    from repro_torch.distributed.sharding import move
+    place, grouped = _group_layout(x, Tg)
+    x = move(x, place)
     local = x.to_local()
-    local = local.reshape(-1, Tg, local.shape[-1])
-    grouped = tuple(Shard(0) if isinstance(p, Shard) else p for p in place)
+    split = math.prod(x.device_mesh.size(i) for i, p in enumerate(grouped)
+                      if p.is_shard(1))
+    local = local.reshape(-1, Tg // split, local.shape[-1])
     return DTensor.from_local(local, x.device_mesh, grouped, run_check=False,
                               shape=(G, Tg, x.shape[-1]),
                               stride=(Tg * x.shape[-1], x.shape[-1], 1))
@@ -167,32 +221,130 @@ def _groups(x: torch.Tensor, G: int, Tg: int) -> torch.Tensor:
 def _ungroup(out: torch.Tensor, xt: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """``_groups`` undone: ``out`` (G, Tg, D), laid out as ``xt`` was, back
-    to ``x``'s (B, S, D) as ``_groups`` found it."""
-    from torch.distributed.tensor import DTensor, Replicate
+    to (B, S, D) in ``x``'s layout (a partial sum made whole)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distributed.sharding import move
     B, S, D = x.shape
     if not isinstance(out, DTensor):
         return out.reshape(B, S, D)
+    mesh = x.device_mesh
     if tuple(out.placements) != tuple(xt.placements):
-        out = out.redistribute(xt.device_mesh, xt.placements)
-    place = (_grouped_placements(x, xt.shape[1])
-             or (Replicate(),) * x.device_mesh.ndim)
-    local = out.to_local()
-    lb, ls = (B // math.prod(x.device_mesh.size(i) for i, p in
-                             enumerate(place) if p.is_shard(0)),
-              S // math.prod(x.device_mesh.size(i) for i, p in
-                             enumerate(place) if p.is_shard(1)))
-    return DTensor.from_local(local.reshape(lb, ls, D), x.device_mesh,
-                              place, run_check=False, shape=(B, S, D),
-                              stride=(S * D, D, 1))
+        out = out.redistribute(mesh, xt.placements)
+    place, _ = _group_layout(x, xt.shape[1])
+    lb = B // math.prod(mesh.size(i) for i, p in enumerate(place)
+                        if p.is_shard(0))
+    ls = S // math.prod(mesh.size(i) for i, p in enumerate(place)
+                        if p.is_shard(1))
+    out = DTensor.from_local(out.to_local().reshape(lb, ls, D), mesh, place,
+                             run_check=False, shape=(B, S, D),
+                             stride=(S * D, D, 1))
+    return move(out, tuple(Replicate() if isinstance(p, Partial) else p
+                           for p in x.placements))
+
+
+def _mean_across(mesh, split: Tuple, T: int):
+    """``gates_and_aux``'s mean over all ``T`` tokens, each device holding
+    its own rows: the row sums all-reduced over the mesh axes that split
+    the tokens (``split``: ``Partial`` there)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        s = DTensor.from_local(t.sum(0), mesh, split, run_check=False)
+        return s.redistribute(mesh, (Replicate(),) * mesh.ndim) / T
+    return mean
+
+
+def _earlier(counts: torch.Tensor, mesh, grouped: Tuple):
+    """Each expert's choices in the runs of the group before this device's:
+    ``counts`` (G, E_pad) this device's, gathered over the mesh axes that
+    split the groups' tokens (one all-gather) and summed over the devices
+    that hold earlier runs; None where no axis splits them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    tok = [i for i, p in enumerate(grouped) if p.is_shard(1)]
+    if not tok:
+        return None
+    place = tuple(Shard(0) if p.is_shard(1) else
+                  Shard(1) if p.is_shard(0) else p for p in grouped)
+    every = DTensor.from_local(counts[None], mesh, place, run_check=False)
+    every = every.redistribute(mesh, tuple(
+        Replicate() if i in tok else p for i, p in enumerate(place)))
+    run = 0
+    for i in tok:                      # this device's run, in mesh order
+        run = run * mesh.size(i) + mesh.get_local_rank(i)
+    return every.to_local()[:run].sum(0)
+
+
+def _route_groups(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+                  C: int, E_pad: int):
+    """Each group's routing: (dispatch, combine) (G, Tg, E_pad, C) and the
+    aux loss of xt (G, Tg, D), as the reference computes them.
+
+    Under a mesh it runs on each device's own tokens (xt's layout from
+    ``_groups``), so the router, the top-k, the one-hots and the slots are
+    computed once per token across the mesh.  Where a group's tokens are
+    split over devices, each (token, choice)'s slot is this device's
+    exclusive cumulative sum plus the choices of the earlier runs
+    (``_earlier``): the devices hold the group's tokens in order, so the
+    slots and ``keep`` are exactly the reference's.  The aux's means are
+    all-reduced (``_mean_across``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    E, k = cfg.n_experts, cfg.moe_top_k
+    mesh = None
+    if isinstance(xt, DTensor):
+        from repro_torch.distributed.sharding import move
+        mesh, grouped = xt.device_mesh, tuple(xt.placements)
+        split = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                      for p in grouped)
+        T = xt.shape[0] * xt.shape[1]
+        router = move(router, (Replicate(),) * mesh.ndim
+                      ).to_local(grad_placements=split)
+        xt = xt.to_local(grad_placements=grouped)
+    G, Tg, _ = xt.shape
+    logits = torch.einsum("gtd,de->gte", xt, router)
+    if mesh is None:
+        gates, idx, aux = route(logits.reshape(G * Tg, E), cfg)
+    else:
+        gates, idx, aux = route(logits.reshape(G * Tg, E), cfg,
+                                mean=_mean_across(mesh, split, T))
+    gates = gates.reshape(G, Tg, k)
+    idx = idx.reshape(G, Tg, k)
+
+    # each (token, choice)'s slot in its expert's buffer: a cumulative sum
+    # over the group's flattened choices, in fp32 as the reference counts
+    onehot = F.one_hot(idx, E_pad).float()                    # (G, Tg, k, E_pad)
+    flat = onehot.reshape(G, Tg * k, E_pad)
+    pos_in_expert = torch.cumsum(flat, dim=1) - flat
+    if mesh is not None:
+        before = _earlier(flat.sum(1), mesh, grouped)
+        if before is not None:
+            pos_in_expert = pos_in_expert + before[:, None, :]
+    pos = (pos_in_expert * flat).sum(-1).reshape(G, Tg, k)
+    keep = (pos < C).float()
+    gates = gates * keep
+
+    # dispatch and combine (G, Tg, E_pad, C); a slot >= C matches no column
+    dt = xt.dtype
+    slots = torch.arange(C, device=xt.device, dtype=pos.dtype)
+    pos_oh = (pos[..., None] == slots).to(dt) * keep[..., None].to(dt)
+    dispatch = torch.einsum("gtke,gtkc->gtec", onehot.to(dt), pos_oh)
+    combine = torch.einsum("gtec,gtk->gtec", dispatch, gates.to(dt))
+    if mesh is not None:
+        dispatch, combine = (DTensor.from_local(t, mesh, grouped,
+                                                run_check=False)
+                             for t in (dispatch, combine))
+    return dispatch, combine, aux
 
 
 def _dispatch(dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
     """Each group's tokens into its experts' buffers: dispatch (G, Tg, E, C)
     and xt (G, Tg, D) -> (G, E, C, D).  Under a mesh both hold the same
     groups (``_groups``'s layout), so each device fills its own groups'
-    buffers; a grad that comes back in another layout (a partial sum of
+    buffers; where a mesh axis splits a group's tokens each device fills
+    them from its own tokens, and the buffers are a partial sum over that
+    axis.  A grad that comes back in another layout (a partial sum of
     ``_experts``) is made whole in this one first."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Partial
 
     from repro_torch.distributed.sharding import move
     if not isinstance(xt, DTensor):
@@ -201,7 +353,8 @@ def _dispatch(dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
     dispatch = move(dispatch, place)
     y = torch.einsum("gtec,gtd->gecd", dispatch.to_local(grad_placements=place),
                      xt.to_local(grad_placements=place))
-    return DTensor.from_local(y, xt.device_mesh, place, run_check=False)
+    return DTensor.from_local(y, xt.device_mesh, tuple(
+        Partial() if p.is_shard(1) else p for p in place), run_check=False)
 
 
 def _expert_products(xin, wg, wu, wd):
@@ -219,10 +372,12 @@ def _experts(xin: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
     a dense product (DTensor's own einsum rules may shard an expert axis
     that the mesh does not divide).  Where the experts are sharded (expert
     parallelism) each device takes its experts' buffers, by an all-to-all
-    from a groups axis sharded on the same mesh axis, and returns them the
-    same way; where each expert's hidden axis is sharded the buffers are
-    gathered whole and the output is a partial sum; against replicated
-    weights the buffers keep their shards.
+    from a groups axis sharded on the same mesh axis (a reduce-scatter
+    from a partial sum), and returns them the same way; where each
+    expert's hidden axis is sharded the buffers are gathered whole and the
+    output is a partial sum; against replicated weights the buffers keep
+    their shards, and a partial sum is reduce-scattered onto the slots
+    (where they divide; made whole elsewhere).
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -230,9 +385,11 @@ def _experts(xin: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
     wg, wu, wd = (p[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
     if not isinstance(xin, DTensor):
         return _expert_products(xin, wg, wu, wd)
+    mesh = xin.device_mesh
     came = tuple(xin.placements)
     x_to, out, gw_in, gw_out = [], [], [], []
-    for px, pw in zip(came, wg.placements):
+    slot_split = 1
+    for i, (px, pw) in enumerate(zip(came, wg.placements)):
         if pw == Shard(0):                       # experts: the buffers move
             x_to.append(Shard(1))
             out.append(Shard(1))
@@ -244,17 +401,22 @@ def _experts(xin: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
             gw_in.append(pw)
             gw_out.append(Shard(1))
         else:
-            lead = px == Shard(0)
-            x_to.append(px if lead else Replicate())
+            n = mesh.size(i)
+            if px == Partial() and xin.shape[2] % (slot_split * n) == 0:
+                slot_split *= n
+                x_to.append(Shard(2))
+            else:
+                x_to.append(px if px == Shard(0) else Replicate())
             out.append(x_to[-1])
-            gw_in.append(Partial() if lead else Replicate())
+            gw_in.append(Partial() if isinstance(x_to[-1], Shard)
+                         else Replicate())
             gw_out.append(gw_in[-1])
     xin = move(xin, x_to)
     h = _expert_products(
         xin.to_local(grad_placements=out),
         wg.to_local(grad_placements=gw_in), wu.to_local(grad_placements=gw_in),
         wd.to_local(grad_placements=gw_out))
-    h = DTensor.from_local(h, xin.device_mesh, out, run_check=False)
+    h = DTensor.from_local(h, mesh, out, run_check=False)
     back = tuple(c if (c == Shard(0) and o == Shard(1)) else o
                  for c, o in zip(came, out))
     return move(h, back)
@@ -270,9 +432,10 @@ def _combine(combine: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     reduce-scattered on its channels; then against experts sharded on a
     mesh axis each device weighs its own experts (``combine`` sliced to
     them) and the output is a partial sum, and against h's channels each
-    device forms its channels of the output.  DTensor's own einsum would
-    gather h, whose E·C rows a group are k × capacity_factor times its
-    tokens.
+    device forms its channels of the output.  Where a mesh axis splits
+    each group's tokens, h is gathered whole on it (k × capacity_factor
+    times the group's tokens) and each device weighs its own tokens.
+    DTensor's own einsum would gather h on every axis.
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -282,12 +445,18 @@ def _combine(combine: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     mesh = h.device_mesh
     h = move(h, tuple(
         Shard(0) if pc == Shard(0) else
+        Replicate() if pc == Shard(1) else
         Shard(3) if ph == Partial() and h.shape[3] % mesh.size(i) == 0
         else ph
         for i, (pc, ph) in enumerate(zip(combine.placements, h.placements))))
     c_to, out, gc, gh = [], [], [], []
     for pc, ph in zip(combine.placements, h.placements):
-        if ph == Shard(0):
+        if pc == Shard(1):                       # each device its tokens
+            c_to.append(pc)
+            out.append(pc)
+            gc.append(pc)
+            gh.append(Partial())
+        elif ph == Shard(0):
             c_to.append(pc)
             out.append(ph)
             gc.append(ph)
@@ -332,7 +501,6 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     dt = cfg.compute_dtype
     B, S, D = x.shape
     T = B * S
-    E, k = cfg.n_experts, cfg.moe_top_k
     Tg = min(cfg.moe_group_tokens, T)
     if T % Tg:
         Tg = S if T % S == 0 else T
@@ -341,26 +509,8 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     xt = _groups(x, G, Tg).to(dt)
 
     E_pad = p["w_gate"].shape[0]
-    logits = torch.einsum("gtd,de->gte", xt, p["router"].to(dt))
-    gates, idx, aux = route(logits.reshape(T, E), cfg)
-    gates = gates.reshape(G, Tg, k)
-    idx = idx.reshape(G, Tg, k)
-
-    # each (token, choice)'s slot in its expert's buffer: a cumulative sum
-    # over the group's flattened choices, in fp32 as the reference counts
-    onehot = F.one_hot(idx, E_pad).float()                    # (G, Tg, k, E_pad)
-    flat = onehot.reshape(G, Tg * k, E_pad)
-    pos_in_expert = torch.cumsum(flat, dim=1) - flat
-    pos = (pos_in_expert * flat).sum(-1).reshape(G, Tg, k)
-    keep = (pos < C).float()
-    gates = gates * keep
-
-    # dispatch and combine (G, Tg, E_pad, C); a slot >= C matches no column
-    slots = torch.arange(C, device=x.device, dtype=pos.dtype)
-    pos_oh = (pos[..., None] == slots).to(dt) * keep[..., None].to(dt)
-    dispatch = torch.einsum("gtke,gtkc->gtec", onehot.to(dt), pos_oh)
-    combine = torch.einsum("gtec,gtk->gtec", dispatch, gates.to(dt))
-
+    dispatch, combine, aux = _route_groups(xt, p["router"].to(dt), cfg, C,
+                                           E_pad)
     xin = _dispatch(dispatch, xt)                             # (G, E_pad, C, D)
     h = _experts(xin, p, dt)                                  # (G, E_pad, C, D)
     out = _combine(combine, h)                                # (G, Tg, D)

@@ -66,15 +66,17 @@ print(json.dumps(out))
 """
 
 #: F x N / F(1x1) and the 2x2 wire MB a device by kind, port beside the
-#: reference (ROADMAP Queue 3): the port's MoE repeats its dispatch and
-#: combine on the model axis; XLA repeats ~4-8% on the others, where the
-#: port's count is at or near 1; the kinds differ in form (the port
-#: reduce-scatters the ZeRO-1 grads, XLA all-reduces and permutes)
+#: reference (ROADMAP Queue 3): XLA repeats ~4-14% of the work, where the
+#: port's count is at or near 1 (the MoE routes each group's tokens on the
+#: devices that hold them, the sLSTM runs each device's channels and its
+#: post-FFN on each device's columns); the
+#: kinds differ in form (the port reduce-scatters the ZeRO-1 grads and the
+#: MoE's buffers, XLA all-reduces and permutes)
 LOGGED = {
     "qwen2-moe-a2.7b": (
-        2.2205, 1.1411,
-        {"all-gather": 0.9545, "all-reduce": 0.1325, "all-to-all": 0.0655,
-         "reduce-scatter": 0.2556},
+        1.0000, 1.1411,
+        {"all-gather": 0.7665, "all-reduce": 0.0040, "all-to-all": 0.1147,
+         "reduce-scatter": 0.7000},
         {"all-gather": 0.6369, "all-reduce": 1.5799, "all-to-all": 0.1659,
          "collective-permute": 0.0515}),
     "hymba-1.5b": (
@@ -84,9 +86,9 @@ LOGGED = {
         {"all-gather": 0.5392, "all-reduce": 1.9172, "all-to-all": 0.1932,
          "collective-permute": 0.0510}),
     "xlstm-125m": (
-        1.0290, 1.0666,
-        {"all-gather": 2.3526, "all-reduce": 0.4321, "all-to-all": 0.1393,
-         "reduce-scatter": 0.2131},
+        1.0124, 1.0666,
+        {"all-gather": 0.6940, "all-reduce": 0.4451, "all-to-all": 0.1761,
+         "reduce-scatter": 0.2012},
         {"all-gather": 0.4845, "all-reduce": 0.8777, "all-to-all": 1.2872,
          "collective-permute": 2.0134}),
     "whisper-tiny": (
