@@ -190,8 +190,12 @@ after:
               of the moe, hybrid and ssm families, a prefill cell of the
               enc-dec and VLM ones, and hymba-1.5b's decode at 1x1, which
               torch 2.11 refused before a one-device axis replicated, among
-              them); qwen2-moe-a2.7b's train_4k F x 256 / F(1x1) at most
-              ``MOE_REPEAT_MAX``, and one xlstm-125m sLSTM block's
+              them); qwen2-moe-a2.7b's train_4k F x N / F(1x1) at most
+              ``MOE_REPEAT_MAX`` on 16x16 and on 2x16x16 (one group a
+              device through the exchange), its decode_32k 16x16
+              all-gather a device at most ``DECODE_ALL_GATHER_MAX`` (the
+              cache's row written on its own shard, never the cache
+              gathered), and one xlstm-125m sLSTM block's
               all-gather linear in S, its fit at S = 4096 under
               ``SLSTM_ALL_GATHER_MAX``;
   examples    the five examples' counterparts (``examples/*_torch.py``:
@@ -4167,8 +4171,9 @@ MESH_TRAIN = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
 #: one card and on a pod, its serving forward on a pod, a dense train cell
 #: on a pod, a decode cell, a two-pod train cell; a train cell of the moe,
 #: hybrid and ssm families and a prefill cell of the enc-dec and VLM ones
-#: on a pod; the MoE's train cell on one device too, for its F x 256 /
-#: F(1x1)) and the phase's budget in seconds
+#: on a pod; the MoE's train cell on one device too, for its F x N /
+#: F(1x1), and on two pods; the MoE's decode cell, whose cache shards its
+#: heads and its sequence) and the phase's budget in seconds
 DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("qwen2-moe-a2.7b", "train_4k", "1x1"),
                 ("dlrm-mlp", "train_4k", "16x16"),
@@ -4181,12 +4186,18 @@ DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("xlstm-125m", "train_4k", "16x16"),
                 ("whisper-tiny", "prefill_32k", "16x16"),
                 ("internvl2-26b", "prefill_32k", "16x16"),
-                ("hymba-1.5b", "decode_32k", "1x1"))
+                ("hymba-1.5b", "decode_32k", "1x1"),
+                ("qwen2-moe-a2.7b", "train_4k", "2x16x16"),
+                ("qwen2-moe-a2.7b", "decode_32k", "16x16"))
 DRYRUN_BUDGET_S = 120.0
-#: dryrun: the most the MoE's train_4k cell may count on 16x16 against one
-#: device, F x 256 / F(1x1) (2.53 when every model-axis device routed its
-#: data shard's groups whole)
+#: dryrun: the most the MoE's train_4k cell may count on 16x16 and on
+#: 2x16x16 against one device, F x N / F(1x1) (2.53 when every model-axis
+#: device routed its data shard's groups whole)
 MOE_REPEAT_MAX = 1.20
+#: dryrun: the most qwen2-moe-a2.7b's decode_32k cell on 16x16 may
+#: all-gather a device, bytes (97.02 GB on torch 2.11 when the cache's row
+#: was written by a select over the whole sequence, which gathered it)
+DECODE_ALL_GATHER_MAX = 1e9
 #: dryrun: one sLSTM block of xlstm-125m (n_layers 1) at the train_4k
 #: batch on 16x16, lowered at these sequence lengths; its all-gather is
 #: linear in S (at most SLSTM_GROWTH_MAX per doubling), and its linear fit
@@ -4499,9 +4510,11 @@ def dryrun_phase(dev, say) -> None:
     (F to ``counters.count``'s, the fake peak to the allocator's peak
     within ``PEAK_TOL``); at 16x16 its wire bytes to the ring all-reduce of
     its fp32 params, the planner's dp-16 term, within 1%.  The MoE's
-    train cell counts F x 256 / F(1x1) at most ``MOE_REPEAT_MAX`` on
-    16x16, and one sLSTM block's all-gather at the train_4k batch grows
-    linearly in S, its fit at S = 4096 under ``SLSTM_ALL_GATHER_MAX``."""
+    train cell counts F x N / F(1x1) at most ``MOE_REPEAT_MAX`` on 16x16
+    and 2x16x16, its decode cell all-gathers at most
+    ``DECODE_ALL_GATHER_MAX`` a device on 16x16, and one sLSTM block's
+    all-gather at the train_4k batch grows linearly in S, its fit at S =
+    4096 under ``SLSTM_ALL_GATHER_MAX``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES, ShapeSpec
     from repro_torch.core.hardware import H100_SXM
@@ -4554,14 +4567,24 @@ def dryrun_phase(dev, say) -> None:
           "the dry-run launched a kernel")
     check(total_s < DRYRUN_BUDGET_S, f"the dry-run took {total_s:.1f} s")
 
-    moe_one, moe_pod = (cells[("qwen2-moe-a2.7b", "train_4k", m)]
-                        for m in ("1x1", "16x16"))
-    repeat = moe_pod.flops * 256 / moe_one.flops
-    say(f"qwen2-moe-a2.7b train_4k per device F: 16x16 {moe_pod.flops!r}, "
-        f"1x1 {moe_one.flops!r} (torch {torch.__version__}); F x 256 / F(1x1) "
-        f"{repeat:.4f} (at most {MOE_REPEAT_MAX})")
-    check(repeat <= MOE_REPEAT_MAX,
-          f"the MoE repeats its work on 16x16: {repeat:.4f}")
+    moe_one = cells[("qwen2-moe-a2.7b", "train_4k", "1x1")]
+    for mesh, n in (("16x16", 256), ("2x16x16", 512)):
+        moe_pod = cells[("qwen2-moe-a2.7b", "train_4k", mesh)]
+        repeat = moe_pod.flops * n / moe_one.flops
+        say(f"qwen2-moe-a2.7b train_4k per device F: {mesh} "
+            f"{moe_pod.flops!r}, 1x1 {moe_one.flops!r} (torch "
+            f"{torch.__version__}); F x {n} / F(1x1) {repeat:.4f} (at most "
+            f"{MOE_REPEAT_MAX})")
+        check(repeat <= MOE_REPEAT_MAX,
+              f"the MoE repeats its work on {mesh}: {repeat:.4f}")
+    dec = cells[("qwen2-moe-a2.7b", "decode_32k", "16x16")]
+    gather = dec.wire_bytes_by_kind.get("all-gather", 0.0)
+    say(f"qwen2-moe-a2.7b decode_32k 16x16: all-gather a device "
+        f"{gather!r} B (torch {torch.__version__}; at most "
+        f"{DECODE_ALL_GATHER_MAX / 1e9:g} GB), per device F {dec.flops!r}, "
+        f"B_M {dec.mem_bytes!r}")
+    check(gather <= DECODE_ALL_GATHER_MAX,
+          f"the MoE's decode gathers {gather / 1e9:.2f} GB a device")
     (s0, g0), (s1, g1) = sorted(gathered.items())
     fit = g0 + (g1 - g0) / (s1 - s0) * (SHAPES["train_4k"].seq_len - s0)
     cell = cells[("xlstm-125m", "train_4k", "16x16")]

@@ -247,8 +247,8 @@ def cache_logical_specs(cfg: ModelConfig, cache_abs: Any) -> Any:
 
     KV buffers (L,B,S,K,dh) or (B,S,K,dh) shard batch over DP and expose
     both "kv_seq" and "head_dim" axes; the serve rules map kv_seq -> model
-    (SP-decode), and under a mesh ``decode_attention`` writes the new row
-    with a select over the sequence axis, which partitions.
+    (SP-decode), and under a mesh ``attention.write_row`` writes the new
+    row into the one shard that holds it.
 
     Recurrent states (B,H,dk,dv)/(B,H,dk)/(B,D) -> batch (+ heads).
     """

@@ -36,7 +36,7 @@ import dataclasses
 import os
 import sys
 import weakref
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,7 +85,8 @@ def count(fn: Callable, *args, **kwargs) -> Tuple[float, float]:
 #: *result* buffer's bytes (``repro.core.hlo_analysis._COLLECTIVE_KINDS``):
 #: all-reduce 2 (n-1)/n; all-gather (n-1)/n of the gathered result;
 #: reduce-scatter (n-1) x the shard (= (n-1)/n of the full buffer);
-#: all-to-all (n-1)/n; broadcast 1
+#: all-to-all (n-1)/n (of even splits: ``_sent`` counts uneven ones);
+#: broadcast 1
 COLLECTIVE_FACTORS: Dict[str, Callable[[int], float]] = {
     "all-reduce": lambda n: 2.0 * (n - 1) / n if n > 1 else 0.0,
     "all-gather": lambda n: (n - 1) / n if n > 1 else 0.0,
@@ -150,6 +151,19 @@ def cross_pod_fraction(ranks, pod_size: int) -> float:
         return 0.0
     pods = np.asarray(ranks) // pod_size
     return float((pods != np.roll(pods, -1)).mean())
+
+
+def _sent(args, ranks: List[int]) -> Optional[float]:
+    """Bytes an all-to-all of uneven splits sends to the other ranks of its
+    group: its input less the split it keeps; None for even splits, which
+    the ring factor's (n-1)/n counts."""
+    import torch.distributed as dist
+
+    inp, splits = args[0], list(args[2] or ())
+    if len(set(splits)) <= 1:
+        return None
+    row = _nbytes(inp) / max(inp.shape[0], 1)
+    return row * (sum(splits) - splits[ranks.index(dist.get_rank())])
 
 
 def _group_ranks(args) -> List[int]:
@@ -292,9 +306,12 @@ class MeshCounter(TorchDispatchMode):
                 ranks = _group_ranks(args)
                 n = len(ranks)
                 nbytes = float(sum(_nbytes(o) for o in outs))
+                wire = _sent(args, ranks) if kind == "all-to-all" else None
+                if wire is None:
+                    wire = nbytes * COLLECTIVE_FACTORS[kind](n)
                 self.collectives.append(CollectiveOp(
                     kind=kind, bytes_result=nbytes, group_size=n,
-                    wire_bytes=nbytes * COLLECTIVE_FACTORS[kind](n),
+                    wire_bytes=wire,
                     cross_pod_fraction=cross_pod_fraction(ranks,
                                                           self.pod_size)))
             if name == "wait_tensor":

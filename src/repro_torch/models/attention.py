@@ -23,8 +23,8 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import (replicate_inner, shard_hint,
-                                              sp_matmul)
+from repro_torch.distributed.sharding import (move, replicate_inner,
+                                              shard_hint, sp_matmul)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (apply_rope, dense_init, init_rng, ones,
                                        rms_norm_head, zeros)
@@ -287,10 +287,11 @@ def decode_attention(p: Params, x: torch.Tensor,
     them sees them change.  The reference builds a new cache with a select
     over the whole sequence axis, a form its comment keeps for GSPMD's
     partitioning; here that would read and write the whole cache every step,
-    so only a cache laid out on a mesh takes it (``_write_row``).  The
-    values are the same.  Keys at ``kpos <= pos`` (and, with a window,
-    ``kpos > pos - window``) are visible; the rest get an additive fp32
-    ``NEG_INF`` over the whole ``S_max``, as in the reference.
+    so the row is written alone, under a mesh into the shard that holds it
+    (``write_row``).  The values are the same.  Keys at ``kpos <= pos``
+    (and, with a window, ``kpos > pos - window``) are visible; the rest get
+    an additive fp32 ``NEG_INF`` over the whole ``S_max``, as in the
+    reference.
     """
     dt = cfg.compute_dtype
     x = x.to(dt)
@@ -302,24 +303,40 @@ def decode_attention(p: Params, x: torch.Tensor,
         q = apply_rope(q, pos_arr, cfg.rope_theta)
         k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
     k, v = layer_cache["k"], layer_cache["v"]
-    _write_row(k, k_new, pos)
-    _write_row(v, v_new, pos)
+    write_row(k, k_new, pos)
+    write_row(v, v_new, pos)
     bias = _decode_bias(k.shape[1], pos, window, x.device)
     out = _sdpa_grouped(q, k, v, bias, cfg)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(dt)
     return out, {"k": k, "v": v}
 
 
-def _write_row(buf: torch.Tensor, row: torch.Tensor, pos: int) -> None:
-    """``buf[:, pos] = row[:, 0]``, in place.  On a DTensor (a cache laid
-    out on a mesh, its sequence axis perhaps sharded) the write is the
-    reference's select over the whole sequence axis, which every shard
-    does on its own rows; a row write would gather the axis first."""
-    if isinstance(buf, DTensor):
-        at = (torch.arange(buf.shape[1], device=buf.device) == pos)
-        buf.copy_(torch.where(at[None, :, None, None], row, buf))
-    else:
-        buf[:, pos] = row[:, 0]
+def write_row(buf: torch.Tensor, row: torch.Tensor, slot: int) -> None:
+    """``buf[:, slot] = row[:, 0]``, in place: a decode step's new k or v row
+    (B, 1, K, dh) written into its cache buffer (B, S, K, dh).
+
+    On a DTensor (a cache laid out on a mesh, its sequence axis perhaps
+    sharded) the row is first laid out as the buffer's rows are: as the
+    buffer on every mesh axis but those that shard the sequence, where it
+    is whole (the one collective moves the row, never the buffer).  Then
+    each device whose shard of the sequence holds ``slot`` writes its part
+    of the row into its own shard; the others leave theirs as they are.
+    DTensor's own row write, or the reference's select over the whole
+    axis, can gather the buffer to write one row (torch 2.11's strategy
+    for ``where`` does).  The cache is state, never differentiated, so the
+    shard is written under no_grad."""
+    if not isinstance(buf, DTensor):
+        buf[:, slot] = row[:, 0]
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    rows = tuple(Replicate() if p.is_shard(1) else p for p in buf.placements)
+    local = move(row, rows).to_local()
+    shape, start = compute_local_shape_and_global_offset(
+        buf.shape, buf.device_mesh, buf.placements)
+    if start[1] <= slot < start[1] + shape[1]:
+        with torch.no_grad():
+            buf.to_local()[:, slot - start[1]] = local[:, 0]
 
 
 def _decode_bias(s_max: int, pos: int, window: int,

@@ -163,9 +163,9 @@ def decode_hymba_block(p: Params, x: torch.Tensor, cache_row: Dict, pos: int,
     """One-token decode for one layer.  x (B, 1, D) -> x (B, 1, D).
 
     **The cache row is updated in place**: the new k and v row is written
-    into its buffers at the token's slot (the reference selects over the
-    whole buffer; the values are the same), and ``mM``, ``mn`` are replaced
-    by the new Mamba state.
+    into its buffers at the token's slot (``attention.write_row``; the
+    reference selects over the whole buffer, the values are the same), and
+    ``mM``, ``mn`` are replaced by the new Mamba state.
     """
     dt = cfg.compute_dtype
     B = x.shape[0]
@@ -178,8 +178,8 @@ def decode_hymba_block(p: Params, x: torch.Tensor, cache_row: Dict, pos: int,
         k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
     k, v = cache_row["k"], cache_row["v"]
     slot, bias = _decode_slot_bias(k.shape[1], pos, is_global, x.device)
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
+    attn_mod.write_row(k, k_new, slot)
+    attn_mod.write_row(v, v_new, slot)
     a = _sdpa_grouped(q, k, v, bias, cfg)
     a = a.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(dt)
 

@@ -122,11 +122,12 @@ def route(router_logits: torch.Tensor, cfg: ModelConfig, mean=None
     return gates, idx, aux
 
 
-def _group_layout(x, Tg: int) -> Tuple[Tuple, Tuple]:
-    """(x's placements, the groups' placements): the layout of the DTensor
-    ``x`` (B, S, D) under which each device's shard regroups in place into
-    windows of ``Tg`` consecutive tokens, and that of the groups (G, Tg, D)
-    it gives, which splits the groups' work over the most devices.
+def _group_layout(x, Tg: int) -> Tuple[Tuple, Tuple, Optional[int]]:
+    """(x's placements, the groups' placements, the exchange's mesh axis):
+    the layout of the DTensor ``x`` (B, S, D) under which each device's
+    shard regroups into windows of ``Tg`` consecutive tokens, and that of
+    the groups (G, Tg, D) it gives, which splits the groups' work over the
+    most devices.
 
     Each mesh axis shards the batch (nested in mesh order), the sequence,
     or nothing.  A device's shard must then hold whole groups: the groups
@@ -134,10 +135,16 @@ def _group_layout(x, Tg: int) -> Tuple[Tuple, Tuple]:
     or a run of one group's consecutive tokens, the same share of it on
     every device: then the innermost axes split each group's tokens
     (``Shard(1)``) and the outer ones the groups (case 2, where the batch
-    holds fewer groups than there are devices: decode, a short sequence).
-    Of the layouts that hold, the one that splits the tokens over the
-    most devices wins, then the one with whole groups, then the one
-    nearest x's own (the fewest moves)."""
+    holds fewer groups than there are devices: decode, a short sequence);
+    or, where one mesh axis splits the sequence into runs shorter than a
+    group, the runs of that axis's devices together make whole groups, as
+    many for each device: each device takes its groups' runs from its
+    peers on that axis by one all-to-all of uneven splits (case 3,
+    ``_exchange``; the two-pod train cells, whose data shards hold fewer
+    rows than the model axis has devices).  Of the layouts that hold, the
+    one that splits the tokens over the most devices wins, then the one
+    with whole groups, then one with no exchange, then the one nearest x's
+    own (the fewest moves).  The exchange's axis is None but in case 3."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
     B, S = x.shape[0], x.shape[1]
@@ -153,19 +160,24 @@ def _group_layout(x, Tg: int) -> Tuple[Tuple, Tuple]:
         if B % r or S % q:
             continue
         lb, ls = B // r, S // q
+        swap = None
         if (ls % Tg == 0) if q > 1 else (lb * S % Tg == 0):
             grouped = tuple(Shard(0) if isinstance(p, Shard) else p
                             for p in place)
         elif Tg % (lb * ls) == 0 and (q == 1 or lb == 1):   # one run
             grouped = _split_groups(mesh, rows + seqs, Tg // (lb * ls))
+        elif len(seqs) == 1 and lb * ls % Tg == 0:         # exchange
+            grouped = tuple(Shard(0) if isinstance(p, Shard) else p
+                            for p in place)
+            swap = seqs[0]
         else:
             grouped = None
         if grouped is None:
             continue
-        key = (r * q, Shard(1) not in grouped,
+        key = (r * q, Shard(1) not in grouped, swap is None,
                sum(a == b for a, b in zip(place, x.placements)))
         if best_key is None or key > best_key:
-            best, best_key = (place, grouped), key
+            best, best_key = (place, grouped, swap), key
     return best
 
 
@@ -197,25 +209,76 @@ def _groups(x: torch.Tensor, G: int, Tg: int) -> torch.Tensor:
 
     A DTensor is first laid out by ``_group_layout`` (one all-to-all where
     the batch takes the sequence's mesh axis), then regrouped on each
-    device's own shard.  The global order of the groups is then the
-    devices' (a group's rank-major position), which no step reads:
-    routing, capacity and dispatch are per group, the aux a mean over all
-    tokens, and ``_ungroup`` puts each group back where it came from.
+    device's own shard, its runs first exchanged with its peers' where
+    they are shorter than a group (``_exchange``).  The global order of
+    the groups is then the devices' (a group's rank-major position), which
+    no step reads: routing, capacity and dispatch are per group, the aux a
+    mean over all tokens, and ``_ungroup`` puts each group back where it
+    came from.
     Within a group split over devices (``Shard(1)``) the tokens keep their
     order, which the slots' cumulative sum reads (``_route_groups``)."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x.reshape(G, Tg, x.shape[-1])
     from repro_torch.distributed.sharding import move
-    place, grouped = _group_layout(x, Tg)
+    place, grouped, swap = _group_layout(x, Tg)
     x = move(x, place)
     local = x.to_local()
+    if swap is not None:
+        local = _exchange(local, x.device_mesh, swap, x.shape[1])
     split = math.prod(x.device_mesh.size(i) for i, p in enumerate(grouped)
                       if p.is_shard(1))
     local = local.reshape(-1, Tg // split, local.shape[-1])
     return DTensor.from_local(local, x.device_mesh, grouped, run_check=False,
                               shape=(G, Tg, x.shape[-1]),
                               stride=(Tg * x.shape[-1], x.shape[-1], 1))
+
+
+def _exchange(local: torch.Tensor, mesh, axis: int, S: int,
+              back: bool = False) -> torch.Tensor:
+    """Case 3 of ``_group_layout``: the runs that the devices along mesh
+    ``axis`` hold of the same rows (each ``ls = S / n`` tokens of each of
+    ``lb`` rows, n devices on the axis) dealt out so that device j holds
+    the tokens ``[j * lb * ls, (j + 1) * lb * ls)`` of those rows
+    flattened, in order: whole groups, the same tokens the reference's
+    windows of the flattened rows give.
+
+    ``local`` (lb, ls, D) -> (lb * ls, D); with ``back``, (lb * ls, D) ->
+    (lb, ls, D), the inverse.  One all-to-all of uneven splits, whose
+    gradient is the reverse exchange: the run of (row r, device j) goes to
+    the device that holds its first token ``r * S + j * ls``.  A device's
+    runs, row by row, go to devices in rank order, so its shard is sent
+    as it lies; the runs it gets come peer by peer and are put in token
+    order."""
+    from torch.distributed import _functional_collectives as funcol
+    n, me = mesh.size(axis), mesh.get_local_rank(axis)
+    ls = S // n
+    lb = local.shape[0] // ls if back else local.shape[0]
+    held = lb * ls
+
+    def owner(r: int, j: int) -> int:
+        return (r * S + j * ls) // held
+
+    sent = [ls * sum(owner(r, me) == d for r in range(lb)) for d in range(n)]
+    came = [(r * S + j * ls, j) for j in range(n) for r in range(lb)
+            if owner(r, j) == me]                    # in arrival order
+    got = [ls * sum(j == k for _, j in came) for k in range(n)]
+    order = sorted(range(len(came)), key=lambda i: came[i][0])
+    in_order = order == sorted(order)
+    D = local.shape[-1]
+    if back:
+        if not in_order:
+            runs = local.split(ls)
+            where = {i: at for at, i in enumerate(order)}
+            local = torch.cat([runs[where[i]] for i in range(len(came))])
+        return funcol.all_to_all_single_autograd(
+            local, sent, got, (mesh, axis)).reshape(lb, ls, D)
+    mine = funcol.all_to_all_single_autograd(local.reshape(held, D), got,
+                                             sent, (mesh, axis))
+    if in_order:
+        return mine
+    runs = mine.split(ls)
+    return torch.cat([runs[i] for i in order])
 
 
 def _ungroup(out: torch.Tensor, xt: torch.Tensor,
@@ -231,12 +294,15 @@ def _ungroup(out: torch.Tensor, xt: torch.Tensor,
     mesh = x.device_mesh
     if tuple(out.placements) != tuple(xt.placements):
         out = out.redistribute(mesh, xt.placements)
-    place, _ = _group_layout(x, xt.shape[1])
+    place, _, swap = _group_layout(x, xt.shape[1])
     lb = B // math.prod(mesh.size(i) for i, p in enumerate(place)
                         if p.is_shard(0))
     ls = S // math.prod(mesh.size(i) for i, p in enumerate(place)
                         if p.is_shard(1))
-    out = DTensor.from_local(out.to_local().reshape(lb, ls, D), mesh, place,
+    local = out.to_local()
+    if swap is not None:
+        local = _exchange(local.reshape(-1, D), mesh, swap, S, back=True)
+    out = DTensor.from_local(local.reshape(lb, ls, D), mesh, place,
                              run_check=False, shape=(B, S, D),
                              stride=(S * D, D, 1))
     return move(out, tuple(Replicate() if isinstance(p, Partial) else p

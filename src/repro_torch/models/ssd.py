@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -50,7 +51,6 @@ def chunked_linear_recurrence(
     a ``state``), as in the reference, which carries no normalizer then.
     DTensor inputs take ``_on_shards``.
     """
-    from torch.distributed.tensor import DTensor
     if isinstance(v, DTensor) and state is None:
         return _on_shards(q, k, v, log_decay, chunk, normalize)
     B, T, H, dk = k.shape
@@ -132,7 +132,7 @@ def _on_shards(q, k, v, log_decay, chunk: int, normalize: bool):
     whole).  DTensor itself cannot run the chunk split: it flattens the
     (chunk, batch) axes while the sequence is sharded.
     """
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     from repro_torch.distributed.sharding import move, whole_grad
     mesh = v.device_mesh
@@ -175,8 +175,11 @@ def decode_linear_step(
 ) -> Tuple[torch.Tensor, State]:
     """Exact sequential update: O(1) per token on a constant-size state.
     Returns (y (B, H, dv) in ``v.dtype``, the new (M, n) in fp32); the
-    state passed in is not changed."""
+    state passed in is not changed.  A state laid out on a mesh steps on
+    each device's own rows (``_step_on_shards``)."""
     M, n = state
+    if isinstance(M, DTensor):
+        return _step_on_shards(state, q, k, v, decay, normalize)
     qf, kf, vf = q.float(), k.float(), v.float()
     M = decay[..., None, None] * M + kf[..., :, None] * vf[..., None, :]
     n = decay[..., None] * n + kf
@@ -185,6 +188,30 @@ def decode_linear_step(
         den = torch.clamp(torch.einsum("bhd,bhd->bh", qf, n).abs(), min=1.0)
         y = y / den[..., None]
     return y.to(v.dtype), (M, n)
+
+
+def _step_on_shards(state: State, q, k, v, decay, normalize: bool):
+    """``decode_linear_step`` of DTensors: each (batch, head) row steps on
+    its own, so every input takes the state's shards of the batch and the
+    heads (one token's q, k, v and decay moved; the state stays as it
+    lies where only those axes shard it) and each device steps its rows;
+    the new state keeps that layout.  DTensor's own step cannot run where
+    the batch and the heads are both sharded on torch 2.11: its ``einsum``
+    views (batch, heads) as one dim."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import move
+    M, n = state
+    mesh = M.device_mesh
+    rows = tuple(p if p.is_shard() and p.dim < 2 else Replicate()
+                 for p in M.placements)
+    y, (M, n) = decode_linear_step(
+        (move(M, rows).to_local(), move(n, rows).to_local()),
+        *(move(x, rows).to_local() for x in (q, k, v, decay)),
+        normalize=normalize)
+    y, M, n = (DTensor.from_local(t, mesh, rows, run_check=False)
+               for t in (y, M, n))
+    return y, (M, n)
 
 
 def init_linear_state(batch: int, heads: int, dk: int, dv: int,

@@ -186,9 +186,19 @@ def replay_result(tmp_path_factory):
                              device="cpu")
     plan = FaultPlan.generate(SEED, N_STEPS)
     d = str(tmp_path_factory.mktemp("replay_ckpt"))
-    res = replay(lambda s, b: step(s, to_device(b, "cpu")), state, stream,
-                 plan, d, ckpt_every=CKPT_EVERY, straggler_sleep_s=0.02,
-                 keep_history=True)
+    # The runner flags a step slower than 3x the EWMA of step times. With
+    # torch's default intra-op threads, several processes on a loaded host
+    # oversubscribe the cores and push that EWMA past the straggler's sleep,
+    # so the replay runs at one thread; the count is process-wide and is put
+    # back for the tests that run after this one.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = replay(lambda s, b: step(s, to_device(b, "cpu")), state,
+                     stream, plan, d, ckpt_every=CKPT_EVERY,
+                     straggler_sleep_s=0.02, keep_history=True)
+    finally:
+        torch.set_num_threads(threads)
     return plan, res, d
 
 
