@@ -192,10 +192,12 @@ after:
               torch 2.11 refused before a one-device axis replicated, among
               them); qwen2-moe-a2.7b's train_4k F x N / F(1x1) at most
               ``MOE_REPEAT_MAX`` on 16x16 and on 2x16x16 (one group a
-              device through the exchange), its decode_32k 16x16
-              all-gather a device at most ``DECODE_ALL_GATHER_MAX`` (the
-              cache's row written on its own shard, never the cache
-              gathered), and one xlstm-125m sLSTM block's
+              device through the exchange), the decode_32k 16x16
+              all-gather a device of qwen2-moe-a2.7b and qwen2-7b at most
+              ``DECODE_ALL_GATHER_MAX`` (the cache's row written on its
+              own shard, never the cache gathered, and each device's
+              softmax on its own keys, never the scores gathered), and
+              one xlstm-125m sLSTM block's
               all-gather linear in S, its fit at S = 4096 under
               ``SLSTM_ALL_GATHER_MAX``;
   examples    the five examples' counterparts (``examples/*_torch.py``:
@@ -4194,10 +4196,14 @@ DRYRUN_BUDGET_S = 120.0
 #: 2x16x16 against one device, F x N / F(1x1) (2.53 when every model-axis
 #: device routed its data shard's groups whole)
 MOE_REPEAT_MAX = 1.20
-#: dryrun: the most qwen2-moe-a2.7b's decode_32k cell on 16x16 may
-#: all-gather a device, bytes (97.02 GB on torch 2.11 when the cache's row
-#: was written by a select over the whole sequence, which gathered it)
-DECODE_ALL_GATHER_MAX = 1e9
+#: dryrun: the most each decode_32k cell on 16x16 in ``DECODE_CELLS`` may
+#: all-gather a device, bytes: the row writes and the token's query.
+#: qwen2-moe-a2.7b read 97.02 GB on torch 2.11 when the cache's row was
+#: written by a select over the whole sequence, which gathered it, and
+#: 0.38 GB while DTensor's softmax gathered the fp32 scores
+#: (``score_gather``)
+DECODE_ALL_GATHER_MAX = 2e7
+DECODE_CELLS = ("qwen2-moe-a2.7b", "qwen2-7b")
 #: dryrun: one sLSTM block of xlstm-125m (n_layers 1) at the train_4k
 #: batch on 16x16, lowered at these sequence lengths; its all-gather is
 #: linear in S (at most SLSTM_GROWTH_MAX per doubling), and its linear fit
@@ -4503,6 +4509,14 @@ def analysis_line(say, proc: subprocess.Popen) -> None:
           "clean: " + err[-2000:])
 
 
+def score_gather(cfg, shape) -> float:
+    """The bytes a device all-gathered at a decode cell on 16x16 while
+    DTensor's softmax gathered the scores: each layer's (rows, H, S_max)
+    fp32 scores, 15/16 of them from the other model-axis devices."""
+    rows = shape.global_batch // 16
+    return rows * cfg.n_heads * shape.seq_len * 4 * cfg.n_layers * 15 / 16
+
+
 def dryrun_phase(dev, say) -> None:
     """The dry-run (``launch.dryrun.lower_cell``) of ``DRYRUN_CELLS`` on the
     card's host: fake DTensors over a fake process group, no card byte and
@@ -4511,7 +4525,7 @@ def dryrun_phase(dev, say) -> None:
     within ``PEAK_TOL``); at 16x16 its wire bytes to the ring all-reduce of
     its fp32 params, the planner's dp-16 term, within 1%.  The MoE's
     train cell counts F x N / F(1x1) at most ``MOE_REPEAT_MAX`` on 16x16
-    and 2x16x16, its decode cell all-gathers at most
+    and 2x16x16, the decode cells of ``DECODE_CELLS`` all-gather at most
     ``DECODE_ALL_GATHER_MAX`` a device on 16x16, and one sLSTM block's
     all-gather at the train_4k batch grows linearly in S, its fit at S =
     4096 under ``SLSTM_ALL_GATHER_MAX``."""
@@ -4577,14 +4591,17 @@ def dryrun_phase(dev, say) -> None:
             f"{MOE_REPEAT_MAX})")
         check(repeat <= MOE_REPEAT_MAX,
               f"the MoE repeats its work on {mesh}: {repeat:.4f}")
-    dec = cells[("qwen2-moe-a2.7b", "decode_32k", "16x16")]
-    gather = dec.wire_bytes_by_kind.get("all-gather", 0.0)
-    say(f"qwen2-moe-a2.7b decode_32k 16x16: all-gather a device "
-        f"{gather!r} B (torch {torch.__version__}; at most "
-        f"{DECODE_ALL_GATHER_MAX / 1e9:g} GB), per device F {dec.flops!r}, "
-        f"B_M {dec.mem_bytes!r}")
-    check(gather <= DECODE_ALL_GATHER_MAX,
-          f"the MoE's decode gathers {gather / 1e9:.2f} GB a device")
+    for arch in DECODE_CELLS:
+        dec = cells[(arch, "decode_32k", "16x16")]
+        gather = dec.wire_bytes_by_kind.get("all-gather", 0.0)
+        say(f"{arch} decode_32k 16x16: all-gather a device {gather!r} B "
+            f"(torch {torch.__version__}; at most "
+            f"{DECODE_ALL_GATHER_MAX:g}; the fp32 scores' gather "
+            f"{score_gather(get_config(arch), SHAPES['decode_32k']):.6g} B "
+            f"before each device softmaxed its own keys), per device F "
+            f"{dec.flops!r}, B_M {dec.mem_bytes!r}")
+        check(gather <= DECODE_ALL_GATHER_MAX,
+              f"{arch}'s decode gathers {gather / 1e9:.4f} GB a device")
     (s0, g0), (s1, g1) = sorted(gathered.items())
     fit = g0 + (g1 - g0) / (s1 - s0) * (SHAPES["train_4k"].seq_len - s0)
     cell = cells[("xlstm-125m", "train_4k", "16x16")]

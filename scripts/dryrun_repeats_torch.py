@@ -1,5 +1,6 @@
 """What each device of a mesh repeats in the port's dry-run: the MoE's and
-the sLSTM's per-device F and all-gather bytes as the sequence grows.
+the sLSTM's per-device F and all-gather bytes as the sequence grows, and
+any cell's counts beside the JAX package's.
 
 Lowers on fake meshes (``repro_torch.launch.dryrun.lower_cell``; no card,
 no collective moves a byte) and prints one line per measurement:
@@ -14,20 +15,50 @@ no collective moves a byte) and prints one line per measurement:
   * with ``--full``, xlstm-125m train_4k on 16x16 at full depth
     (``probe=False``: the CLI's k = 2, 4 probe holds mLSTM blocks only):
     F, the wire by kind and the seconds it took (minutes: the sLSTM's
-    4,096 steps a layer run on fake tensors).
+    4,096 steps a layer run on fake tensors);
+  * with ``--against-reference``, and only that, the given cells (by
+    default every decode_32k cell and whisper-tiny train_4k) at 1x1 and
+    16x16 in both packages, at the CLIs' k = 2, 4 probe depth: per device
+    F x N / F(1x1), all-gather, all-reduce and total wire bytes and B_M,
+    the port's beside the reference's.  The reference's dry-run CLI runs
+    in a subprocess (it sets ``XLA_FLAGS`` before jax starts) and writes
+    its reports to a temporary directory; a full decode cell compiles
+    there in seconds, whisper-tiny train_4k 16x16 in ~20 s and xlstm-125m
+    train_4k 16x16 in minutes on a CPU.
 
 Usage::
 
     PYTHONPATH=src python scripts/dryrun_repeats_torch.py [--full]
+    PYTHONPATH=src python scripts/dryrun_repeats_torch.py \
+        --against-reference [qwen2-7b:decode_32k xlstm-125m:train_4k ...]
 """
 import argparse
 import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import tempfile
 import time
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
 from repro_torch.launch import dryrun
 
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+#: the reference's CLI on each (arch, shape, mesh) of argv[2], its reports
+#: written to argv[1]: importing its module sets XLA_FLAGS before jax
+REFERENCE = r"""
+import json, sys
+from repro.launch import dryrun
+dryrun.ARTIFACTS = sys.argv[1]
+for arch, shape, mesh in json.loads(sys.argv[2]):
+    if dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                    "--force"]):
+        sys.exit(1)
+"""
 
 def _reduced_overrides(arch: str) -> dict:
     full, red = get_config(arch), get_reduced(arch)
@@ -88,11 +119,75 @@ def full_depth() -> None:
           f"{_kinds(low.wire_bytes_by_kind, 1e9, 'GB')}", flush=True)
 
 
+def _reference_reports(cells, meshes) -> dict:
+    """{(arch, shape, mesh): the reference's report} from its CLI."""
+    runs = [(a, s, m) for a, s in cells for m in meshes]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run([sys.executable, "-c", REFERENCE, out,
+                               json.dumps(runs)], env=env,
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit("the reference's dry-run failed:\n"
+                             + (proc.stdout + proc.stderr)[-3000:])
+        reports = {}
+        for a, s, m in runs:
+            with open(os.path.join(out, f"{a}__{s}__{m}__baseline.json")) as f:
+                reports[(a, s, m)] = json.load(f)
+    return reports
+
+
+def against_reference(cells) -> None:
+    meshes = ("1x1", "16x16")
+    t0 = time.time()
+    ref = _reference_reports(cells, meshes)
+    print(f"reference: {len(ref)} lowerings in {time.time() - t0:.1f} s",
+          flush=True)
+    for arch, shape in cells:
+        port = {m: json.loads(dryrun.lower_cell(arch, shape, m)[0].to_json())
+                for m in meshes}
+        (p1, r1), (p, r) = ((port[m], ref[(arch, shape, m)]) for m in meshes)
+
+        def pair(get) -> str:
+            return f"{get(p):.4f} | {get(r):.4f}"
+
+        def kind(k):
+            return lambda rep: rep["wire_bytes_by_kind"].get(k, 0.0) / 1e9
+
+        print(f"{arch} {shape} 16x16, port | reference: F x N / F(1x1) "
+              f"{p['flops'] * p['num_devices'] / p1['flops']:.4f} | "
+              f"{r['flops'] * r['num_devices'] / r1['flops']:.4f}; "
+              f"all-gather {pair(kind('all-gather'))} GB; all-reduce "
+              f"{pair(kind('all-reduce'))} GB; wire "
+              f"{pair(lambda rep: rep['wire_bytes'] / 1e9)} GB; B_M "
+              f"{pair(lambda rep: rep['mem_bytes'] / 1e9)} GB", flush=True)
+
+
+def _cells(names) -> list:
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.configs.shapes import applicable
+    if names:
+        return [tuple(n.split(":", 1)) for n in names]
+    return [(a, "decode_32k") for a in ASSIGNED
+            if applicable(get_config(a).family, "decode_32k")] + [
+        ("whisper-tiny", "train_4k")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--full", action="store_true",
                     help="also lower xlstm-125m train_4k 16x16 at full depth")
+    ap.add_argument("--against-reference", nargs="*", metavar="ARCH:SHAPE",
+                    help="only set the given cells (default: every "
+                         "decode_32k cell and whisper-tiny train_4k) beside "
+                         "the reference's dry-run")
     args = ap.parse_args(argv)
+    if args.against_reference is not None:
+        against_reference(_cells(args.against_reference))
+        return 0
     reduced_cells()
     slstm_block()
     if args.full:

@@ -8,7 +8,8 @@ bidirectional, sliding-window masks, the flash-attention kernel path
 The reference's ``shard_hint`` calls are kept: under a mesh binding they
 lay a DTensor out (``distributed.sharding``), without one they do nothing.
 Under a mesh the products run on the shards (``sharding.sp_matmul``) and
-so does the attention core (``_sdpa_on_shards``); ``attention_specs`` and
+so does the attention core (``_sdpa_on_shards``; in decode, over each
+device's keys: ``_sdpa_grouped_on_shards``); ``attention_specs`` and
 ``kv_cache_specs`` give the logical axes of the params and the cache.
 
 Shapes: activations (B, S, D); per-head tensors (B, S, H, dh).  KV cache:
@@ -359,8 +360,12 @@ def _sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, Sq, H, dh), k/v (B, S, K, dh) -> (B, Sq, H, dh).  Scores scaled
     in the compute dtype, softmax in fp32, weights cast to ``v.dtype``, as
-    the reference's ``_sdpa_grouped``.
+    the reference's ``_sdpa_grouped``.  A cache whose sequence a mesh
+    shards attends on its own shards (``_sdpa_grouped_on_shards``).
     """
+    seq = _seq_dims(k, v)
+    if seq:
+        return _sdpa_grouped_on_shards(q, k, v, bias, seq)
     B, Sq, H, dh = q.shape
     K = k.shape[2]
     # under a mesh the cache's sequence carries the model axis: one token's
@@ -373,3 +378,67 @@ def _sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
     return out.reshape(B, Sq, H, dh)
+
+
+def _seq_dims(k: torch.Tensor, v: torch.Tensor) -> Tuple[int, ...]:
+    """The mesh dims that shard the sequence of a cache ``k``/``v`` laid out
+    alike, where ``_sdpa_grouped_on_shards`` takes it: every other mesh
+    dim replicates it or shards its batch or kv heads (a sharded head_dim
+    would leave each device partial scores).  () for anything else, which
+    keeps the plain grouped form."""
+    if not isinstance(k, DTensor) or not isinstance(v, DTensor) \
+            or tuple(k.placements) != tuple(v.placements) or any(
+                p.is_partial() or p.is_shard() and p.dim > 2
+                for p in k.placements):
+        return ()
+    return tuple(i for i, p in enumerate(k.placements) if p.is_shard(1))
+
+
+def _sdpa_grouped_on_shards(q: DTensor, k: DTensor, v: DTensor,
+                            bias: Optional[torch.Tensor],
+                            seq: Tuple[int, ...]) -> DTensor:
+    """``_sdpa_grouped`` where mesh dims ``seq`` shard the cache's sequence:
+    each device attends with the token's query over its own keys, as the
+    reference's grouped contraction keeps the scores local to the
+    sequence's shards.  DTensor's softmax would gather the (B, K, G, Sq, S)
+    fp32 scores whole on every device.
+
+    q takes the cache's shards of the batch and the kv heads and is whole
+    on every other mesh dim (one token's rows moved); ``bias`` (the
+    caller's (1, S) mask) is sliced to the device's keys.  The softmax's
+    max and sum are all-reduced over ``seq`` (two (B, H, Sq) fp32
+    reductions), so a shard with no visible key weighs each of them
+    exp(NEG_INF - max) = 0.  The weights, cast to ``v.dtype``, contract
+    with the device's values; the output is their partial sum over
+    ``seq`` (``Partial``, the layout DTensor's own contraction over the
+    sharded sequence gives), and takes the cache's shards elsewhere."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = k.device_mesh
+    B, Sq, H, dh = q.shape
+    rows = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+                 for p in k.placements)
+    ql = move(q, rows).to_local()
+    kl, vl = k.to_local(), v.to_local()
+    Bl, Kl = kl.shape[0], kl.shape[2]
+    qg = ql.reshape(Bl, Sq, Kl, H // k.shape[2], dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kl) / _scale(dh, q.dtype)
+    scores = scores.float()
+    if bias is not None:
+        shape, start = compute_local_shape_and_global_offset(
+            k.shape, mesh, k.placements)
+        scores = scores + bias[:, start[1]:start[1] + shape[1]]
+    m = scores.amax(dim=-1, keepdim=True)
+    for i in seq:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    e = torch.exp(scores - m)
+    total = e.sum(dim=-1, keepdim=True)
+    for i in seq:
+        total = funcol.all_reduce(total, "sum", (mesh, i))
+    w = (e / total).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, vl).reshape(Bl, Sq, -1, dh)
+    return DTensor.from_local(
+        out, mesh, [Partial() if i in seq else p for i, p in enumerate(rows)],
+        run_check=False, shape=(B, Sq, H, dh), stride=(Sq * H * dh, H * dh,
+                                                       dh, 1))
