@@ -192,7 +192,9 @@ after:
               torch 2.11 refused before a one-device axis replicated, among
               them); qwen2-moe-a2.7b's train_4k F x N / F(1x1) at most
               ``MOE_REPEAT_MAX`` on 16x16 and on 2x16x16 (one group a
-              device through the exchange), the decode_32k 16x16
+              device through the exchange), xlstm-125m's train_4k F x N /
+              F(1x1) at most ``SSD_REPEAT_MAX`` on 16x16 (each device's
+              own run of SSD chunks), the decode_32k 16x16
               all-gather a device of qwen2-moe-a2.7b and qwen2-7b at most
               ``DECODE_ALL_GATHER_MAX`` (the cache's row written on its
               own shard, never the cache gathered, and each device's
@@ -4174,10 +4176,12 @@ MESH_TRAIN = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
 #: on a pod, a decode cell, a two-pod train cell; a train cell of the moe,
 #: hybrid and ssm families and a prefill cell of the enc-dec and VLM ones
 #: on a pod; the MoE's train cell on one device too, for its F x N /
-#: F(1x1), and on two pods; the MoE's decode cell, whose cache shards its
-#: heads and its sequence) and the phase's budget in seconds
+#: F(1x1), and on two pods; the xLSTM's train cell on one device too; the
+#: MoE's decode cell, whose cache shards its heads and its sequence) and
+#: the phase's budget in seconds
 DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("qwen2-moe-a2.7b", "train_4k", "1x1"),
+                ("xlstm-125m", "train_4k", "1x1"),
                 ("dlrm-mlp", "train_4k", "16x16"),
                 ("dlrm-mlp", "decode_32k", "16x16"),
                 ("smollm-135m", "train_4k", "16x16"),
@@ -4196,6 +4200,10 @@ DRYRUN_BUDGET_S = 120.0
 #: 2x16x16 against one device, F x N / F(1x1) (2.53 when every model-axis
 #: device routed its data shard's groups whole)
 MOE_REPEAT_MAX = 1.20
+#: dryrun: the most xlstm-125m's train_4k cell may count on 16x16 against
+#: one device, F x N / F(1x1): 1.4024 while every model-axis device ran the
+#: SSD recurrence's chunks of the whole sequence (the reference: 1.0369)
+SSD_REPEAT_MAX = 1.10
 #: dryrun: the most each decode_32k cell on 16x16 in ``DECODE_CELLS`` may
 #: all-gather a device, bytes: the row writes and the token's query.
 #: qwen2-moe-a2.7b read 97.02 GB on torch 2.11 when the cache's row was
@@ -4525,7 +4533,8 @@ def dryrun_phase(dev, say) -> None:
     within ``PEAK_TOL``); at 16x16 its wire bytes to the ring all-reduce of
     its fp32 params, the planner's dp-16 term, within 1%.  The MoE's
     train cell counts F x N / F(1x1) at most ``MOE_REPEAT_MAX`` on 16x16
-    and 2x16x16, the decode cells of ``DECODE_CELLS`` all-gather at most
+    and 2x16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16, the
+    decode cells of ``DECODE_CELLS`` all-gather at most
     ``DECODE_ALL_GATHER_MAX`` a device on 16x16, and one sLSTM block's
     all-gather at the train_4k batch grows linearly in S, its fit at S =
     4096 under ``SLSTM_ALL_GATHER_MAX``."""
@@ -4591,6 +4600,15 @@ def dryrun_phase(dev, say) -> None:
             f"{MOE_REPEAT_MAX})")
         check(repeat <= MOE_REPEAT_MAX,
               f"the MoE repeats its work on {mesh}: {repeat:.4f}")
+    ssd_one = cells[("xlstm-125m", "train_4k", "1x1")]
+    ssd_pod = cells[("xlstm-125m", "train_4k", "16x16")]
+    repeat = ssd_pod.flops * 256 / ssd_one.flops
+    say(f"xlstm-125m train_4k per device F: 16x16 {ssd_pod.flops!r}, 1x1 "
+        f"{ssd_one.flops!r} (torch {torch.__version__}); F x 256 / F(1x1) "
+        f"{repeat:.4f} (at most {SSD_REPEAT_MAX}; 1.4024 while each device "
+        f"ran the whole sequence's SSD chunks; the reference 1.0369)")
+    check(repeat <= SSD_REPEAT_MAX,
+          f"the SSD recurrence repeats its work on 16x16: {repeat:.4f}")
     for arch in DECODE_CELLS:
         dec = cells[(arch, "decode_32k", "16x16")]
         gather = dec.wire_bytes_by_kind.get("all-gather", 0.0)

@@ -18,7 +18,8 @@ no collective moves a byte) and prints one line per measurement:
     4,096 steps a layer run on fake tensors);
   * with ``--against-reference``, and only that, the given cells (by
     default every decode_32k cell and whisper-tiny train_4k) at 1x1 and
-    16x16 in both packages, at the CLIs' k = 2, 4 probe depth: per device
+    16x16 (or the meshes ``--mesh`` names) in both packages, at the CLIs'
+    k = 2, 4 probe depth: per device
     F x N / F(1x1), all-gather, all-reduce and total wire bytes and B_M,
     the port's beside the reference's.  The reference's dry-run CLI runs
     in a subprocess (it sets ``XLA_FLAGS`` before jax starts) and writes
@@ -30,7 +31,8 @@ Usage::
 
     PYTHONPATH=src python scripts/dryrun_repeats_torch.py [--full]
     PYTHONPATH=src python scripts/dryrun_repeats_torch.py \
-        --against-reference [qwen2-7b:decode_32k xlstm-125m:train_4k ...]
+        --against-reference [qwen2-7b:decode_32k xlstm-125m:train_4k ...] \
+        [--mesh 16x16 2x16x16]
 """
 import argparse
 import dataclasses
@@ -140,8 +142,8 @@ def _reference_reports(cells, meshes) -> dict:
     return reports
 
 
-def against_reference(cells) -> None:
-    meshes = ("1x1", "16x16")
+def against_reference(cells, pods=("16x16",)) -> None:
+    meshes = ("1x1",) + tuple(pods)
     t0 = time.time()
     ref = _reference_reports(cells, meshes)
     print(f"reference: {len(ref)} lowerings in {time.time() - t0:.1f} s",
@@ -149,21 +151,24 @@ def against_reference(cells) -> None:
     for arch, shape in cells:
         port = {m: json.loads(dryrun.lower_cell(arch, shape, m)[0].to_json())
                 for m in meshes}
-        (p1, r1), (p, r) = ((port[m], ref[(arch, shape, m)]) for m in meshes)
+        p1, r1 = port["1x1"], ref[(arch, shape, "1x1")]
+        for mesh in pods:
+            p, r = port[mesh], ref[(arch, shape, mesh)]
 
-        def pair(get) -> str:
-            return f"{get(p):.4f} | {get(r):.4f}"
+            def pair(get) -> str:
+                return f"{get(p):.4f} | {get(r):.4f}"
 
-        def kind(k):
-            return lambda rep: rep["wire_bytes_by_kind"].get(k, 0.0) / 1e9
+            def kind(k):
+                return lambda rep: rep["wire_bytes_by_kind"].get(k, 0.0) / 1e9
 
-        print(f"{arch} {shape} 16x16, port | reference: F x N / F(1x1) "
-              f"{p['flops'] * p['num_devices'] / p1['flops']:.4f} | "
-              f"{r['flops'] * r['num_devices'] / r1['flops']:.4f}; "
-              f"all-gather {pair(kind('all-gather'))} GB; all-reduce "
-              f"{pair(kind('all-reduce'))} GB; wire "
-              f"{pair(lambda rep: rep['wire_bytes'] / 1e9)} GB; B_M "
-              f"{pair(lambda rep: rep['mem_bytes'] / 1e9)} GB", flush=True)
+            print(f"{arch} {shape} {mesh}, port | reference: F x N / F(1x1) "
+                  f"{p['flops'] * p['num_devices'] / p1['flops']:.4f} | "
+                  f"{r['flops'] * r['num_devices'] / r1['flops']:.4f}; "
+                  f"all-gather {pair(kind('all-gather'))} GB; all-reduce "
+                  f"{pair(kind('all-reduce'))} GB; wire "
+                  f"{pair(lambda rep: rep['wire_bytes'] / 1e9)} GB; B_M "
+                  f"{pair(lambda rep: rep['mem_bytes'] / 1e9)} GB",
+                  flush=True)
 
 
 def _cells(names) -> list:
@@ -184,9 +189,11 @@ def main(argv=None) -> int:
                     help="only set the given cells (default: every "
                          "decode_32k cell and whisper-tiny train_4k) beside "
                          "the reference's dry-run")
+    ap.add_argument("--mesh", nargs="+", default=["16x16"],
+                    help="the meshes --against-reference sets beside 1x1")
     args = ap.parse_args(argv)
     if args.against_reference is not None:
-        against_reference(_cells(args.against_reference))
+        against_reference(_cells(args.against_reference), args.mesh)
         return 0
     reduced_cells()
     slstm_block()

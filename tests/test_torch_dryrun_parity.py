@@ -69,9 +69,12 @@ print(json.dumps(out))
 #: reference (ROADMAP Queue 3): XLA repeats ~4-14% of the work, where the
 #: port's count is at or near 1 (the MoE routes each group's tokens on the
 #: devices that hold them, the sLSTM runs each device's channels and its
-#: post-FFN on each device's columns); the
+#: post-FFN on each device's columns, the SSD recurrence each device's own
+#: run of chunks); the
 #: kinds differ in form (the port reduce-scatters the ZeRO-1 grads and the
-#: MoE's buffers, XLA all-reduces and permutes)
+#: MoE's buffers, XLA all-reduces and permutes; the SSD's exchange of chunk
+#: summaries is all-to-all, which at (8, 32) outweighs the gathers it
+#: saves: its bytes do not shrink with the sequence)
 LOGGED = {
     "qwen2-moe-a2.7b": (
         1.0000, 1.1411,
@@ -80,15 +83,15 @@ LOGGED = {
         {"all-gather": 0.6369, "all-reduce": 1.5799, "all-to-all": 0.1659,
          "collective-permute": 0.0515}),
     "hymba-1.5b": (
-        1.0022, 1.0829,
-        {"all-gather": 0.8377, "all-reduce": 0.0348, "all-to-all": 0.1393,
+        1.0000, 1.0829,
+        {"all-gather": 0.8070, "all-reduce": 0.0041, "all-to-all": 0.2320,
          "reduce-scatter": 1.0384},
         {"all-gather": 0.5392, "all-reduce": 1.9172, "all-to-all": 0.1932,
          "collective-permute": 0.0510}),
     "xlstm-125m": (
-        1.0124, 1.0666,
-        {"all-gather": 0.6940, "all-reduce": 0.4451, "all-to-all": 0.1761,
-         "reduce-scatter": 0.2012},
+        1.0000, 1.0666,
+        {"all-gather": 0.6704, "all-reduce": 0.1482, "all-to-all": 1.0795,
+         "reduce-scatter": 0.2995},
         {"all-gather": 0.4845, "all-reduce": 0.8777, "all-to-all": 1.2872,
          "collective-permute": 2.0134}),
     "whisper-tiny": (
