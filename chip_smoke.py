@@ -192,7 +192,9 @@ after:
               torch 2.11 refused before a one-device axis replicated, among
               them); qwen2-moe-a2.7b's train_4k F x N / F(1x1) at most
               ``MOE_REPEAT_MAX`` on 16x16 and on 2x16x16 (one group a
-              device through the exchange), xlstm-125m's train_4k F x N /
+              device through the exchange), its decode_32k F x N /
+              F(1x1) at most ``MOE_DECODE_REPEAT_MAX`` on 16x16 (each
+              expert product once across the mesh), xlstm-125m's train_4k F x N /
               F(1x1) at most ``SSD_REPEAT_MAX`` on 16x16 (each device's
               own run of SSD chunks), the decode_32k 16x16
               all-gather a device of qwen2-moe-a2.7b and qwen2-7b at most
@@ -4177,8 +4179,8 @@ MESH_TRAIN = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
 #: hybrid and ssm families and a prefill cell of the enc-dec and VLM ones
 #: on a pod; the MoE's train cell on one device too, for its F x N /
 #: F(1x1), and on two pods; the xLSTM's train cell on one device too; the
-#: MoE's decode cell, whose cache shards its heads and its sequence) and
-#: the phase's budget in seconds
+#: MoE's decode cell, whose cache shards its heads and its sequence, and on
+#: one device too, for its F x N / F(1x1)) and the phase's budget in seconds
 DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("qwen2-moe-a2.7b", "train_4k", "1x1"),
                 ("xlstm-125m", "train_4k", "1x1"),
@@ -4194,12 +4196,19 @@ DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("internvl2-26b", "prefill_32k", "16x16"),
                 ("hymba-1.5b", "decode_32k", "1x1"),
                 ("qwen2-moe-a2.7b", "train_4k", "2x16x16"),
-                ("qwen2-moe-a2.7b", "decode_32k", "16x16"))
+                ("qwen2-moe-a2.7b", "decode_32k", "16x16"),
+                ("qwen2-moe-a2.7b", "decode_32k", "1x1"))
 DRYRUN_BUDGET_S = 120.0
 #: dryrun: the most the MoE's train_4k cell may count on 16x16 and on
 #: 2x16x16 against one device, F x N / F(1x1) (2.53 when every model-axis
 #: device routed its data shard's groups whole)
 MOE_REPEAT_MAX = 1.20
+#: dryrun: the most the MoE's decode_32k cell may count on 16x16 against
+#: one device, F x N / F(1x1): 3.6006 while every data-axis device computed
+#: every expert product of the step's one group (``MOE_DECODE_BEFORE``; the
+#: reference's ``MOE_DECODE_REFERENCE``)
+MOE_DECODE_REPEAT_MAX = 1.25
+MOE_DECODE_BEFORE, MOE_DECODE_REFERENCE = 3.6006, 1.4864
 #: dryrun: the most xlstm-125m's train_4k cell may count on 16x16 against
 #: one device, F x N / F(1x1): 1.4024 while every model-axis device ran the
 #: SSD recurrence's chunks of the whole sequence (the reference: 1.0369)
@@ -4533,7 +4542,8 @@ def dryrun_phase(dev, say) -> None:
     within ``PEAK_TOL``); at 16x16 its wire bytes to the ring all-reduce of
     its fp32 params, the planner's dp-16 term, within 1%.  The MoE's
     train cell counts F x N / F(1x1) at most ``MOE_REPEAT_MAX`` on 16x16
-    and 2x16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16, the
+    and 2x16x16, its decode cell at most ``MOE_DECODE_REPEAT_MAX`` on
+    16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16, the
     decode cells of ``DECODE_CELLS`` all-gather at most
     ``DECODE_ALL_GATHER_MAX`` a device on 16x16, and one sLSTM block's
     all-gather at the train_4k batch grows linearly in S, its fit at S =
@@ -4600,6 +4610,16 @@ def dryrun_phase(dev, say) -> None:
             f"{MOE_REPEAT_MAX})")
         check(repeat <= MOE_REPEAT_MAX,
               f"the MoE repeats its work on {mesh}: {repeat:.4f}")
+    dec_one = cells[("qwen2-moe-a2.7b", "decode_32k", "1x1")]
+    dec_pod = cells[("qwen2-moe-a2.7b", "decode_32k", "16x16")]
+    repeat = dec_pod.flops * 256 / dec_one.flops
+    say(f"qwen2-moe-a2.7b decode_32k per device F: 16x16 {dec_pod.flops!r}, "
+        f"1x1 {dec_one.flops!r} (torch {torch.__version__}); F x 256 / "
+        f"F(1x1) {repeat:.4f} (at most {MOE_DECODE_REPEAT_MAX}; "
+        f"{MOE_DECODE_BEFORE} while every data-axis device computed every "
+        f"expert product; the reference {MOE_DECODE_REFERENCE})")
+    check(repeat <= MOE_DECODE_REPEAT_MAX,
+          f"the MoE's decode repeats its work on 16x16: {repeat:.4f}")
     ssd_one = cells[("xlstm-125m", "train_4k", "1x1")]
     ssd_pod = cells[("xlstm-125m", "train_4k", "16x16")]
     repeat = ssd_pod.flops * 256 / ssd_one.flops

@@ -25,7 +25,11 @@ no collective moves a byte) and prints one line per measurement:
     in a subprocess (it sets ``XLA_FLAGS`` before jax starts) and writes
     its reports to a temporary directory; a full decode cell compiles
     there in seconds, whisper-tiny train_4k 16x16 in ~20 s and xlstm-125m
-    train_4k 16x16 in minutes on a CPU.
+    train_4k 16x16 in minutes on a CPU;
+  * with ``--by-module``, and only that, the given cells at full width and
+    two layers (no probe) at 1x1 and 16x16 (or ``--mesh``): F x N /
+    F(1x1) of each function of ``MODULES`` that the step calls, summed
+    over its calls (the forward's; a train cell's backward is not split).
 
 Usage::
 
@@ -33,10 +37,14 @@ Usage::
     PYTHONPATH=src python scripts/dryrun_repeats_torch.py \
         --against-reference [qwen2-7b:decode_32k xlstm-125m:train_4k ...] \
         [--mesh 16x16 2x16x16]
+    PYTHONPATH=src python scripts/dryrun_repeats_torch.py \
+        --by-module qwen2-moe-a2.7b:decode_32k whisper-tiny:train_4k
 """
 import argparse
 import dataclasses
+import importlib
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -171,6 +179,70 @@ def against_reference(cells, pods=("16x16",)) -> None:
                   flush=True)
 
 
+#: the functions ``--by-module`` splits a cell's F by: (module of
+#: ``repro_torch.models``, name), each wrapped wherever a module of the
+#: package holds it
+MODULES = (("moe", "_route_groups"), ("moe", "_dispatch"),
+           ("moe", "_experts"), ("moe", "_combine"),
+           ("attention", "decode_attention"), ("attention", "_project_qkv"),
+           ("encdec", "encode"), ("transformer", "_head"))
+
+
+def by_module(cells, pods=("16x16",)) -> None:
+    import pkgutil
+
+    from repro_torch import models
+    from repro_torch.measure.counters import MeshCounter
+    live, flops, patched = [], {}, []
+
+    class Recorded(MeshCounter):
+        def __enter__(self):
+            live.append(self)
+            return super().__enter__()
+
+    def counted(key, fn):
+        def call(*args, **kwargs):
+            before = live[-1].flops
+            out = fn(*args, **kwargs)
+            flops[key] = flops.get(key, 0.0) + live[-1].flops - before
+            return out
+        return call
+
+    mods = [importlib.import_module(f"repro_torch.models.{m.name}")
+            for m in pkgutil.iter_modules(models.__path__)]
+    for home, name in MODULES:
+        fn = getattr(importlib.import_module(f"repro_torch.models.{home}"),
+                     name)
+        for mod in mods:
+            if getattr(mod, name, None) is fn:
+                setattr(mod, name, counted(f"{home}.{name}", fn))
+                patched.append((mod, name, fn))
+    dryrun.MeshCounter = Recorded
+    try:
+        for arch, shape in cells:
+            two = {"n_layers": 2}
+            if get_config(arch).family == "encdec":
+                two["encoder_layers"] = 2
+            per = {}
+            for mesh in ("1x1",) + tuple(pods):
+                flops.clear()
+                low = dryrun.lower_cell(arch, shape, mesh, overrides=two,
+                                        probe=False)[1]
+                per[mesh] = dict(flops, step=low.flops)
+            for mesh in pods:
+                n = math.prod(dryrun._mesh_from_name(mesh)[0])
+                print(f"{arch} {shape} {mesh} at 2 layers, F x N / F(1x1) "
+                      f"(F x N, F(1x1)):", flush=True)
+                for key in sorted(per["1x1"], key=lambda k: k != "step"):
+                    one, many = per["1x1"][key], per[mesh].get(key, 0.0) * n
+                    print(f"  {key}: {many / one:.4f} ({many:.5g}, "
+                          f"{one:.5g})", flush=True)
+    finally:
+        dryrun.MeshCounter = MeshCounter
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+
+
 def _cells(names) -> list:
     from repro_torch.configs import ASSIGNED
     from repro_torch.configs.shapes import applicable
@@ -189,9 +261,15 @@ def main(argv=None) -> int:
                     help="only set the given cells (default: every "
                          "decode_32k cell and whisper-tiny train_4k) beside "
                          "the reference's dry-run")
+    ap.add_argument("--by-module", nargs="+", metavar="ARCH:SHAPE",
+                    help="only split the given cells' F by MODULES")
     ap.add_argument("--mesh", nargs="+", default=["16x16"],
-                    help="the meshes --against-reference sets beside 1x1")
+                    help="the meshes --against-reference or --by-module "
+                         "set beside 1x1")
     args = ap.parse_args(argv)
+    if args.by_module:
+        by_module(_cells(args.by_module), args.mesh)
+        return 0
     if args.against_reference is not None:
         against_reference(_cells(args.against_reference), args.mesh)
         return 0

@@ -284,15 +284,27 @@ def _exchange(local: torch.Tensor, mesh, axis: int, S: int,
 def _ungroup(out: torch.Tensor, xt: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """``_groups`` undone: ``out`` (G, Tg, D), laid out as ``xt`` was, back
-    to (B, S, D) in ``x``'s layout (a partial sum made whole)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    to (B, S, D) in ``x``'s layout (a partial sum made whole).  Where out
+    holds channels of the tokens that xt splits on a mesh axis
+    (``_combine`` after ``_dispatch``'s channel layout), the channels are
+    traded back for each device's tokens (``_transpose``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.distributed.sharding import move
     B, S, D = x.shape
     if not isinstance(out, DTensor):
         return out.reshape(B, S, D)
     mesh = x.device_mesh
-    if tuple(out.placements) != tuple(xt.placements):
+    chan = [i for i, (p, q) in enumerate(zip(out.placements, xt.placements))
+            if p == Shard(2) and q == Shard(1)]
+    if chan:                       # channels of every token: each its own
+        mid = tuple(p if i in chan else q for i, (p, q) in
+                    enumerate(zip(out.placements, xt.placements)))
+        local = _transpose(move(out, mid).to_local(grad_placements=mid),
+                           mesh, chan, back=True)
+        out = DTensor.from_local(local, mesh, xt.placements, run_check=False,
+                                 shape=xt.shape, stride=xt.stride())
+    elif tuple(out.placements) != tuple(xt.placements):
         out = out.redistribute(mesh, xt.placements)
     place, _, swap = _group_layout(x, xt.shape[1])
     lb = B // math.prod(mesh.size(i) for i, p in enumerate(place)
@@ -402,31 +414,177 @@ def _route_groups(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     return dispatch, combine, aux
 
 
-def _dispatch(dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+def _split(pw) -> bool:
+    """Whether an expert weight's placement on a mesh axis splits the
+    experts (``Shard(0)``) or each expert's hidden axis (``Shard(2)``)."""
+    from torch.distributed.tensor import Shard
+    return pw in (Shard(0), Shard(2))
+
+
+def _slot_axes(partial, w_place, C: int, mesh) -> Tuple[int, ...]:
+    """The mesh axes on which ``_experts`` reduce-scatters the buffers onto
+    their ``C`` slots: those where the buffers are a partial sum
+    (``partial``) against weights that split nothing there, in mesh order
+    while the slots divide their devices."""
+    axes, split = [], 1
+    for i, (part, pw) in enumerate(zip(partial, w_place)):
+        if part and not _split(pw) and C % (split * mesh.size(i)) == 0:
+            split *= mesh.size(i)
+            axes.append(i)
+    return tuple(axes)
+
+
+def _channel_axes(place, w_place, C: int, D: int, mesh
+                  ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The mesh axes on which ``_dispatch`` splits the experts' buffers by
+    their D channels, as (tok, rep).  ``tok``: the axes that split a
+    group's tokens (``place``, the groups' layout) against weights that
+    split nothing there, where the slots do not divide the devices
+    (``_slot_axes``): decode's one group of 128 tokens against 10 slots,
+    whose buffers would be a partial sum made whole on every device.
+    ``rep``: the axes on which every device holds the same tokens against
+    each expert's hidden axis split, where each would dispatch them all.
+    Both empty (the buffers then take the layouts of ``_experts``) where D
+    does not divide their devices, or where the shards would not nest in
+    mesh order as DTensor nests them: the group's other token axes first,
+    then ``tok`` (the runs they trade), then ``rep``."""
+    from torch.distributed.tensor import Replicate, Shard
+    slots = _slot_axes([p == Shard(1) for p in place], w_place, C, mesh)
+    tok = tuple(i for i, (p, pw) in enumerate(zip(place, w_place))
+                if p == Shard(1) and not _split(pw) and i not in slots)
+    rep = tuple(i for i, (p, pw) in enumerate(zip(place, w_place))
+                if p == Replicate() and pw == Shard(2))
+    runs = tuple(i for i, p in enumerate(place)
+                 if p == Shard(1) and i not in tok)
+    order = runs + tok + rep
+    if D % math.prod(mesh.size(i) for i in tok + rep) or \
+            list(order) != sorted(order):
+        return (), ()
+    return tok, rep
+
+
+def _transpose(local: torch.Tensor, mesh, axes, back: bool = False
+               ) -> torch.Tensor:
+    """Each device's run of a group's tokens, split over the mesh ``axes``
+    (outermost first, nested as DTensor nests a dim's shards), traded for
+    its block of the channels of all those tokens: ``local`` (G, T, D) ->
+    (G, n T, D / n), n the axes' devices; with ``back``, the inverse.
+
+    One all-to-all per axis, innermost first: each device sends a peer the
+    channels that end on it, and puts the runs it gets in token order.
+    The block a device ends with is its rank over the axes, outermost
+    first: the channels' ``Shard(2)`` on those axes."""
+    from torch.distributed import _functional_collectives as funcol
+    n_all = math.prod(mesh.size(i) for i in axes)
+    c = local.shape[2] if back else local.shape[2] // n_all
+    steps = list(enumerate(axes))
+    for m, i in (steps if back else reversed(steps)):
+        n, G = mesh.size(i), local.shape[0]
+        A = math.prod(mesh.size(j) for j in axes[:m])
+        if back:
+            T = local.shape[1] // n
+            send = local.reshape(G, n, T, A, c).movedim(1, 0)
+        else:
+            T = local.shape[1]
+            send = local.reshape(G, T, A, n, c).movedim(3, 0)
+        got = funcol.all_to_all_single_autograd(send.contiguous(), None,
+                                                None, (mesh, i))
+        if back:
+            local = got.movedim(0, 3).reshape(G, T, A * n * c)
+        else:
+            local = got.movedim(0, 1).reshape(G, n * T, A * c)
+    return local
+
+
+def _slice_then(t: torch.Tensor, place) -> torch.Tensor:
+    """``t`` moved to ``place``, each axis it holds whole sliced first, so
+    that a gather on another axis moves only the slice."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import move
+    first = tuple(q if p == Replicate() else p
+                  for p, q in zip(t.placements, place))
+    return move(move(t, first), place)
+
+
+def _dispatch(dispatch: torch.Tensor, xt: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
     """Each group's tokens into its experts' buffers: dispatch (G, Tg, E, C)
     and xt (G, Tg, D) -> (G, E, C, D).  Under a mesh both hold the same
     groups (``_groups``'s layout), so each device fills its own groups'
     buffers; where a mesh axis splits a group's tokens each device fills
     them from its own tokens, and the buffers are a partial sum over that
     axis.  A grad that comes back in another layout (a partial sum of
-    ``_experts``) is made whole in this one first."""
-    from torch.distributed.tensor import DTensor, Partial
+    ``_experts``) is made whole in this one first.
+
+    Against ``w``, an expert weight, each device fills only what its
+    products read.  On a mesh axis that splits the experts while every
+    device holds the same tokens, its experts' buffers (the dispatch
+    sliced).  On the axes of ``_channel_axes``, its block of the D
+    channels of every buffer: xt's runs of tokens traded for channels
+    (``_transpose``) and the dispatch gathered, where the axis splits the
+    tokens; xt's channels sliced, where it does not."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.distributed.sharding import move
     if not isinstance(xt, DTensor):
         return torch.einsum("gtec,gtd->gecd", dispatch, xt)
-    place = tuple(xt.placements)
-    dispatch = move(dispatch, place)
-    y = torch.einsum("gtec,gtd->gecd", dispatch.to_local(grad_placements=place),
-                     xt.to_local(grad_placements=place))
-    return DTensor.from_local(y, xt.device_mesh, tuple(
-        Partial() if p.is_shard(1) else p for p in place), run_check=False)
+    mesh, place = xt.device_mesh, tuple(xt.placements)
+    tok, rep = _channel_axes(place, w.placements, dispatch.shape[-1],
+                             xt.shape[-1], mesh)
+    ep = tuple(i for i, (p, pw) in enumerate(zip(place, w.placements))
+               if p == Replicate() and pw == Shard(0))
+    chan = tok + rep
+    if tok:
+        local = _transpose(xt.to_local(grad_placements=place), mesh, tok)
+        xt = DTensor.from_local(local, mesh, tuple(
+            Shard(2) if i in tok else p for i, p in enumerate(place)),
+            run_check=False, shape=xt.shape, stride=xt.stride())
+    xt = move(xt, tuple(Shard(2) if i in chan else p
+                        for i, p in enumerate(place)))
+    dispatch = _slice_then(dispatch, tuple(
+        Replicate() if i in tok else Shard(2) if i in ep else p
+        for i, p in enumerate(place)))
+    gd = tuple(Partial() if i in chan else p
+               for i, p in enumerate(dispatch.placements))
+    gx = tuple(Partial() if i in ep else p for i, p in enumerate(
+        xt.placements))
+    y = torch.einsum("gtec,gtd->gecd", dispatch.to_local(grad_placements=gd),
+                     xt.to_local(grad_placements=gx))
+    return DTensor.from_local(y, mesh, tuple(
+        Shard(3) if i in chan else Shard(1) if i in ep else
+        Partial() if p.is_shard(1) else p for i, p in enumerate(place)),
+        run_check=False)
 
 
 def _expert_products(xin, wg, wu, wd):
     g = F.silu(torch.einsum("gecd,edf->gecf", xin, wg))
     u = torch.einsum("gecd,edf->gecf", xin, wu)
     return torch.einsum("gecf,efd->gecd", g * u, wd)
+
+
+def _channel_products(xin, wg, wu, wd, mesh, whole, chan):
+    """``_expert_products`` on each device's block of the D channels, on
+    the mesh axes ``chan``, of the buffers xin (G, E, C, D / n) and of the
+    weights (wg, wu (E, D / n, F), wd (E, F, D / n)): the gate and up
+    products are partial sums over ``chan``, made whole by one all-reduce
+    of both before the SwiGLU, and the down product writes the device's
+    channels.  ``whole``: the placements of the whole products (G, E, C,
+    F).  Their grads come back as partial sums over ``chan`` (each device
+    reads its channels of the down product), made whole before the
+    all-reduce's backward hands them to the gate and up products."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from repro_torch.distributed.sharding import whole_grad
+    whole = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                  for p in whole)                  # the pair stacked first
+    part = tuple(Partial() if i in chan else p for i, p in enumerate(whole))
+    gu = torch.stack([torch.einsum("gecd,edf->gecf", xin, w)
+                      for w in (wg, wu)])
+    gu = whole_grad(DTensor.from_local(gu, mesh, part, run_check=False
+                                       ).redistribute(mesh, whole))
+    g, u = gu.to_local(grad_placements=part).unbind(0)
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, wd)
 
 
 def _experts(xin: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
@@ -443,7 +601,9 @@ def _experts(xin: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
     expert's hidden axis is sharded the buffers are gathered whole and the
     output is a partial sum; against replicated weights the buffers keep
     their shards, and a partial sum is reduce-scattered onto the slots
-    (where they divide; made whole elsewhere).
+    (where they divide; made whole elsewhere).  Buffers that ``_dispatch``
+    split by channels keep them against replicated weights: each device
+    multiplies its channels (``_channel_products``).
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -453,8 +613,11 @@ def _experts(xin: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
         return _expert_products(xin, wg, wu, wd)
     mesh = xin.device_mesh
     came = tuple(xin.placements)
-    x_to, out, gw_in, gw_out = [], [], [], []
-    slot_split = 1
+    slots = _slot_axes([p == Partial() for p in came], wg.placements,
+                       xin.shape[2], mesh)
+    chan = tuple(i for i, (px, pw) in enumerate(zip(came, wg.placements))
+                 if px == Shard(3) and not _split(pw))
+    x_to, out, whole, gw_in, gw_out = [], [], [], [], []
     for i, (px, pw) in enumerate(zip(came, wg.placements)):
         if pw == Shard(0):                       # experts: the buffers move
             x_to.append(Shard(1))
@@ -466,22 +629,33 @@ def _experts(xin: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
             out.append(Partial())
             gw_in.append(pw)
             gw_out.append(Shard(1))
+        elif i in chan:                          # each device its channels
+            x_to.append(px)
+            out.append(px)
+            gw_in.append(Shard(1))
+            gw_out.append(Shard(2))
         else:
-            n = mesh.size(i)
-            if px == Partial() and xin.shape[2] % (slot_split * n) == 0:
-                slot_split *= n
-                x_to.append(Shard(2))
-            else:
-                x_to.append(px if px == Shard(0) else Replicate())
+            x_to.append(Shard(2) if i in slots else
+                        px if px == Shard(0) else Replicate())
             out.append(x_to[-1])
             gw_in.append(Partial() if isinstance(x_to[-1], Shard)
                          else Replicate())
             gw_out.append(gw_in[-1])
+        whole.append(Replicate() if i in chan else
+                     Shard(3) if pw == Shard(2) else out[-1])
     xin = move(xin, x_to)
-    h = _expert_products(
-        xin.to_local(grad_placements=out),
-        wg.to_local(grad_placements=gw_in), wu.to_local(grad_placements=gw_in),
-        wd.to_local(grad_placements=gw_out))
+    if chan:                   # each device its channels of the weights
+        wg, wu = (move(w, tuple(Shard(1) if i in chan else q
+                                for i, q in enumerate(w.placements)))
+                  for w in (wg, wu))
+        wd = move(wd, tuple(Shard(2) if i in chan else q
+                            for i, q in enumerate(wd.placements)))
+    local = (xin.to_local(grad_placements=out),
+             wg.to_local(grad_placements=gw_in),
+             wu.to_local(grad_placements=gw_in),
+             wd.to_local(grad_placements=gw_out))
+    h = (_channel_products(*local, mesh, whole, chan) if chan
+         else _expert_products(*local))
     h = DTensor.from_local(h, mesh, out, run_check=False)
     back = tuple(c if (c == Shard(0) and o == Shard(1)) else o
                  for c, o in zip(came, out))
@@ -500,8 +674,11 @@ def _combine(combine: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     them) and the output is a partial sum, and against h's channels each
     device forms its channels of the output.  Where a mesh axis splits
     each group's tokens, h is gathered whole on it (k × capacity_factor
-    times the group's tokens) and each device weighs its own tokens.
-    DTensor's own einsum would gather h on every axis.
+    times the group's tokens) and each device weighs its own tokens; but
+    where h holds channels there (``_dispatch``'s channel layout), the
+    combine weights are gathered instead (the group's tokens × its
+    experts' slots, not × D) and each device forms its channels of every
+    token.  DTensor's own einsum would gather h on every axis.
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -511,13 +688,19 @@ def _combine(combine: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     mesh = h.device_mesh
     h = move(h, tuple(
         Shard(0) if pc == Shard(0) else
+        ph if ph == Shard(3) else
         Replicate() if pc == Shard(1) else
         Shard(3) if ph == Partial() and h.shape[3] % mesh.size(i) == 0
         else ph
         for i, (pc, ph) in enumerate(zip(combine.placements, h.placements))))
     c_to, out, gc, gh = [], [], [], []
     for pc, ph in zip(combine.placements, h.placements):
-        if pc == Shard(1):                       # each device its tokens
+        if ph == Shard(3):                       # each device its channels
+            c_to.append(Replicate())
+            out.append(Shard(2))
+            gc.append(Partial())
+            gh.append(ph)
+        elif pc == Shard(1):                     # each device its tokens
             c_to.append(pc)
             out.append(pc)
             gc.append(pc)
@@ -532,11 +715,6 @@ def _combine(combine: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
             out.append(Partial())
             gc.append(Shard(2))
             gh.append(ph)
-        elif ph == Shard(3):                     # each device its channels
-            c_to.append(Replicate())
-            out.append(Shard(2))
-            gc.append(Partial())
-            gh.append(ph)
         elif ph == Partial():
             c_to.append(Replicate())
             out.append(Partial())
@@ -547,7 +725,7 @@ def _combine(combine: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
             out.append(Replicate())
             gc.append(Replicate())
             gh.append(Replicate())
-    combine = whole_grad(move(combine, c_to))
+    combine = whole_grad(_slice_then(combine, c_to))
     y = torch.einsum("gtec,gecd->gtd", combine.to_local(grad_placements=gc),
                      h.to_local(grad_placements=gh))
     return DTensor.from_local(y, mesh, out, run_check=False)
@@ -577,7 +755,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     E_pad = p["w_gate"].shape[0]
     dispatch, combine, aux = _route_groups(xt, p["router"].to(dt), cfg, C,
                                            E_pad)
-    xin = _dispatch(dispatch, xt)                             # (G, E_pad, C, D)
+    xin = _dispatch(dispatch, xt, p["w_gate"])                # (G, E_pad, C, D)
     h = _experts(xin, p, dt)                                  # (G, E_pad, C, D)
     out = _combine(combine, h)                                # (G, Tg, D)
 
