@@ -196,7 +196,9 @@ after:
               F(1x1) at most ``MOE_DECODE_REPEAT_MAX`` on 16x16 (each
               expert product once across the mesh), xlstm-125m's train_4k F x N /
               F(1x1) at most ``SSD_REPEAT_MAX`` on 16x16 (each device's
-              own run of SSD chunks), the decode_32k 16x16
+              own run of SSD chunks), whisper-tiny's prefill_32k F x N /
+              F(1x1) at most ``ENCDEC_REPEAT_MAX`` on 16x16 (the encoder
+              on each device's own frames), the decode_32k 16x16
               all-gather a device of qwen2-moe-a2.7b and qwen2-7b at most
               ``DECODE_ALL_GATHER_MAX`` (the cache's row written on its
               own shard, never the cache gathered, and each device's
@@ -4180,7 +4182,8 @@ MESH_TRAIN = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
 #: on a pod; the MoE's train cell on one device too, for its F x N /
 #: F(1x1), and on two pods; the xLSTM's train cell on one device too; the
 #: MoE's decode cell, whose cache shards its heads and its sequence, and on
-#: one device too, for its F x N / F(1x1)) and the phase's budget in seconds
+#: one device too, for its F x N / F(1x1); the enc-dec's prefill cell on one
+#: device too) and the phase's budget in seconds
 DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("qwen2-moe-a2.7b", "train_4k", "1x1"),
                 ("xlstm-125m", "train_4k", "1x1"),
@@ -4197,7 +4200,8 @@ DRYRUN_CELLS = (("dlrm-mlp", "train_4k", "1x1"),
                 ("hymba-1.5b", "decode_32k", "1x1"),
                 ("qwen2-moe-a2.7b", "train_4k", "2x16x16"),
                 ("qwen2-moe-a2.7b", "decode_32k", "16x16"),
-                ("qwen2-moe-a2.7b", "decode_32k", "1x1"))
+                ("qwen2-moe-a2.7b", "decode_32k", "1x1"),
+                ("whisper-tiny", "prefill_32k", "1x1"))
 DRYRUN_BUDGET_S = 120.0
 #: dryrun: the most the MoE's train_4k cell may count on 16x16 and on
 #: 2x16x16 against one device, F x N / F(1x1) (2.53 when every model-axis
@@ -4213,6 +4217,13 @@ MOE_DECODE_BEFORE, MOE_DECODE_REFERENCE = 3.6006, 1.4864
 #: one device, F x N / F(1x1): 1.4024 while every model-axis device ran the
 #: SSD recurrence's chunks of the whole sequence (the reference: 1.0369)
 SSD_REPEAT_MAX = 1.10
+#: dryrun: the most whisper-tiny's prefill_32k cell may count on 16x16
+#: against one device, F x N / F(1x1): 1.0417 while its 1,500 frames,
+#: which do not divide the model axis, ran the whole encoder on every
+#: model-axis device (``ENCDEC_BEFORE``; the reference's
+#: ``ENCDEC_REFERENCE``)
+ENCDEC_REPEAT_MAX = 1.01
+ENCDEC_BEFORE, ENCDEC_REFERENCE = 1.0417, 1.0297
 #: dryrun: the most each decode_32k cell on 16x16 in ``DECODE_CELLS`` may
 #: all-gather a device, bytes: the row writes and the token's query.
 #: qwen2-moe-a2.7b read 97.02 GB on torch 2.11 when the cache's row was
@@ -4543,7 +4554,8 @@ def dryrun_phase(dev, say) -> None:
     its fp32 params, the planner's dp-16 term, within 1%.  The MoE's
     train cell counts F x N / F(1x1) at most ``MOE_REPEAT_MAX`` on 16x16
     and 2x16x16, its decode cell at most ``MOE_DECODE_REPEAT_MAX`` on
-    16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16, the
+    16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16, whisper's
+    prefill cell at most ``ENCDEC_REPEAT_MAX`` on 16x16, the
     decode cells of ``DECODE_CELLS`` all-gather at most
     ``DECODE_ALL_GATHER_MAX`` a device on 16x16, and one sLSTM block's
     all-gather at the train_4k batch grows linearly in S, its fit at S =
@@ -4629,6 +4641,16 @@ def dryrun_phase(dev, say) -> None:
         f"ran the whole sequence's SSD chunks; the reference 1.0369)")
     check(repeat <= SSD_REPEAT_MAX,
           f"the SSD recurrence repeats its work on 16x16: {repeat:.4f}")
+    enc_one = cells[("whisper-tiny", "prefill_32k", "1x1")]
+    enc_pod = cells[("whisper-tiny", "prefill_32k", "16x16")]
+    repeat = enc_pod.flops * 256 / enc_one.flops
+    say(f"whisper-tiny prefill_32k per device F: 16x16 {enc_pod.flops!r}, "
+        f"1x1 {enc_one.flops!r} (torch {torch.__version__}); F x 256 / "
+        f"F(1x1) {repeat:.4f} (at most {ENCDEC_REPEAT_MAX}; {ENCDEC_BEFORE} "
+        f"while every model-axis device ran the whole encoder; the "
+        f"reference {ENCDEC_REFERENCE})")
+    check(repeat <= ENCDEC_REPEAT_MAX,
+          f"the encoder repeats its work on 16x16: {repeat:.4f}")
     for arch in DECODE_CELLS:
         dec = cells[(arch, "decode_32k", "16x16")]
         gather = dec.wire_bytes_by_kind.get("all-gather", 0.0)

@@ -17,9 +17,9 @@ no collective moves a byte) and prints one line per measurement:
     F, the wire by kind and the seconds it took (minutes: the sLSTM's
     4,096 steps a layer run on fake tensors);
   * with ``--against-reference``, and only that, the given cells (by
-    default every decode_32k cell and whisper-tiny train_4k) at 1x1 and
-    16x16 (or the meshes ``--mesh`` names) in both packages, at the CLIs'
-    k = 2, 4 probe depth: per device
+    default every decode_32k cell and whisper-tiny's train_4k and
+    prefill_32k) at 1x1 and 16x16 (or the meshes ``--mesh`` names) in
+    both packages, at the CLIs' k = 2, 4 probe depth: per device
     F x N / F(1x1), all-gather, all-reduce and total wire bytes and B_M,
     the port's beside the reference's.  The reference's dry-run CLI runs
     in a subprocess (it sets ``XLA_FLAGS`` before jax starts) and writes
@@ -185,7 +185,8 @@ def against_reference(cells, pods=("16x16",)) -> None:
 MODULES = (("moe", "_route_groups"), ("moe", "_dispatch"),
            ("moe", "_experts"), ("moe", "_combine"),
            ("attention", "decode_attention"), ("attention", "_project_qkv"),
-           ("encdec", "encode"), ("transformer", "_head"))
+           ("encdec", "encode"), ("encdec", "_encode"),
+           ("transformer", "_head"))
 
 
 def by_module(cells, pods=("16x16",)) -> None:
@@ -250,7 +251,7 @@ def _cells(names) -> list:
         return [tuple(n.split(":", 1)) for n in names]
     return [(a, "decode_32k") for a in ASSIGNED
             if applicable(get_config(a).family, "decode_32k")] + [
-        ("whisper-tiny", "train_4k")]
+        ("whisper-tiny", "train_4k"), ("whisper-tiny", "prefill_32k")]
 
 
 def main(argv=None) -> int:
@@ -259,7 +260,8 @@ def main(argv=None) -> int:
                     help="also lower xlstm-125m train_4k 16x16 at full depth")
     ap.add_argument("--against-reference", nargs="*", metavar="ARCH:SHAPE",
                     help="only set the given cells (default: every "
-                         "decode_32k cell and whisper-tiny train_4k) beside "
+                         "decode_32k cell and whisper-tiny's train_4k and "
+                         "prefill_32k) beside "
                          "the reference's dry-run")
     ap.add_argument("--by-module", nargs="+", metavar="ARCH:SHAPE",
                     help="only split the given cells' F by MODULES")

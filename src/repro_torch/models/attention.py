@@ -152,7 +152,9 @@ def _sdpa_on_shards(q: DTensor, k: DTensor, v: DTensor,
     of the sequence) over every key of its batch and heads, through the
     plain ``_sdpa`` on the shards; the output takes q's layout.  The keys
     are gathered along the sequence and sliced along the heads as q's are
-    (kv heads that are replicated are first repeated up to q's).  Left to
+    (kv heads that are replicated are first repeated up to q's).  A
+    (Sq, Skv) bias is sliced to the device's query rows; a (Skv,) key bias
+    holds for every row as it is.  Left to
     DTensor, the einsum flattens (batch, heads) while both are sharded,
     which some torch versions refuse and others do by replicating the
     attention or by laying the batch over every mesh axis."""
@@ -168,7 +170,7 @@ def _sdpa_on_shards(q: DTensor, k: DTensor, v: DTensor,
             for p, pq in zip(layout, q.placements)]
     k, v = (t.redistribute(mesh, layout).to_local(grad_placements=grad)
             for t in (k, v))
-    if bias is not None:                        # rows of q's seq shard
+    if bias is not None and bias.ndim == 2:     # rows of q's seq shard
         bias = distribute_tensor(
             bias, mesh, [Shard(0) if p == Shard(1) else Replicate()
                          for p in q.placements], src_data_rank=None
@@ -181,8 +183,11 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: Optional[torch.Tensor] = None,
                     kv_src: Optional[torch.Tensor] = None,
                     causal: Optional[bool] = None,
-                    window: int = 0) -> torch.Tensor:
-    """Full-sequence attention (train / prefill)."""
+                    window: int = 0,
+                    key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill).  ``key_bias`` (Skv,) is
+    an additive fp32 mask on the keys (the encoder's padded frames); with
+    one the attention takes the plain ``_sdpa``."""
     dt = cfg.compute_dtype
     x = x.to(dt)
     cross = kv_src is not None
@@ -202,14 +207,17 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = shard_hint(q, ("batch", "attn_seq", "heads", None))
     k = shard_hint(k, ("batch", "attn_seq", "kv_heads", None))
     v = shard_hint(v, ("batch", "attn_seq", "kv_heads", None))
-    if cfg.use_flash and not cross and q.shape[1] == k.shape[1]:
+    plain = key_bias is not None or cross or q.shape[1] != k.shape[1]
+    if cfg.use_flash and not plain:
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
-    elif cfg.attn_impl == "chunked" and not cross \
-            and q.shape[1] == k.shape[1] and q.shape[1] > cfg.attn_block_q:
+    elif cfg.attn_impl == "chunked" and not plain \
+            and q.shape[1] > cfg.attn_block_q:
         out = _blockwise_sdpa(q, k, v, cfg, causal, window)
     else:
         bias = _mask_bias(q.shape[1], k.shape[1], causal, window,
                           device=x.device)
+        if key_bias is not None:
+            bias = key_bias if bias is None else bias + key_bias
         out = _sdpa(q, k, v, bias, cfg)
     out = out.reshape(B, S, cfg.q_dim)
     return sp_matmul(out, p["wo"].to(dt))
