@@ -196,7 +196,9 @@ after:
               F(1x1) at most ``MOE_DECODE_REPEAT_MAX`` on 16x16 (each
               expert product once across the mesh), xlstm-125m's train_4k F x N /
               F(1x1) at most ``SSD_REPEAT_MAX`` on 16x16 (each device's
-              own run of SSD chunks), whisper-tiny's prefill_32k F x N /
+              own run of SSD chunks) and its all-gather a device at most
+              ``MLSTM_ALL_GATHER_MAX`` (each device's own tokens through
+              the mLSTM's row-parallel products), whisper-tiny's prefill_32k F x N /
               F(1x1) at most ``ENCDEC_REPEAT_MAX`` on 16x16 (the encoder
               on each device's own frames), the decode_32k 16x16
               all-gather a device of qwen2-moe-a2.7b and qwen2-7b at most
@@ -4209,10 +4211,21 @@ DRYRUN_BUDGET_S = 120.0
 MOE_REPEAT_MAX = 1.20
 #: dryrun: the most the MoE's decode_32k cell may count on 16x16 against
 #: one device, F x N / F(1x1): 3.6006 while every data-axis device computed
-#: every expert product of the step's one group (``MOE_DECODE_BEFORE``; the
-#: reference's ``MOE_DECODE_REFERENCE``)
-MOE_DECODE_REPEAT_MAX = 1.25
+#: every expert product of the step's one group (``MOE_DECODE_BEFORE``),
+#: 1.0078 while every model-axis device routed the group's tokens, 1.0000
+#: since each routes against its block of the router's columns and the
+#: experts (``moe._repeat_axes``), plus 0.02 of margin for another torch's
+#: lowering of the same step (the reference's ``MOE_DECODE_REFERENCE``)
+MOE_DECODE_REPEAT_MAX = 1.02
 MOE_DECODE_BEFORE, MOE_DECODE_REFERENCE = 3.6006, 1.4864
+#: dryrun: the most xlstm-125m's train_4k cell may all-gather on 16x16, bytes
+#: a device: 48.94 GB while ``sharding.sp_matmul`` moved the mLSTM's
+#: sequence-sharded u onto its channels for each of its four row-parallel
+#: products (``MLSTM_BEFORE``), 12.98 GB since each device multiplies its
+#: own tokens by the gathered weight (``ssm._tokens_matmul``); the
+#: reference's ``MLSTM_REFERENCE``
+MLSTM_ALL_GATHER_MAX = 14e9
+MLSTM_BEFORE, MLSTM_REFERENCE = 48.94e9, 3.00e9
 #: dryrun: the most xlstm-125m's train_4k cell may count on 16x16 against
 #: one device, F x N / F(1x1): 1.4024 while every model-axis device ran the
 #: SSD recurrence's chunks of the whole sequence (the reference: 1.0369)
@@ -4554,7 +4567,8 @@ def dryrun_phase(dev, say) -> None:
     its fp32 params, the planner's dp-16 term, within 1%.  The MoE's
     train cell counts F x N / F(1x1) at most ``MOE_REPEAT_MAX`` on 16x16
     and 2x16x16, its decode cell at most ``MOE_DECODE_REPEAT_MAX`` on
-    16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16, whisper's
+    16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16 and its
+    all-gather at most ``MLSTM_ALL_GATHER_MAX`` a device, whisper's
     prefill cell at most ``ENCDEC_REPEAT_MAX`` on 16x16, the
     decode cells of ``DECODE_CELLS`` all-gather at most
     ``DECODE_ALL_GATHER_MAX`` a device on 16x16, and one sLSTM block's
@@ -4629,7 +4643,8 @@ def dryrun_phase(dev, say) -> None:
         f"1x1 {dec_one.flops!r} (torch {torch.__version__}); F x 256 / "
         f"F(1x1) {repeat:.4f} (at most {MOE_DECODE_REPEAT_MAX}; "
         f"{MOE_DECODE_BEFORE} while every data-axis device computed every "
-        f"expert product; the reference {MOE_DECODE_REFERENCE})")
+        f"expert product, 1.0078 while every model-axis device routed "
+        f"every token; the reference {MOE_DECODE_REFERENCE})")
     check(repeat <= MOE_DECODE_REPEAT_MAX,
           f"the MoE's decode repeats its work on 16x16: {repeat:.4f}")
     ssd_one = cells[("xlstm-125m", "train_4k", "1x1")]
@@ -4641,6 +4656,14 @@ def dryrun_phase(dev, say) -> None:
         f"ran the whole sequence's SSD chunks; the reference 1.0369)")
     check(repeat <= SSD_REPEAT_MAX,
           f"the SSD recurrence repeats its work on 16x16: {repeat:.4f}")
+    gather = ssd_pod.wire_bytes_by_kind.get("all-gather", 0.0)
+    say(f"xlstm-125m train_4k 16x16: all-gather a device {gather!r} B "
+        f"(torch {torch.__version__}; at most {MLSTM_ALL_GATHER_MAX:g}; "
+        f"{MLSTM_BEFORE:g} while each row-parallel mLSTM product moved u "
+        f"onto its channels; the reference {MLSTM_REFERENCE:g}), wire "
+        f"{ssd_pod.wire_bytes!r} B, B_M {ssd_pod.mem_bytes!r}")
+    check(gather <= MLSTM_ALL_GATHER_MAX,
+          f"the mLSTM gathers {gather / 1e9:.4f} GB a device on 16x16")
     enc_one = cells[("whisper-tiny", "prefill_32k", "1x1")]
     enc_pod = cells[("whisper-tiny", "prefill_32k", "16x16")]
     repeat = enc_pod.flops * 256 / enc_one.flops

@@ -28,8 +28,11 @@ no collective moves a byte) and prints one line per measurement:
     train_4k 16x16 in minutes on a CPU;
   * with ``--by-module``, and only that, the given cells at full width and
     two layers (no probe) at 1x1 and 16x16 (or ``--mesh``): F x N /
-    F(1x1) of each function of ``MODULES`` that the step calls, summed
-    over its calls (the forward's; a train cell's backward is not split).
+    F(1x1) of each function of ``MODULES`` that the step calls, and the
+    wire bytes a device of the collectives issued while it runs, by kind,
+    each summed over its calls (the forward's; a train cell's backward is
+    not split; a function's sum holds the functions it calls, and a
+    collective that DTensor defers to a later op counts there).
 
 Usage::
 
@@ -185,8 +188,11 @@ def against_reference(cells, pods=("16x16",)) -> None:
 MODULES = (("moe", "_route_groups"), ("moe", "_dispatch"),
            ("moe", "_experts"), ("moe", "_combine"),
            ("attention", "decode_attention"), ("attention", "_project_qkv"),
-           ("encdec", "encode"), ("encdec", "_encode"),
-           ("transformer", "_head"))
+           ("attention", "write_row"), ("attention", "_sdpa_grouped"),
+           ("ffn", "apply_ffn"), ("common", "apply_norm"),
+           ("transformer", "_embed_decode"), ("transformer", "_head"),
+           ("hybrid", "decode_hymba_block"), ("mamba", "decode_mamba"),
+           ("encdec", "encode"), ("encdec", "_encode"))
 
 
 def by_module(cells, pods=("16x16",)) -> None:
@@ -194,7 +200,7 @@ def by_module(cells, pods=("16x16",)) -> None:
 
     from repro_torch import models
     from repro_torch.measure.counters import MeshCounter
-    live, flops, patched = [], {}, []
+    live, flops, wire, patched = [], {}, {}, []
 
     class Recorded(MeshCounter):
         def __enter__(self):
@@ -203,11 +209,19 @@ def by_module(cells, pods=("16x16",)) -> None:
 
     def counted(key, fn):
         def call(*args, **kwargs):
-            before = live[-1].flops
+            rec = live[-1]
+            before, sent = rec.flops, len(rec.collectives)
             out = fn(*args, **kwargs)
-            flops[key] = flops.get(key, 0.0) + live[-1].flops - before
+            flops[key] = flops.get(key, 0.0) + rec.flops - before
+            kinds = wire.setdefault(key, {})
+            for op in rec.collectives[sent:]:
+                kinds[op.kind] = kinds.get(op.kind, 0.0) + op.wire_bytes
             return out
         return call
+
+    def megabytes(kinds) -> str:
+        return ", ".join(f"{k} {v / 1e6:.4f}" for k, v in sorted(
+            kinds.items()) if v) or "none"
 
     mods = [importlib.import_module(f"repro_torch.models.{m.name}")
             for m in pkgutil.iter_modules(models.__path__)]
@@ -224,20 +238,25 @@ def by_module(cells, pods=("16x16",)) -> None:
             two = {"n_layers": 2}
             if get_config(arch).family == "encdec":
                 two["encoder_layers"] = 2
-            per = {}
+            per, sent = {}, {}
             for mesh in ("1x1",) + tuple(pods):
                 flops.clear()
+                wire.clear()
                 low = dryrun.lower_cell(arch, shape, mesh, overrides=two,
                                         probe=False)[1]
                 per[mesh] = dict(flops, step=low.flops)
+                sent[mesh] = dict(wire, step=low.wire_bytes_by_kind)
             for mesh in pods:
                 n = math.prod(dryrun._mesh_from_name(mesh)[0])
                 print(f"{arch} {shape} {mesh} at 2 layers, F x N / F(1x1) "
-                      f"(F x N, F(1x1)):", flush=True)
+                      f"(F x N, F(1x1)); wire MB a device by kind:",
+                      flush=True)
                 for key in sorted(per["1x1"], key=lambda k: k != "step"):
                     one, many = per["1x1"][key], per[mesh].get(key, 0.0) * n
-                    print(f"  {key}: {many / one:.4f} ({many:.5g}, "
-                          f"{one:.5g})", flush=True)
+                    ratio = f"{many / one:.4f}" if one else "-"
+                    print(f"  {key}: {ratio} ({many:.5g}, {one:.5g}); "
+                          f"{megabytes(sent[mesh].get(key, {}))}",
+                          flush=True)
     finally:
         dryrun.MeshCounter = MeshCounter
         for mod, name, fn in patched:

@@ -269,6 +269,17 @@ def whole_grad(x: Any) -> Any:
     return _WholeGrad.apply(x)
 
 
+def whole_rows(x: Any) -> Any:
+    """A decode step's residual or branch output (B, 1, D) laid out as its
+    embedding is: each data device its rows, whole on every other axis.  A
+    row-parallel product leaves it a partial sum; made whole once here,
+    every norm and product that reads it runs on each device's own copy.
+    Left partial, torch 2.13's DTensor reduce-scattered it at each norm
+    and made the normed rows whole again for each product that reads them
+    (q, k and v each, the FFN's gate and up each)."""
+    return shard_hint(x, ("batch", None, "embed"))
+
+
 def sp_matmul(x: Any, w: Any) -> Any:
     """``x @ w`` for an activation x (..., D) and a weight w (D, F), each
     device multiplying its own shards.

@@ -27,7 +27,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import shard_hint, sp_matmul
+from repro_torch.distributed.sharding import (shard_hint, sp_matmul,
+                                              whole_rows)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -165,7 +166,9 @@ def decode_hymba_block(p: Params, x: torch.Tensor, cache_row: Dict, pos: int,
     **The cache row is updated in place**: the new k and v row is written
     into its buffers at the token's slot (``attention.write_row``; the
     reference selects over the whole buffer, the values are the same), and
-    ``mM``, ``mn`` are replaced by the new Mamba state.
+    ``mM``, ``mn`` are replaced by the new Mamba state.  Under a mesh the
+    attention's and the Mamba's outputs and the residual are made whole
+    once each (``sharding.whole_rows``).
     """
     dt = cfg.compute_dtype
     B = x.shape[0]
@@ -181,11 +184,11 @@ def decode_hymba_block(p: Params, x: torch.Tensor, cache_row: Dict, pos: int,
     attn_mod.write_row(k, k_new, slot)
     attn_mod.write_row(v, v_new, slot)
     a = _sdpa_grouped(q, k, v, bias, cfg)
-    a = a.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(dt)
+    a = whole_rows(a.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(dt))
 
     m, (M, n) = mamba_mod.decode_mamba(
         p["mamba"], h, (cache_row["mM"], cache_row["mn"]), cfg)
     cache_row["mM"], cache_row["mn"] = M, n
-    x = x + _fuse(p, a, m, cfg)
-    return x + ffn_mod.apply_ffn(p["ffn"], apply_norm(p["ffn_norm"], x, cfg),
-                                 cfg)
+    x = x + _fuse(p, a, whole_rows(m), cfg)   # each branch normed whole
+    return whole_rows(x + ffn_mod.apply_ffn(
+        p["ffn"], apply_norm(p["ffn_norm"], x, cfg), cfg))

@@ -353,6 +353,40 @@ def _earlier(counts: torch.Tensor, mesh, grouped: Tuple):
     return every.to_local()[:run].sum(0)
 
 
+def _repeat_axes(mesh, grouped: Tuple) -> Tuple[Tuple[int, ...], int, int]:
+    """(the mesh axes on which every device holds the same tokens of the
+    groups laid out as ``grouped``, their devices n, this device's block
+    among them in mesh order): decode's one group, whose runs of tokens
+    the model axis does not split.  ((), 1, 0) where every axis splits."""
+    rep = tuple(i for i, p in enumerate(grouped)
+                if p.is_replicate() and mesh.size(i) > 1)
+    n, blk = 1, 0
+    for i in rep:
+        n *= mesh.size(i)
+        blk = blk * mesh.size(i) + mesh.get_local_rank(i)
+    return rep, n, blk
+
+
+def _gather_blocks(t: torch.Tensor, mesh, grouped: Tuple, rep) -> torch.Tensor:
+    """The blocks of dim 2 that the devices along ``rep`` hold of a local
+    ``t`` (G, Tg, e, ...) laid out as ``grouped`` elsewhere, gathered in
+    mesh order on each of them; its grad, the same on each, taken back to
+    the device's own block."""
+    from torch.distributed.tensor import DTensor, Shard
+    place = tuple(Shard(2) if i in rep else p for i, p in enumerate(grouped))
+    whole = DTensor.from_local(t, mesh, place, run_check=False)
+    return whole.redistribute(mesh, grouped).to_local(grad_placements=grouped)
+
+
+def _whole_over(t: torch.Tensor, mesh, grouped: Tuple, rep) -> torch.Tensor:
+    """``t``, the same on the devices along ``rep``, whose grad there (each
+    device's partial sum, from its block of experts) is all-reduced."""
+    from torch.distributed.tensor import DTensor, Partial
+    part = tuple(Partial() if i in rep else p for i, p in enumerate(grouped))
+    return DTensor.from_local(t, mesh, grouped, run_check=False
+                              ).to_local(grad_placements=part)
+
+
 def _route_groups(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
                   C: int, E_pad: int):
     """Each group's routing: (dispatch, combine) (G, Tg, E_pad, C) and the
@@ -365,21 +399,46 @@ def _route_groups(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     exclusive cumulative sum plus the choices of the earlier runs
     (``_earlier``): the devices hold the group's tokens in order, so the
     slots and ``keep`` are exactly the reference's.  The aux's means are
-    all-reduced (``_mean_across``)."""
+    all-reduced (``_mean_across``).
+
+    Where the devices of a mesh axis hold the same tokens (``_repeat_axes``:
+    decode's one group of B tokens, which a data device's B / n_data rows
+    cannot split further), each of them takes its block of the router's
+    columns and of the experts, both padded to a multiple of its devices.
+    Its logits are gathered (``_gather_blocks``), and the softmax, top-k
+    and slots run on the gathered logits on each of them (no product: they
+    count no F).  Its experts' block of the dispatch and combine comes
+    back sharded on that axis (``Shard(2)``: where the experts' weights are
+    split there too, ``_dispatch`` and ``_combine`` read only that block),
+    or gathered and cut back where the experts were padded.  The gates'
+    and xt's grads, each device's partial sum from its block, are
+    all-reduced there."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     E, k = cfg.n_experts, cfg.moe_top_k
-    mesh = None
+    mesh, rep = None, ()
     if isinstance(xt, DTensor):
-        from repro_torch.distributed.sharding import move
+        from repro_torch.distributed.sharding import move, whole_grad
         mesh, grouped = xt.device_mesh, tuple(xt.placements)
         split = tuple(Partial() if isinstance(p, Shard) else Replicate()
                       for p in grouped)
         T = xt.shape[0] * xt.shape[1]
-        router = move(router, (Replicate(),) * mesh.ndim
-                      ).to_local(grad_placements=split)
-        xt = xt.to_local(grad_placements=grouped)
+        rep, n, blk = _repeat_axes(mesh, grouped)
+        router = move(router, (Replicate(),) * mesh.ndim).to_local(
+            grad_placements=tuple(Partial() if i in rep else p
+                                  for i, p in enumerate(split)))
+        if rep:
+            xt = whole_grad(xt).to_local(grad_placements=tuple(
+                Partial() if i in rep else p for i, p in enumerate(grouped)))
+        else:
+            xt = xt.to_local(grad_placements=grouped)
     G, Tg, _ = xt.shape
-    logits = torch.einsum("gtd,de->gte", xt, router)
+    if rep:
+        e = -(-E // n)
+        cols = F.pad(router, (0, e * n - E)).narrow(1, blk * e, e)
+        logits = _gather_blocks(torch.einsum("gtd,de->gte", xt, cols), mesh,
+                                grouped, rep)[..., :E]
+    else:
+        logits = torch.einsum("gtd,de->gte", xt, router)
     if mesh is None:
         gates, idx, aux = route(logits.reshape(G * Tg, E), cfg)
     else:
@@ -405,12 +464,25 @@ def _route_groups(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     dt = xt.dtype
     slots = torch.arange(C, device=xt.device, dtype=pos.dtype)
     pos_oh = (pos[..., None] == slots).to(dt) * keep[..., None].to(dt)
+    gates = gates.to(dt)
+    if rep:                             # this device's block of the experts
+        e = -(-E_pad // n)
+        onehot = F.pad(onehot, (0, e * n - E_pad)).narrow(-1, blk * e, e)
+        gates = _whole_over(gates, mesh, grouped, rep)
     dispatch = torch.einsum("gtke,gtkc->gtec", onehot.to(dt), pos_oh)
-    combine = torch.einsum("gtec,gtk->gtec", dispatch, gates.to(dt))
-    if mesh is not None:
-        dispatch, combine = (DTensor.from_local(t, mesh, grouped,
-                                                run_check=False)
-                             for t in (dispatch, combine))
+    combine = torch.einsum("gtec,gtk->gtec", dispatch, gates)
+    if mesh is None:
+        return dispatch, combine, aux
+    place = grouped
+    if rep and E_pad % n:               # padded blocks: gathered, cut back
+        dispatch, combine = (
+            _gather_blocks(t, mesh, grouped, rep)[:, :, :E_pad]
+            for t in (dispatch, combine))
+    elif rep:                           # each device its experts' block
+        place = tuple(Shard(2) if i in rep else p
+                      for i, p in enumerate(grouped))
+    dispatch, combine = (DTensor.from_local(t, mesh, place, run_check=False)
+                         for t in (dispatch, combine))
     return dispatch, combine, aux
 
 

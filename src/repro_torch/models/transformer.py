@@ -48,7 +48,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.sharding import (shard_hint, sp_embedding,
-                                              sp_matmul)
+                                              sp_matmul, whole_rows)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import hybrid as hybrid_mod
@@ -327,7 +327,8 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     (B, 1, D) batch), and its aux is dropped.  A Hymba layer writes its k
     and v row into its buffer or ring (``hybrid.decode_hymba_block``); an
     xLSTM or Hymba layer's recurrent state is replaced by the new one in
-    its ``layer{i}`` dict.  With ``use_kernel_matmul`` the FFN products run
+    its ``layer{i}`` dict.  Under a mesh a dense or MoE layer's residual
+    is made whole once a sublayer (``sharding.whole_rows``).  With ``use_kernel_matmul`` the FFN products run
     the blocked-matmul kernel.
     """
     _require_ported(cfg)
@@ -356,7 +357,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
             a, _ = attn_mod.decode_attention(
                 blk["attn"], h, {"k": cache["k"][i], "v": cache["v"][i]},
                 pos, cfg, window=cfg.sliding_window)
-            x = x + a
+            x = whole_rows(x + a)
             h = apply_norm(blk["ffn_norm"], x, cfg)
-            x = x + _apply_ffn_or_moe(blk, h, cfg)[0]
+            x = whole_rows(x + _apply_ffn_or_moe(blk, h, cfg)[0])
     return _head(params, x, cfg), cache

@@ -90,8 +90,8 @@ LOGGED = {
          "collective-permute": 0.0510}),
     "xlstm-125m": (
         1.0000, 1.0666,
-        {"all-gather": 0.6704, "all-reduce": 0.1482, "all-to-all": 1.0795,
-         "reduce-scatter": 0.2995},
+        {"all-gather": 0.3863, "all-reduce": 0.1441, "all-to-all": 1.0795,
+         "reduce-scatter": 0.2051},
         {"all-gather": 0.4845, "all-reduce": 0.8777, "all-to-all": 1.2872,
          "collective-permute": 2.0134}),
     "whisper-tiny": (
