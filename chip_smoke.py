@@ -198,7 +198,9 @@ after:
               F(1x1) at most ``SSD_REPEAT_MAX`` on 16x16 (each device's
               own run of SSD chunks) and its all-gather a device at most
               ``MLSTM_ALL_GATHER_MAX`` (each device's own tokens through
-              the mLSTM's row-parallel products), whisper-tiny's prefill_32k F x N /
+              the mLSTM's products), smollm-135m's train_4k wire a device
+              at most ``SP_WIRE_MAX`` on 16x16 (the FFN's and the head's
+              products on each device's own tokens), whisper-tiny's prefill_32k F x N /
               F(1x1) at most ``ENCDEC_REPEAT_MAX`` on 16x16 (the encoder
               on each device's own frames), the decode_32k 16x16
               all-gather a device of qwen2-moe-a2.7b and qwen2-7b at most
@@ -4222,10 +4224,19 @@ MOE_DECODE_BEFORE, MOE_DECODE_REFERENCE = 3.6006, 1.4864
 #: a device: 48.94 GB while ``sharding.sp_matmul`` moved the mLSTM's
 #: sequence-sharded u onto its channels for each of its four row-parallel
 #: products (``MLSTM_BEFORE``), 12.98 GB since each device multiplies its
-#: own tokens by the gathered weight (``ssm._tokens_matmul``); the
-#: reference's ``MLSTM_REFERENCE``
+#: own tokens by the gathered weight (``sharding.tokens_matmul``), 0.66 GB
+#: since the up, gate and down products do too; the reference's
+#: ``MLSTM_REFERENCE``
 MLSTM_ALL_GATHER_MAX = 14e9
 MLSTM_BEFORE, MLSTM_REFERENCE = 48.94e9, 3.00e9
+#: dryrun: the most smollm-135m's train_4k cell may send on 16x16, bytes a
+#: device: 31.03 GB while ``sharding.sp_matmul`` moved the activations of
+#: the FFN's and the tied head's products under the sequence-parallel rules
+#: (``SP_BEFORE``), 13.70 GB since each device multiplies its own tokens by
+#: the gathered weight (``sharding.tokens_matmul``), plus 5%; the
+#: reference's ``SP_REFERENCE``
+SP_WIRE_MAX = 14.38e9
+SP_BEFORE, SP_REFERENCE = 31.03e9, 37.04e9
 #: dryrun: the most xlstm-125m's train_4k cell may count on 16x16 against
 #: one device, F x N / F(1x1): 1.4024 while every model-axis device ran the
 #: SSD recurrence's chunks of the whole sequence (the reference: 1.0369)
@@ -4568,7 +4579,8 @@ def dryrun_phase(dev, say) -> None:
     train cell counts F x N / F(1x1) at most ``MOE_REPEAT_MAX`` on 16x16
     and 2x16x16, its decode cell at most ``MOE_DECODE_REPEAT_MAX`` on
     16x16, the xLSTM's at most ``SSD_REPEAT_MAX`` on 16x16 and its
-    all-gather at most ``MLSTM_ALL_GATHER_MAX`` a device, whisper's
+    all-gather at most ``MLSTM_ALL_GATHER_MAX`` a device, smollm's train
+    cell's wire at most ``SP_WIRE_MAX`` a device on 16x16, whisper's
     prefill cell at most ``ENCDEC_REPEAT_MAX`` on 16x16, the
     decode cells of ``DECODE_CELLS`` all-gather at most
     ``DECODE_ALL_GATHER_MAX`` a device on 16x16, and one sLSTM block's
@@ -4664,6 +4676,15 @@ def dryrun_phase(dev, say) -> None:
         f"{ssd_pod.wire_bytes!r} B, B_M {ssd_pod.mem_bytes!r}")
     check(gather <= MLSTM_ALL_GATHER_MAX,
           f"the mLSTM gathers {gather / 1e9:.4f} GB a device on 16x16")
+    sp_pod = cells[("smollm-135m", "train_4k", "16x16")]
+    say(f"smollm-135m train_4k 16x16: wire a device {sp_pod.wire_bytes!r} B "
+        f"(torch {torch.__version__}; at most {SP_WIRE_MAX:g}; {SP_BEFORE:g} "
+        f"while the FFN's and the head's products moved the activations; "
+        f"the reference {SP_REFERENCE:g}), F {sp_pod.flops!r}, B_M "
+        f"{sp_pod.mem_bytes!r}")
+    check(sp_pod.wire_bytes <= SP_WIRE_MAX,
+          f"smollm's train cell sends {sp_pod.wire_bytes / 1e9:.4f} GB a "
+          f"device on 16x16")
     enc_one = cells[("whisper-tiny", "prefill_32k", "1x1")]
     enc_pod = cells[("whisper-tiny", "prefill_32k", "16x16")]
     repeat = enc_pod.flops * 256 / enc_one.flops

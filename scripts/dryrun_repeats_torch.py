@@ -17,15 +17,21 @@ no collective moves a byte) and prints one line per measurement:
     F, the wire by kind and the seconds it took (minutes: the sLSTM's
     4,096 steps a layer run on fake tensors);
   * with ``--against-reference``, and only that, the given cells (by
-    default every decode_32k cell and whisper-tiny's train_4k and
-    prefill_32k) at 1x1 and 16x16 (or the meshes ``--mesh`` names) in
-    both packages, at the CLIs' k = 2, 4 probe depth: per device
-    F x N / F(1x1), all-gather, all-reduce and total wire bytes and B_M,
-    the port's beside the reference's.  The reference's dry-run CLI runs
-    in a subprocess (it sets ``XLA_FLAGS`` before jax starts) and writes
-    its reports to a temporary directory; a full decode cell compiles
-    there in seconds, whisper-tiny train_4k 16x16 in ~20 s and xlstm-125m
-    train_4k 16x16 in minutes on a CPU;
+    default every decode_32k cell, whisper-tiny's train_4k and
+    prefill_32k, smollm-135m's train_4k and prefill_32k and qwen2-7b's
+    train_4k) at 1x1 and 16x16 (or the meshes ``--mesh`` names) in both
+    packages, at the CLIs' k = 2, 4 probe depth: per device F x N /
+    F(1x1), all-gather, all-reduce and total wire bytes and B_M, the
+    port's beside the reference's.  The reference's encdec runs its layers
+    under ``lax.scan`` whatever ``scan_layers`` says, and XLA counts a
+    scanned body once, so its probe reads one encoder and one decoder
+    layer at any depth; an encdec cell of the port is lowered at one layer
+    a stack (``n_layers = encoder_layers = 1``, no probe) beside it, and
+    its line says so.  The reference's dry-run CLI runs in a subprocess
+    (it sets ``XLA_FLAGS`` before jax starts) and writes its reports to a
+    temporary directory; a full decode cell compiles there in seconds,
+    whisper-tiny train_4k 16x16 in ~20 s and xlstm-125m train_4k 16x16 in
+    minutes on a CPU;
   * with ``--by-module``, and only that, the given cells at full width and
     two layers (no probe) at 1x1 and 16x16 (or ``--mesh``): F x N /
     F(1x1) of each function of ``MODULES`` that the step calls, and the
@@ -160,7 +166,14 @@ def against_reference(cells, pods=("16x16",)) -> None:
     print(f"reference: {len(ref)} lowerings in {time.time() - t0:.1f} s",
           flush=True)
     for arch, shape in cells:
-        port = {m: json.loads(dryrun.lower_cell(arch, shape, m)[0].to_json())
+        kw, like = {}, ""
+        if get_config(arch).family == "encdec":
+            kw = {"overrides": {"n_layers": 1, "encoder_layers": 1},
+                  "probe": False}
+            like = (" (port at one layer a stack: the reference scans "
+                    "encdec's layers and counts one)")
+        port = {m: json.loads(dryrun.lower_cell(arch, shape, m, **kw)[0]
+                              .to_json())
                 for m in meshes}
         p1, r1 = port["1x1"], ref[(arch, shape, "1x1")]
         for mesh in pods:
@@ -178,21 +191,24 @@ def against_reference(cells, pods=("16x16",)) -> None:
                   f"all-gather {pair(kind('all-gather'))} GB; all-reduce "
                   f"{pair(kind('all-reduce'))} GB; wire "
                   f"{pair(lambda rep: rep['wire_bytes'] / 1e9)} GB; B_M "
-                  f"{pair(lambda rep: rep['mem_bytes'] / 1e9)} GB",
+                  f"{pair(lambda rep: rep['mem_bytes'] / 1e9)} GB{like}",
                   flush=True)
 
 
 #: the functions ``--by-module`` splits a cell's F by: (module of
-#: ``repro_torch.models``, name), each wrapped wherever a module of the
-#: package holds it
+#: ``repro_torch.models``, or of ``repro_torch`` where dotted, and name),
+#: each wrapped wherever a module of ``repro_torch.models`` holds it
 MODULES = (("moe", "_route_groups"), ("moe", "_dispatch"),
            ("moe", "_experts"), ("moe", "_combine"),
            ("attention", "decode_attention"), ("attention", "_project_qkv"),
            ("attention", "write_row"), ("attention", "_sdpa_grouped"),
+           ("attention", "apply_attention"), ("attention", "_sdpa"),
            ("ffn", "apply_ffn"), ("common", "apply_norm"),
            ("transformer", "_embed_decode"), ("transformer", "_head"),
            ("hybrid", "decode_hymba_block"), ("mamba", "decode_mamba"),
-           ("encdec", "encode"), ("encdec", "_encode"))
+           ("encdec", "encode"), ("encdec", "_encode"),
+           ("encdec", "_logits"),
+           ("distributed.sharding", "tokens_matmul"))
 
 
 def by_module(cells, pods=("16x16",)) -> None:
@@ -207,8 +223,14 @@ def by_module(cells, pods=("16x16",)) -> None:
             live.append(self)
             return super().__enter__()
 
+        def __exit__(self, *exc):
+            live.remove(self)
+            return super().__exit__(*exc)
+
     def counted(key, fn):
         def call(*args, **kwargs):
+            if not live:        # outside a count (whisper's abstract cache)
+                return fn(*args, **kwargs)
             rec = live[-1]
             before, sent = rec.flops, len(rec.collectives)
             out = fn(*args, **kwargs)
@@ -226,11 +248,12 @@ def by_module(cells, pods=("16x16",)) -> None:
     mods = [importlib.import_module(f"repro_torch.models.{m.name}")
             for m in pkgutil.iter_modules(models.__path__)]
     for home, name in MODULES:
-        fn = getattr(importlib.import_module(f"repro_torch.models.{home}"),
-                     name)
+        where = home if "." in home else f"models.{home}"
+        fn = getattr(importlib.import_module(f"repro_torch.{where}"), name)
         for mod in mods:
             if getattr(mod, name, None) is fn:
-                setattr(mod, name, counted(f"{home}.{name}", fn))
+                setattr(mod, name, counted(
+                    f"{home.rsplit('.', 1)[-1]}.{name}", fn))
                 patched.append((mod, name, fn))
     dryrun.MeshCounter = Recorded
     try:
@@ -270,7 +293,9 @@ def _cells(names) -> list:
         return [tuple(n.split(":", 1)) for n in names]
     return [(a, "decode_32k") for a in ASSIGNED
             if applicable(get_config(a).family, "decode_32k")] + [
-        ("whisper-tiny", "train_4k"), ("whisper-tiny", "prefill_32k")]
+        ("whisper-tiny", "train_4k"), ("whisper-tiny", "prefill_32k"),
+        ("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
+        ("qwen2-7b", "train_4k")]
 
 
 def main(argv=None) -> int:
@@ -279,8 +304,9 @@ def main(argv=None) -> int:
                     help="also lower xlstm-125m train_4k 16x16 at full depth")
     ap.add_argument("--against-reference", nargs="*", metavar="ARCH:SHAPE",
                     help="only set the given cells (default: every "
-                         "decode_32k cell and whisper-tiny's train_4k and "
-                         "prefill_32k) beside "
+                         "decode_32k cell, whisper-tiny's train_4k and "
+                         "prefill_32k, smollm-135m's train_4k and "
+                         "prefill_32k and qwen2-7b's train_4k) beside "
                          "the reference's dry-run")
     ap.add_argument("--by-module", nargs="+", metavar="ARCH:SHAPE",
                     help="only split the given cells' F by MODULES")

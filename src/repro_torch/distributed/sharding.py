@@ -325,6 +325,124 @@ def sp_matmul(x: Any, w: Any) -> Any:
     return DTensor.from_local(y, x.device_mesh, out, run_check=False)
 
 
+def _local_numel(t: DTensor) -> int:
+    """Elements of one device's shard of ``t`` (its dims divided evenly)."""
+    mesh = t.device_mesh
+    return math.prod(t.shape) // math.prod(
+        mesh.size(i) for i, p in enumerate(t.placements)
+        if isinstance(p, Shard))
+
+
+def _weight_gathers(x: Any, w: Any, bias: Any
+                    ) -> Optional[Tuple[list, list, list]]:
+    """The plan of ``tokens_matmul``: (the mesh dims on which w is
+    gathered, w's grad placements, the bias's), or None where the product
+    keeps ``sp_matmul``'s form."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and (bias is None or isinstance(bias, DTensor))):
+        return None
+    last = x.ndim - 1
+    pb = (bias.placements if bias is not None
+          else (Replicate(),) * len(w.placements))
+    gather, gw, gb = [], [], []
+    for px, pw, p in zip(x.placements, w.placements, pb):
+        if not (px.is_replicate() or isinstance(px, Shard)
+                and px.dim < last) or isinstance(pw, Partial):
+            return None                 # x's channels split, or a partial
+        tokens = isinstance(px, Shard)
+        if isinstance(pw, Shard):
+            # a weight split where x's batch is (FSDP's layout), or where
+            # x's tokens are whole (tensor parallelism), keeps sp_matmul
+            if not tokens or px.dim == 0:
+                return None
+            gather.append(len(gw))
+            column = pw.dim == 1
+            if not (p.is_replicate() or column and p == Shard(0)):
+                return None
+            gb.append(p if column and isinstance(p, Shard) else Partial())
+        elif not p.is_replicate():
+            return None
+        else:
+            gb.append(Partial() if tokens else p)
+        gw.append(pw if isinstance(pw, Shard) else
+                  Partial() if tokens else pw)
+    if not gather:
+        return None
+    # the bytes each device receives, axis by axis in the order they run:
+    # w gathered, against what sp_matmul moves there (x's tokens gathered,
+    # and against a row shard the partial output's reduction too)
+    mesh = x.device_mesh
+    wb = _local_numel(w) * w.element_size()
+    xb = _local_numel(x) * x.element_size()
+    yb = xb // x.shape[-1] * w.shape[1]
+    w_in = x_in = 0
+    for i in reversed(gather):
+        n = mesh.size(i)
+        w_in += wb * (n - 1)
+        x_in += (xb + (yb if w.placements[i].dim == 0 else 0)) * (n - 1)
+        wb, xb, yb = wb * n, xb * n, yb * n
+    return (gather, gw, gb) if w_in < x_in else None
+
+
+def _gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t`` gathered along ``dim`` over ``group`` (a mesh and one of its
+    dims), differentiably.  Torch 2.11's all-gather takes a contiguous
+    input only: a transposed matrix (the tied head, ``embed.T``) gathers
+    its contiguous transpose, with no copy."""
+    from torch.distributed import _functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single_autograd", None) or \
+        funcol.all_gather_tensor_autograd          # torch 2.11's name
+    if t.ndim == 2 and not t.is_contiguous() and t.T.is_contiguous():
+        return gather(t.T, 1 - dim, group).T
+    return gather(t.contiguous(), dim, group)
+
+
+def tokens_matmul(x: Any, w: Any, bias: Any = None) -> Any:
+    """``x @ w (+ bias)`` for an activation x (..., D), a weight w (D, F)
+    and a bias (F,), each device multiplying its own tokens by the
+    gathered weight, as the reference's XLA lays out these products.
+
+    Where a mesh axis shards x's tokens (a leading dim: the sequence under
+    the sequence-parallel rules) and w (its rows or its columns),
+    ``sp_matmul`` moves the activation: it gathers x's tokens against a
+    column shard, and moves x onto its channels against a row shard,
+    leaving a partial sum to reduce.  Here w is gathered along its sharded
+    dim on that axis instead (innermost axis first: DTensor nests the
+    shards of one dim in mesh order), so each device multiplies its own
+    tokens by the whole weight and the output keeps x's placements.  A
+    bias sharded with w's columns is gathered with them.  w's grad on that
+    axis is each device's partial sum, reduce-scattered onto w's shards by
+    the gather's backward; on an axis where w is replicated it is what
+    ``sp_matmul`` hands back (a partial sum where x's tokens are split).
+
+    The weight form is taken only where the weight's bytes gathered are
+    fewer than the activation's that ``sp_matmul`` would move (x's tokens
+    gathered; against a row shard, its partial output reduced).  Any other
+    layout keeps ``sp_matmul``, the bias added to its output: decode's
+    (B, 1, D) rows, whose tokens no axis splits; plain tensors (one device:
+    ``place`` lays out nothing on a mesh of one); FSDP's weights, split
+    over the batch's devices; a partial x.
+    """
+    plan = _weight_gathers(x, w, bias)
+    if plan is None:
+        y = sp_matmul(x, w)
+        return y if bias is None else y + bias.to(y.dtype)
+    gather, gw, gb = plan
+    mesh = x.device_mesh
+    wl = w.to_local(grad_placements=gw)
+    bl = None if bias is None else bias.to_local(grad_placements=gb)
+    for i in reversed(gather):
+        wl = _gather(wl, w.placements[i].dim, (mesh, i))
+        if bl is not None and isinstance(bias.placements[i], Shard):
+            bl = _gather(bl, 0, (mesh, i))
+    y = x.to_local(grad_placements=x.placements) @ wl
+    if bl is not None:
+        y = y + bl.to(y.dtype)
+    out = torch.empty(tuple(x.shape[:-1]) + (w.shape[1],), device="meta")
+    return DTensor.from_local(y, mesh, x.placements, run_check=False,
+                              shape=out.shape, stride=out.stride())
+
+
 def sp_embedding(ids: Any, table: Any) -> Any:
     """``F.embedding(ids, table)``, each device looking up in its own rows.
 

@@ -19,8 +19,9 @@ layer's self-attention runs it causal; cross-attention stays the plain
 ``cfg.use_kernel_matmul`` the FFN products run the blocked-matmul kernel,
 the GELU and the bias in its epilogue.  Under a mesh the reference's
 ``shard_hint`` sites hold the residual stream and the logits, and the
-lookup and the tied head run on the shards (``sharding.sp_embedding``,
-``sp_matmul``).  Where the ``seq`` rule's mesh extent does not divide
+lookup runs on the shards (``sharding.sp_embedding``) and the tied head
+and the FFN's products multiply each device's own tokens by the gathered
+weight (``sharding.tokens_matmul``).  Where the ``seq`` rule's mesh extent does not divide
 the encoder's frames (whisper-tiny's 1,500 on a 16-wide model axis),
 ``_encode`` pads them with zero rows to a multiple of it, so that every
 device runs the encoder and the cross-attention's K/V projections on its
@@ -45,7 +46,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.sharding import (bound_mesh, logical_spec,
                                               replicate_inner, shard_hint,
-                                              sp_embedding, sp_matmul)
+                                              sp_embedding, sp_matmul,
+                                              tokens_matmul)
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
@@ -190,9 +192,10 @@ def encode(params: Params, frames: torch.Tensor,
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The decoder's final norm, then the tied head in the compute dtype."""
+    """The decoder's final norm, then the tied head in the compute dtype
+    (``sharding.tokens_matmul``, as ``transformer._head``)."""
     x = apply_norm(params["dec_norm"], x, cfg)
-    return sp_matmul(x, params["dec_embed"].T.to(cfg.compute_dtype))
+    return tokens_matmul(x, params["dec_embed"].T.to(cfg.compute_dtype))
 
 
 def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,

@@ -3,7 +3,10 @@
 The port of ``src/repro/models/ffn.py``.  ``cfg.use_kernel_matmul`` routes
 the products through ``kernels.ops.matmul`` (the blocked-matmul CUDA
 kernel, with the SwiGLU gate's silu fused into it), as the JAX package's
-``use_pallas_matmul`` routes them through its Pallas kernel.
+``use_pallas_matmul`` routes them through its Pallas kernel.  Under a mesh
+the products run through ``sharding.tokens_matmul``: under the
+sequence-parallel rules each device multiplies its own tokens by the
+gathered weight (and bias), as the reference's XLA lays them out.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.distributed.sharding import sp_matmul
+from repro_torch.distributed.sharding import tokens_matmul
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import activation, dense_init, init_rng, zeros
 from repro_torch.models.config import ModelConfig, Params, Specs
@@ -71,9 +74,7 @@ def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _mm(a: torch.Tensor, b: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
         act: Optional[str] = None) -> torch.Tensor:
-    y = sp_matmul(a, b)
-    if bias is not None:
-        y = y + bias.to(y.dtype)
+    y = tokens_matmul(a, b, bias)
     if act is not None:
         y = activation(act, y)
     return y

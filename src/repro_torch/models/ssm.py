@@ -18,8 +18,8 @@ here.  Training takes autograd through both, the sLSTM's loop included.
 
 Under a mesh the mLSTM's products run on the shards (``sharding.sp_matmul``)
 with the reference's ``shard_hint`` sites, the four products of the
-sequence-sharded u on each device's own tokens against the gathered weight
-(``_tokens_matmul``), and the log-sigmoid gates on each device's shard
+sequence-sharded u and the down product on each device's own tokens
+against the gathered weight (``sharding.tokens_matmul``), and the log-sigmoid gates on each device's shard
 (``_log_sigmoid``); the sLSTM's recurrence runs on local
 tensors, each device its batch rows and channels (``_channels``), its
 sequence moved once a layer.
@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import shard_hint, sp_matmul
+from repro_torch.distributed.sharding import (shard_hint, sp_matmul,
+                                              tokens_matmul)
 from repro_torch.models.attention import _scale
 from repro_torch.models.common import (activation, dense_init, init_rng, ones,
                                        zeros)
@@ -94,66 +95,23 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
                               x.device_mesh, place, run_check=False)
 
 
-def _tokens_matmul(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``u @ w`` for a weight ``w`` whose rows u's channels index, each
-    device multiplying its own tokens where it can.
-
-    Where a mesh axis shards u's tokens (a leading dim: the sequence under
-    the sequence-parallel rules) and w's rows (``Shard(0)``), ``sp_matmul``
-    would move u from its tokens to its channels and hand back a partial
-    sum.  Here w's rows are gathered on that axis instead (an all-gather of
-    the weight, far smaller than u at a train or prefill shape), so each
-    device multiplies its own tokens by the whole weight and the output
-    keeps u's shards.  w's grad on that axis is each device's partial sum,
-    reduce-scattered onto its rows by the gather's backward; on an axis
-    where w is replicated it is what ``sp_matmul`` hands back (a partial
-    sum where u's tokens are split).  Elsewhere (decode's one token a
-    row, which the axis does not split; one device; any other layout of
-    w) this is ``sp_matmul``."""
-    from torch.distributed import _functional_collectives as funcol
-    from torch.distributed.tensor import DTensor, Partial, Shard
-    if not (isinstance(u, DTensor) and isinstance(w, DTensor)):
-        return sp_matmul(u, w)
-    last = u.ndim - 1
-    gather, gw = [], []
-    for i, (pu, pw) in enumerate(zip(u.placements, w.placements)):
-        tokens = isinstance(pu, Shard) and pu.dim < last
-        if pw == Shard(0) and tokens:
-            gather.append(i)
-            gw.append(pw)
-        elif pw.is_replicate():
-            gw.append(Partial() if tokens else pw)
-        else:
-            return sp_matmul(u, w)
-    if not gather or not all(p.is_replicate() or isinstance(p, Shard)
-                             and p.dim < last for p in u.placements):
-        return sp_matmul(u, w)
-    mesh = u.device_mesh
-    wl = w.to_local(grad_placements=gw)
-    gather_rows = getattr(funcol, "all_gather_single_autograd", None) or \
-        funcol.all_gather_tensor_autograd          # torch 2.11's name
-    for i in reversed(gather):          # DTensor nests row shards in mesh order
-        wl = gather_rows(wl, 0, (mesh, i))
-    y = u.to_local(grad_placements=u.placements) @ wl
-    return DTensor.from_local(y, mesh, u.placements, run_check=False)
-
-
 def _mlstm_qkvg(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """(u, z, q, k·i, v, log f) of the compute-dtype ``x`` (B, S, D).  q and
     k are divided by sqrt(dh) rounded to the compute dtype, as the
     reference divides by ``jnp.sqrt(dh).astype(dt)``.  Under a mesh the
-    four products of u run on each device's tokens (``_tokens_matmul``)."""
+    four products of u run on each device's tokens (``tokens_matmul``)."""
     dt = cfg.compute_dtype
     H, dh = _heads(cfg)
     B, S, _ = x.shape
-    u = shard_hint(sp_matmul(x, p["w_up"].to(dt)), ("batch", "seq", "ffn"))
-    z = F.silu(shard_hint(sp_matmul(x, p["w_gate"].to(dt)),
+    u = shard_hint(tokens_matmul(x, p["w_up"].to(dt)),
+                   ("batch", "seq", "ffn"))
+    z = F.silu(shard_hint(tokens_matmul(x, p["w_gate"].to(dt)),
                           ("batch", "seq", "ffn")))
     scale = _scale(dh, dt)
-    q = _tokens_matmul(u, p["wq"].to(dt)).reshape(B, S, H, dh) / scale
-    k = _tokens_matmul(u, p["wk"].to(dt)).reshape(B, S, H, dh) / scale
-    v = _tokens_matmul(u, p["wv"].to(dt)).reshape(B, S, H, dh)
-    gif = (_tokens_matmul(u, p["w_if"].to(dt)) + p["b_if"].to(dt)).float()
+    q = tokens_matmul(u, p["wq"].to(dt)).reshape(B, S, H, dh) / scale
+    k = tokens_matmul(u, p["wk"].to(dt)).reshape(B, S, H, dh) / scale
+    v = tokens_matmul(u, p["wv"].to(dt)).reshape(B, S, H, dh)
+    gif = (tokens_matmul(u, p["w_if"].to(dt)) + p["b_if"].to(dt)).float()
     i_gate = torch.sigmoid(gif[..., :H])               # (B,S,H)
     log_f = _log_sigmoid(gif[..., H:])                 # (B,S,H), <= 0
     return u, z, q, k * i_gate[..., None].to(dt), v, log_f
@@ -169,7 +127,7 @@ def apply_mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y, _ = chunked_linear_recurrence(q, k, v, log_f, chunk=chunk,
                                      normalize=True)
     y = y.reshape(B, S, H * dh) + u * p["skip_scale"].to(dt)
-    return sp_matmul(y * z, p["w_down"].to(dt))
+    return tokens_matmul(y * z, p["w_down"].to(dt))
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int,

@@ -48,7 +48,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.sharding import (shard_hint, sp_embedding,
-                                              sp_matmul, whole_rows)
+                                              tokens_matmul, whole_rows)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import hybrid as hybrid_mod
@@ -245,10 +245,12 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
 
 
 def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The final norm, then the logits ``x @ head`` in the compute dtype."""
+    """The final norm, then the logits ``x @ head`` in the compute dtype;
+    under the sequence-parallel rules each device's own tokens against the
+    gathered head (``sharding.tokens_matmul``), the logits on x's shards."""
     x = apply_norm(params["final_norm"], x, cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return sp_matmul(x, head.to(cfg.compute_dtype))
+    return tokens_matmul(x, head.to(cfg.compute_dtype))
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig

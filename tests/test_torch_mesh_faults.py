@@ -5,9 +5,10 @@
    tokens and each weight on its rows on the model axis, so
    ``sharding.sp_matmul`` moved u onto its channels (an all-gather on a
    CPU mesh) four times a layer and again in the backward.
-   ``ssm._tokens_matmul`` gathers the weight instead and multiplies each
-   device's own tokens by it; decode's one token a row, which the axis
-   does not split, keeps ``sp_matmul``.
+   ``sharding.tokens_matmul`` gathers the weight instead and multiplies
+   each device's own tokens by it (the up, gate and down products' too);
+   decode's one token a row, which the axis does not split, keeps
+   ``sp_matmul``.
 2. **The MoE's routing in decode.**  A decode step's one group of B
    tokens is split over the data axis only, so every model-axis device
    routed the same tokens.  ``moe._route_groups`` now gives each of them
@@ -103,37 +104,40 @@ def _lower_mlstm(dims, B, S, shape):
 
 
 def _gathered(monkeypatch):
-    """The ``_tokens_matmul`` calls that gathered their weight (None for
-    the ones that fell back to ``sp_matmul``)."""
+    """The mLSTM's ``tokens_matmul`` calls that gathered their weight
+    (None for the ones that fell back to ``sp_matmul``)."""
     calls = []
-    real = ssm._tokens_matmul
+    real, plain = sh.tokens_matmul, sh.sp_matmul
 
     def spy(u, w):
         fell = []
-        monkeypatch.setattr(ssm, "sp_matmul",
-                            lambda *a: fell.append(1) or sh.sp_matmul(*a))
+        monkeypatch.setattr(sh, "sp_matmul",
+                            lambda *a: fell.append(1) or plain(*a))
         try:
             out = real(u, w)
         finally:
-            monkeypatch.setattr(ssm, "sp_matmul", sh.sp_matmul)
+            monkeypatch.setattr(sh, "sp_matmul", plain)
         calls.append(None if fell else tuple(w.shape))
         return out
-    monkeypatch.setattr(ssm, "_tokens_matmul", spy)
+    monkeypatch.setattr(ssm, "tokens_matmul", spy)
     return calls
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_mlstm_projections_multiply_each_devices_tokens(mesh, monkeypatch):
-    """At (8, 64) under the train rules: the four products gather their
-    weight; F is the parent form's (``_tokens_matmul`` as ``sp_matmul``)
-    to the flop, the all-gather at most half of it and the wire less."""
+    """At (8, 64) under the train rules: the four products of u and the
+    up, gate and down products gather their weight; F is the parent form's
+    (``tokens_matmul`` as ``sp_matmul``) to the flop, the all-gather at
+    most half of it and the wire less."""
     dims = MESHES[mesh]
     calls = _gathered(monkeypatch)
     low = _lower_mlstm(dims, 8, 64, "train_4k")
     cfg = _mlstm_cfg()
     H, dh = ssm._heads(cfg)
-    assert calls == [(H * dh, H * dh)] * 3 + [(H * dh, 2 * H)]
-    monkeypatch.setattr(ssm, "_tokens_matmul", sh.sp_matmul)
+    D = cfg.d_model
+    assert calls == [(D, H * dh)] * 2 + [(H * dh, H * dh)] * 3 + [
+        (H * dh, 2 * H), (H * dh, D)]
+    monkeypatch.setattr(ssm, "tokens_matmul", sh.sp_matmul)
     parent = _lower_mlstm(dims, 8, 64, "train_4k")
     assert low.flops == parent.flops
     assert _wire(low, "all-gather") <= 0.5 * _wire(parent, "all-gather")
@@ -149,8 +153,8 @@ def test_mlstm_decode_keeps_sp_matmul(mesh, monkeypatch):
     dims = MESHES[mesh]
     calls = _gathered(monkeypatch)
     low = _lower_mlstm(dims, 4, 1, "decode_32k")
-    assert calls == [None] * 4
-    monkeypatch.setattr(ssm, "_tokens_matmul", sh.sp_matmul)
+    assert calls == [None] * 6
+    monkeypatch.setattr(ssm, "tokens_matmul", sh.sp_matmul)
     parent = _lower_mlstm(dims, 4, 1, "decode_32k")
     assert (low.flops, low.mem_bytes) == (parent.flops, parent.mem_bytes)
     assert low.wire_bytes_by_kind == parent.wire_bytes_by_kind
@@ -336,20 +340,20 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 CASES = json.loads(sys.argv[2])
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 gathered = []
-real = ssm._tokens_matmul
+real, plain = sh.tokens_matmul, sh.sp_matmul
 
 
 def spy(u, w):
     fell = []
-    ssm.sp_matmul = lambda *a: fell.append(1) or sh.sp_matmul(*a)
+    sh.sp_matmul = lambda *a: fell.append(1) or plain(*a)
     try:
         return real(u, w)
     finally:
-        ssm.sp_matmul = sh.sp_matmul
+        sh.sp_matmul = plain
         gathered.append(not fell)
 
 
-ssm._tokens_matmul = spy
+ssm.tokens_matmul = spy
 
 
 def full(t):
@@ -547,11 +551,18 @@ def on_four_ranks(tmp_path_factory):
 def test_mlstm_gives_one_process_values(case, on_four_ranks):
     """The layer's output and every grad (the nine weights and x), or the
     decode step's output and state, within 1e-5 of one process's; the
-    four products gather their weight in train and fall back in decode."""
+    four products of u and the down product gather their weight in train,
+    and the up and gate products on 1x4 (on 2x2 a device's 2 x 16 x 48 of
+    x are fewer than the 48 x 48 of w_up it would receive: the byte rule
+    keeps ``sp_matmul``); the six of x and u fall back in decode."""
     res = on_four_ranks[case]
     assert "error" not in res, res.get("error")
     assert max(res["errs"]) <= FP32_TOL, res["errs"]
-    assert res["gathered"] == [False] * 4 + ["train" in case] * 4
+    if "train" in case:
+        want = [False] * 7 + ["1x4" in case] * 2 + [True] * 5
+    else:
+        want = [False] * 12
+    assert res["gathered"] == want
 
 
 @pytest.mark.parametrize("case", sorted(c for c in CASES
